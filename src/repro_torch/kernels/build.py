@@ -3,8 +3,9 @@
 Each kernel is one ``.cu`` source with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/kernels/`` at the repository root (no PyTorch headers, no
-``ninja``: a build takes seconds).  A library is named after its source's
-content hash, so an edited source rebuilds and an unchanged one is reused.
+``ninja``: a build takes seconds).  A library is named after the content
+hash of its source and of the headers (``*.cuh``) beside it, so an edited
+source or header rebuilds and an unchanged one is reused.
 ``build()`` starts one ``nvcc`` per missing library, all together, and
 waits for them.  Nothing is built when a module is imported: the first
 launch of a kernel builds it.
@@ -27,6 +28,8 @@ BUILD_DIR = REPO / "build" / "kernels"
 # kernel name -> source, relative to this package
 SOURCES: Dict[str, str] = {
     "ring_chunk_attention": "flash_attention/csrc/ring_chunk_attention.cu",
+    "flash_attention_fwd": "flash_attention/csrc/flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -50,8 +53,11 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source_path(name).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = source_path(name)
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -1,10 +1,18 @@
-"""Wrapper of the ring-chunk attention kernel (the serving path's fused
-prefill attention).
+"""Wrappers of the port's attention kernels.
 
-For tensors on the card ``ring_chunk_attention`` launches the hand-written
-CUDA kernel (``csrc/ring_chunk_attention.cu``) or raises; for tensors on
-the CPU it computes the plain version of ``ref.py``.  There is no other
-fallback.  ``ring_chunk_attention.launches`` counts kernel launches.
+* ``ring_chunk_attention``: the serving path's fused prefill attention
+  (``csrc/ring_chunk_attention.cu``).
+* ``flash_attention``: full-sequence GQA attention with its gradient, the
+  training path's (``csrc/flash_attention_fwd.cu`` and
+  ``csrc/flash_attention_bwd.cu``), through a ``torch.autograd.Function``
+  whose forward calls ``flash_attention_fwd`` and whose backward calls
+  ``flash_attention_bwd``.
+
+For tensors on the card each wrapper launches its hand-written CUDA kernel
+or raises; for tensors on the CPU it computes the plain version of
+``ref.py``.  There is no other fallback.  ``ring_chunk_attention.launches``,
+``flash_attention.launches`` (forward kernel) and
+``flash_attention_bwd.launches`` (one per dq + dk/dv pair) count launches.
 """
 from __future__ import annotations
 
@@ -96,3 +104,163 @@ def ring_chunk_attention(q, k_new, v_new, k_cache, v_cache, pos, n_tokens, *,
 
 
 ring_chunk_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence flash attention
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _flash_kernel(name: str):
+    fn = getattr(build.load(name), name)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    n_ptr, n_strided = (5, 3) if name == "flash_attention_fwd" else (9, 4)
+    fn.argtypes = ([ptr] * n_ptr + [i32] * 6 + [i64] * (3 * n_strided)
+                   + [i32, i32, ctypes.c_float, i32, ptr])
+    fn.restype = i32
+    return fn
+
+
+def _check_flash(q, k, v, extra=()):
+    """Shapes, types and layouts the flash kernels take: q (B, Sq, Hq, dh)
+    and k, v (B, Skv, Hkv, dh) of one dtype, unit dh stride (any other
+    strides), GQA grouping, a head size the kernels are built for."""
+    B, Sq, Hq, dh = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != dh \
+            or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    Hkv = k.shape[2]
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {dh} not in {_HEAD_DIMS}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {q.dtype}: float32 or bfloat16")
+    for name, t in (("k", k), ("v", v)) + tuple(extra):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra):
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q {q.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must have a unit head_dim stride")
+
+
+def _strides(t):
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def _flash_device(q, name):
+    if q.device.type != "cuda":
+        raise ValueError(f"no {name} kernel for {q.device}")
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=0):
+    """Forward of ``flash_attention``: (out (B, Sq, Hq, dh) in q.dtype,
+    lse (B, Hq, Sq) float32).  Launches ``csrc/flash_attention_fwd.cu``
+    for tensors on the card (counted in ``flash_attention.launches``), the
+    plain ``ref.flash_attention_fwd_ref`` for tensors on the CPU."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                           window=window)
+    _flash_device(q, "flash_attention_fwd")
+    _check_flash(q, k, v)
+    B, Sq, Hq, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out, lse
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _flash_kernel("flash_attention_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, Sq, Skv, Hq, Hkv, dh, *_strides(q),
+            *_strides(k), *_strides(v), int(bool(causal)), int(window),
+            float(dh ** -0.5), _DTYPES[q.dtype], stream)
+    if err:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
+                           f"{err}")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0):
+    """Gradients (dq, dk, dv) of ``flash_attention`` for the upstream
+    gradient ``do``, from the forward's ``out`` and ``lse``.  ``delta =
+    rowsum(out * do)`` is computed here with torch ops, as the JAX package
+    computes it outside its kernels; then ``csrc/flash_attention_bwd.cu``
+    launches its dq and dk/dv kernels for tensors on the card (one count
+    in ``flash_attention_bwd.launches``).  Tensors on the CPU take the
+    plain ``ref.flash_attention_bwd_ref``."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                           causal=causal, window=window)
+    _flash_device(q, "flash_attention_bwd")
+    _check_flash(q, k, v, extra=(("do", do),))
+    B, Sq, Hq, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if do.shape != q.shape or out.shape != q.shape:
+        raise ValueError(f"do {tuple(do.shape)} / out {tuple(out.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 of shape {(B, Hq, Sq)}")
+    lse = lse.contiguous()
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _flash_kernel("flash_attention_bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, Sq, Skv, Hq, Hkv, dh, *_strides(q),
+            *_strides(k), *_strides(v), *_strides(do), int(bool(causal)),
+            int(window), float(dh ** -0.5), _DTYPES[q.dtype], stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom VJP of the JAX package's ``flash_attention``
+    (``ops.py:46-86``): the forward saves q, k, v, out and lse; the
+    backward hands them to ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal=True, window=0):
+    """GQA flash attention in the model layout, differentiable.
+
+    q: (B, S, Hq, dh); k/v: (B, S, Hkv, dh) -> (B, S, Hq, dh) in q.dtype,
+    query head h reading kv head ``h // (Hq // Hkv)``; causal and/or a
+    sliding window of ``window`` keys (0 = none).  The CUDA kernels take
+    the model layout through strides (no head-major copy) and any S; the
+    JAX wrapper's block sizes are TPU tile sizes and have no counterpart."""
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window))
+
+
+flash_attention.launches = 0

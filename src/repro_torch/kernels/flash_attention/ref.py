@@ -1,11 +1,19 @@
-"""Plain PyTorch version of the ring-chunk attention kernel.
+"""Plain PyTorch versions of the port's attention kernels.
 
-The dense masked softmax over [pre-write ring (W slots), chunk keys] with
-the kernel's own masks and finalisation: one band test on absolute
-positions (``kp >= 0 & kp <= qp & kp > qp - W``, plus the window), softcap
-before the mask, the re-mask after ``exp`` and a row with no visible key
-written as 0.  The CPU tests run it; on the card ``chip_smoke.py`` holds
-the CUDA kernel against it.
+* ``ring_chunk_attention_ref``: the dense masked softmax over [pre-write
+  ring (W slots), chunk keys] with the ring kernel's own masks and
+  finalisation: one band test on absolute positions (``kp >= 0 & kp <= qp
+  & kp > qp - W``, plus the window), softcap before the mask, the re-mask
+  after ``exp`` and a row with no visible key written as 0.
+* ``flash_attention_fwd_ref`` / ``flash_attention_bwd_ref``: causal or
+  sliding-window GQA self-attention and its gradients, in the math of the
+  flash kernels (the JAX package's ``_fwd_kernel``, ``_dq_kernel`` and
+  ``_dkv_kernel``), including their casts to the input type: ``p`` before
+  the products with ``v`` and ``do``, ``ds`` before the products with
+  ``k`` and ``q``.  In float32 those casts do nothing.
+
+The CPU route of each wrapper in ``ops.py`` runs these; on the card
+``chip_smoke.py`` holds each CUDA kernel against them.
 """
 from __future__ import annotations
 
@@ -64,3 +72,76 @@ def ring_chunk_attention_ref(q, k_new, v_new, k_cache, v_cache, pos,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p / torch.where(l > 0, l, 1.0), v)
     return out.reshape(B, C, Hq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence flash attention (training forward and backward)
+# ---------------------------------------------------------------------------
+
+def attention_mask(Sq: int, Skv: int, causal: bool, window: int, device):
+    """(Sq, Skv) boolean: query position t sees key position j iff
+    ``j <= t`` (causal) and ``j > t - window`` (window > 0) — the mask of
+    the JAX kernels, whose query and key positions both start at 0."""
+    t = torch.arange(Sq, device=device)[:, None]
+    j = torch.arange(Skv, device=device)[None, :]
+    m = torch.ones(Sq, Skv, dtype=torch.bool, device=device)
+    if causal:
+        m &= j <= t
+    if window:
+        m &= j > t - window
+    return m
+
+
+def _grouped_scores(q, k, causal, window):
+    """Scaled, masked scores (B, Hkv, G, Sq, Skv) in float32 and the mask."""
+    B, Sq, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, dh).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * dh ** -0.5
+    mask = attention_mask(Sq, k.shape[1], causal, window, q.device)
+    return s, mask
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal=True, window=0):
+    """q: (B, Sq, Hq, dh); k/v: (B, Skv, Hkv, dh), query head h reading kv
+    head ``h // (Hq // Hkv)``.  Returns (out (B, Sq, Hq, dh) in q.dtype,
+    lse (B, Hq, Sq) float32 of the scaled scores).  A row with no visible
+    key comes out 0 with lse ``-1e30``."""
+    B, Sq, Hq, dh = q.shape
+    s, mask = _grouped_scores(q, k, causal, window)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(l.clamp_min(1e-30)))[..., 0]         # (B,Hkv,G,Sq)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    o = o / torch.where(l > 0, l, 1.0).permute(0, 3, 1, 2, 4)
+    return (o.reshape(B, Sq, Hq, dh).to(q.dtype),
+            lse.reshape(B, Hq, Sq))
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal=True, window=0):
+    """Gradients of ``flash_attention_fwd_ref``'s ``out`` for the upstream
+    gradient ``do`` (q's shape), from the saved ``out`` and ``lse``
+    (B, Hq, Sq).  Recomputes ``p = exp(s - lse)`` under the mask, takes
+    ``delta = rowsum(out * do)`` and ``ds = p * (dp - delta) * scale``;
+    dk and dv sum over the G query heads of each kv head.  Returns
+    (dq, dk, dv) in the types of q, k and v."""
+    B, Sq, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = dh ** -0.5
+    s, mask = _grouped_scores(q, k, causal, window)
+    lse_g = lse.reshape(B, Hkv, G, Sq)[..., None]
+    p = torch.where(mask, torch.exp(s - lse_g), 0.0)
+    dog = do.reshape(B, Sq, Hkv, G, dh).float()
+    delta = (out.float() * do.float()).sum(-1)                 # (B, Sq, Hq)
+    delta = delta.reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - delta) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(do.dtype).float(), dog)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(q.dtype).float(),
+                      q.reshape(B, Sq, Hkv, G, dh).float())
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(k.dtype).float(), k.float())
+    return (dq.reshape(B, Sq, Hq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

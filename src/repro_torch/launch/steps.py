@@ -1,14 +1,122 @@
-"""Step factories for the serving engine.
+"""Step factories: the train and eval steps, and the serving engine's.
 
-Each factory closes over the model config (and the cache layout) and
-returns a plain callable: the port runs eagerly, so there is no ``jit``
-and nothing to donate — the storage-writing steps update the pool in place
-and return it.
+Each factory closes over the model config (and the cache layout or the
+optimizer config) and returns a plain callable: the port runs eagerly, so
+there is no ``jit`` and nothing to donate — the train step updates the
+parameters and optimizer state in place, the storage-writing serving
+steps update the pool in place, and each returns what it updated.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decode as dec
+from repro_torch.models import transformer as T
+from repro_torch.models.params import tree_map
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+
+
+def _grad_tree(cfg: ModelConfig, params):
+    """(tree to differentiate, gradient buffers).  Every leaf becomes a
+    detached leaf view of its storage whose ``.grad`` is preset to a zero
+    buffer, so backward accumulates straight into the buffer; the stacked
+    layer leaves become a list of per-layer dicts of views whose grads are
+    the matching slices of one stacked buffer.  (Slicing a stacked leaf
+    that requires grad would instead make every layer's backward write a
+    full-size zero tensor.)"""
+
+    def walk(p, g):
+        if isinstance(p, dict):
+            return {k: walk(p[k], g[k]) for k in p}
+        view = p.detach().requires_grad_(True)
+        view.grad = g
+        return view
+
+    grads = tree_map(torch.zeros_like, params)
+    tree = {k: walk(v, grads[k]) for k, v in params.items()
+            if k != "layers"}
+    tree["layers"] = [walk(T.layer_params(params["layers"], i),
+                           T.layer_params(grads["layers"], i))
+                      for i in range(cfg.n_layers)]
+    return tree, grads
+
+
+def value_and_grad(cfg: ModelConfig, params, batch):
+    """``loss_fn``'s value and its gradient for every parameter leaf:
+    (loss, {"ce", "aux"}, grads shaped like params, in the params'
+    types)."""
+    tree, grads = _grad_tree(cfg, params)
+    loss, parts = T.loss_fn(tree, cfg, batch)
+    loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    grad_transform=None, microbatches: int = 1,
+                    opt_impl: str = "adamw", ef_transform=None):
+    """(params, opt_state, batch) -> (params', opt_state', metrics), the
+    first two updated in place; metrics ``loss, ce, aux, grad_norm, lr``
+    as 0-d tensors on the device.
+
+    ``microbatches > 1`` splits the batch (microbatch j takes rows j,
+    j + m, ..., as the JAX reshape does) and accumulates the gradients in
+    float32; the optimizer sees their mean.  ``grad_transform`` hooks in a
+    stateless gradient transform."""
+    if opt_impl == "adamw8bit":
+        raise NotImplementedError("the 8-bit AdamW (optim/quantized.py) is "
+                                  "not ported yet (ROADMAP A9)")
+    if opt_impl != "adamw":
+        raise ValueError(f"unknown opt_impl {opt_impl!r}")
+    if ef_transform is not None:
+        raise NotImplementedError("error-feedback gradient compression "
+                                  "(compression/) is not ported yet "
+                                  "(ROADMAP A9)")
+
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, parts, grads = value_and_grad(cfg, params, batch)
+        else:
+            m = microbatches
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss = ce = aux = 0.0
+            for j in range(m):
+                l, p, g = value_and_grad(
+                    cfg, params, {k: v[j::m] for k, v in batch.items()})
+                _tree_zip(lambda a, b: a.add_(b), grads, g)
+                loss, ce, aux = loss + l, ce + p["ce"], aux + p["aux"]
+                del g
+            grads = tree_map(lambda x: x.div_(m), grads)
+            loss, parts = loss / m, {"ce": ce / m, "aux": aux / m}
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        params, opt_state, om = adamw_update(grads, opt_state, params,
+                                             opt_cfg)
+        metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"],
+                   **om}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _tree_zip(fn, a, b):
+    if isinstance(a, dict):
+        for k in a:
+            _tree_zip(fn, a[k], b[k])
+    else:
+        fn(a, b)
+
+
+def make_eval_step(cfg: ModelConfig):
+    """(params, batch) -> {"loss", "ce", "aux"}, without gradients."""
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss, parts = T.loss_fn(params, cfg, batch)
+        return {"loss": loss, **parts}
+
+    return eval_step
 
 
 def make_serve_step(cfg: ModelConfig):

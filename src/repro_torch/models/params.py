@@ -66,13 +66,14 @@ def model_def(cfg: ModelConfig) -> Dict:
         out["head"] = ParamDef((D, V))
     layer = {"ln1": ParamDef((D,), "ones"), "attn": _attn_def(cfg),
              "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
-    out["layers"] = _map(lambda p: p.stacked(L), layer)
+    out["layers"] = tree_map(lambda p: p.stacked(L), layer)
     return out
 
 
-def _map(fn, tree):
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a nested dict, same structure."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
 
 

@@ -1,16 +1,43 @@
-"""Transformer helpers the serving steps use: embedding, output head, the
-attention projections and the dense feed-forward block.
+"""Transformer blocks, the full-sequence forward and the chunked loss.
 
 Counterparts of the same-named functions in the JAX package's
-``models/transformer.py``, for the dense decoder family.
+``models/transformer.py``, for the dense decoder family: the helpers the
+serving steps use (embedding, output head, attention projections, the
+feed-forward block) and the training path (``attn_block``,
+``apply_layer``, ``forward``, ``chunked_ce_loss``, ``loss_fn``).
+
+What differs from the JAX forward:
+
+* Attention always goes through ``ops.flash_attention``: on the card its
+  CUDA kernels, on the CPU its plain version.  ``cfg.use_pallas`` is not
+  read, and ``cfg.attn_block_q/kv`` (TPU tile sizes) are not used: the
+  CUDA kernels choose their own tiles.
+* The layer stack is a Python loop over the layer slices of the stacked
+  parameters (``lax.scan`` in JAX).  ``params["layers"]`` may also be a
+  list of per-layer dicts — the train step hands one in so each layer's
+  gradient lands in its slice without a copy.
+* ``cfg.remat != "none"`` recomputes each layer in the backward pass
+  (``torch.utils.checkpoint`` of one layer, which saves only the layer's
+  input, as JAX's ``"full"`` policy does).
+* ``head_pad_to`` and the sharding pins (``_shard_padded_heads``,
+  ``_seq_gather``, ``_wsc_tree``) do nothing on one card and are not
+  ported.
+* Other families, encoder-decoder and VLM raise ``NotImplementedError``
+  (ROADMAP A8).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops
 from repro_torch.models import layers as L
 from repro_torch.models.params import torch_dtype
+
+LOSS_CHUNK = 1024
 
 
 def cdt(cfg: ModelConfig) -> torch.dtype:
@@ -71,3 +98,106 @@ def rope_for(cfg: ModelConfig, positions):
         raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not "
                                   "ported yet (ROADMAP A8)")
     return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+
+# ---------------------------------------------------------------------------
+# Blocks (full-sequence)
+# ---------------------------------------------------------------------------
+
+def attn_block(x, p, cfg: ModelConfig, rope, *, causal=True, window=0,
+               kv=None):
+    """Self-attention over the whole sequence.  Returns (out (B, S, D),
+    (k, v))."""
+    if kv is not None:
+        raise NotImplementedError("cross-attention (encoder-decoder) is not "
+                                  "ported yet (ROADMAP A8)")
+    q, k, v = _attn_proj(x, p, rope, cfg=cfg)
+    o = ops.flash_attention(q, k, v, causal, window)
+    return _attn_out(o, p, x.dtype), (k, v)
+
+
+def apply_layer(x, lp, cfg: ModelConfig, layer_type: str, rope, *,
+                window=0, causal=True):
+    """One block over the whole sequence.  Returns (x, state_for_decode,
+    aux)."""
+    if layer_type != "attn":
+        raise NotImplementedError(f"{layer_type!r} blocks are not ported "
+                                  "yet (ROADMAP A8)")
+    a, (k, v) = attn_block(L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                           lp["attn"], cfg, rope, causal=causal,
+                           window=window)
+    h = x + a
+    f = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
+    return h + f, {"k": k, "v": v}, {}
+
+
+def layer_params(layers, i: int):
+    """Layer ``i``'s parameters: the slice of every stacked leaf, or the
+    i-th entry of a per-layer list."""
+    if isinstance(layers, (list, tuple)):
+        return layers[i]
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+def _layer_out(x, lp, cfg, rope, window):
+    return apply_layer(x, lp, cfg, "attn", rope, window=window)[0]
+
+
+def forward(params, cfg: ModelConfig, tokens, extras=None):
+    """Full-sequence forward to the final hidden states: (x (B, S, D),
+    aux loss).  ``extras`` carries nothing for the dense family."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's "
+                                  "forward is not ported yet (ROADMAP A8)")
+    x = embed_tokens(params, cfg, tokens)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    rope = rope_for(cfg, positions)
+    window = cfg.window
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        if cfg.remat == "none":
+            x = _layer_out(x, lp, cfg, rope, window)
+        else:
+            x = checkpoint(functools.partial(_layer_out, lp=lp, cfg=cfg,
+                                             rope=rope, window=window),
+                           x, use_reentrant=False)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked cross-entropy)
+# ---------------------------------------------------------------------------
+
+def chunked_ce_loss(params, cfg: ModelConfig, x, targets, mask):
+    """x: (B, S, D) final hiddens; mean next-token NLL over ``mask``.  The
+    logits are made one sequence chunk of ``LOSS_CHUNK`` at a time, never
+    as a whole (B, S, V) tensor."""
+    B, S, D = x.shape
+    chunk = min(LOSS_CHUNK, S)
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the loss chunk "
+                         f"{chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        logits = head_logits(params, cfg, x[:, c0:c0 + chunk])  # f32
+        lse = torch.logsumexp(logits, dim=-1)
+        tc = targets[:, c0:c0 + chunk].long()
+        tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
+        mc = mask[:, c0:c0 + chunk].float()
+        total = total + ((lse - tgt) * mc).sum()
+        count = count + mc.sum()
+    return total / count.clamp_min(1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
+    """batch: tokens / targets / mask tensors.  Returns (loss, {"ce",
+    "aux"})."""
+    extras = {k: v for k, v in batch.items()
+              if k not in ("tokens", "targets", "mask")}
+    x, aux = forward(params, cfg, batch["tokens"], extras)
+    ce = chunked_ce_loss(params, cfg, x, batch["targets"], batch["mask"])
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}

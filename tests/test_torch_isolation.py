@@ -21,6 +21,8 @@ PROBE = """
 import sys
 import repro_torch, repro_torch.serving.engine, repro_torch.launch.steps
 import repro_torch.kernels.flash_attention.ops, repro_torch.core
+import repro_torch.runtime.trainer, repro_torch.optim.adamw
+import repro_torch.data.pipeline, repro_torch.checkpoint.manager
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(",".join(bad))
@@ -48,8 +50,9 @@ def test_entry_points_default_to_cuda():
     from repro_torch.models import decode, params
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.kvpool import KVBlockPool
+    from repro_torch.runtime.trainer import Trainer
     for fn in (ServeEngine, params.init_params, decode.init_cache,
-               decode.init_block_pool, KVBlockPool):
+               decode.init_block_pool, KVBlockPool, Trainer):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn
 
@@ -64,6 +67,30 @@ def test_engine_without_device_asks_for_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(reduced_config(REGISTRY["llama3-8b"]),
                     ChipletTopology(1, 1, 1), EngineConfig(max_len=32))
+
+
+def test_trainer_without_device_asks_for_cuda(monkeypatch, tmp_path):
+    """Without ``device=`` the Trainer wants a card: where none is visible
+    it raises instead of training on the CPU."""
+    from repro_torch.configs import REGISTRY, reduced_config
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(reduced_config(REGISTRY["llama3.2-3b"]), None,
+                TrainerConfig(ckpt_dir=str(tmp_path)))
+
+
+def test_flash_wrappers_have_no_fallback():
+    """The flash-attention wrappers, forward and backward, launch their
+    CUDA kernels or raise for a tensor that is not on the CPU."""
+    from repro_torch.kernels.flash_attention import ops
+    q = torch.empty(1, 8, 2, 16, device="meta")
+    kv = torch.empty(1, 8, 1, 16, device="meta")
+    lse = torch.empty(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="no flash_attention_fwd kernel"):
+        ops.flash_attention_fwd(q, kv, kv)
+    with pytest.raises(ValueError, match="no flash_attention_bwd kernel"):
+        ops.flash_attention_bwd(q, kv, kv, q, lse, q)
 
 
 def test_kernel_wrapper_has_no_fallback():
