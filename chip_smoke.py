@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py              # all phases, one card
-    python3 chip_smoke.py --profile    # + where phase 3's and 4's time goes
+    python3 chip_smoke.py --profile    # + where phases 3-6 spend their time
 
 Phases (any error fails the run with a non-zero exit):
 
@@ -40,10 +40,30 @@ Phases (any error fails the run with a non-zero exit):
    6 steps with a checkpoint every 3; a fresh Trainer resumed from step 3
    repeats steps 4-6; the same 6 steps on the CPU (the plain attention)
    give the same losses to 1e-4.
+2c. Hold the SSD chunked-scan kernel against its plain version (y and
+   h_final, every element) at phase 5's training shape, on the JAX
+   ``SSD_SWEEP`` geometries, on two groups and on three groups with
+   ragged tiles, each in float32 and with bf16 B/C (tol 3e-4 and 2e-2,
+   plus the same share of |plain|); time the kernel, its plain version
+   and the port's ``ssd_chunked`` (no single PyTorch call computes an SSD
+   scan: the library column stays empty) beside the least time the card
+   could take.
+5. Train mamba2-780m at full width and depth (48 layers, d_model 1536, 48
+   SSD heads of 64, state 128, vocab 50280; bf16, random weights from a
+   seeded generator) for 4 steps at B=4, S=2048, remat "none", as phase 4:
+   losses and grad norms finite, parameters changed, and the SSD kernel
+   launched once per layer and step.
+5b. The port's ``Trainer`` on a reduced mamba2-780m, as phase 4b.
+6. Serve phase 3's requests on mamba2-780m at full width and depth: every
+   request completes with its budget, each stream takes a state slot
+   (no ring pages, so no prefix sharing, as in the JAX engine), the
+   pool's audit passes.  Then, on a reduced mamba2-780m in float32, the
+   card's tokens equal the CPU's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches (counted over its main path: phase
-3 for the ring kernel, phase 4 for the flash kernels), error and times.
+3 for the ring kernel, phase 4 for the flash kernels, phase 5 for the SSD
+kernel), error and times.
 """
 from __future__ import annotations
 
@@ -405,16 +425,146 @@ def flash_timing(torch, ops, ref, B, S, Hq, Hkv, dh, causal, window):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-780m"
+# the JAX package's ssd_scan test: 3e-4 in float32; 2e-2 with bf16 B/C
+SSD_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
+PEAK_FLOPS_F32 = 67e12          # H100 SXM float32 outside the tensor cores
+# name, B, S, H, P, G, N, chunk (the main path: ssd_main_geometry)
+SSD_GEOMETRIES = [
+    ("ssd_sweep_0", 2, 64, 4, 16, 1, 32, 16),
+    ("ssd_sweep_1", 1, 32, 4, 8, 2, 16, 32),
+    ("ssd_sweep_2", 2, 128, 2, 32, 1, 8, 64),
+    ("groups_2", 2, 512, 8, 64, 2, 128, 256),
+    ("ragged_tiles_groups_3", 2, 300, 6, 80, 3, 20, 100),
+]
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+
+
+def ssd_main_geometry():
+    """The training path's SSD scan shape: mamba2-780m at phase 5's B, S."""
+    return ("main_path", SSM_B, TRAIN_S, 48, 64, 1, 128, 256)
+
+
+def ssd_inputs(torch, B, S, H, P, G, N, dtype, seed):
+    """Model-layout x, dt, A, B_, C_ as the JAX ssd_scan test draws them
+    (x and B/C in ``dtype``), and the kernel's head-major inputs xdt, a,
+    B, C formed from them as ``ops.ssd_with_state`` forms them."""
+    from repro_torch.kernels.ssd_scan.ops import _head_major
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt_ = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = rnd(B, S, H, P).to(dt_)
+    dt = torch.nn.functional.softplus(rnd(B, S, H) - 1.0)
+    A = -torch.exp(rnd(H) * 0.3)
+    Bm = (rnd(B, S, G, N) * 0.5).to(dt_)
+    Cm = (rnd(B, S, G, N) * 0.5).to(dt_)
+    xdt = _head_major(x.float() * dt[..., None])
+    a = (dt * A).transpose(1, 2).reshape(B * H, S).contiguous()
+    return (x, dt, A, Bm, Cm), (xdt, a, _head_major(Bm), _head_major(Cm))
+
+
+def ssd_work(BH, S, P, N, BG, Q, itemsize):
+    """Bytes and flops ``ssd_scan`` needs on this input: xdt, a, B and C
+    read once, y and h_final written once; per (group, chunk) the
+    Q(Q+1)/2 visible (query, key) pairs of C B^T (N products each, in
+    B/C's type: the heads of a group share them), and per (head, chunk)
+    those pairs of the intra product (P each, the decay differs by head)
+    and the inter-chunk and state products (Q N P each), in float32."""
+    nc = S // Q
+    tri = nc * Q * (Q + 1) / 2
+    n_bytes = (2 * BH * S * P * 4 + BH * S * 4 + 2 * BG * S * N * itemsize
+               + BH * N * P * 4)
+    flops_bc = 2.0 * BG * tri * N
+    flops_f32 = 2.0 * BH * tri * P + 2 * 2.0 * BH * nc * Q * N * P
+    return n_bytes, flops_bc, flops_f32
+
+
+def phase_ssd_kernel(torch):
+    """The SSD kernel against its plain version on every element of y and
+    h_final, in float32 and with bf16 B/C, at the training shape, on the
+    ``SSD_SWEEP`` geometries and on G > 1 with ragged tiles; times at the
+    training shape."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    row = {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:72"}
+    for geo in [ssd_main_geometry()] + SSD_GEOMETRIES:
+        name, Bb, S, H, P, G, N, chunk = geo
+        for dtype in ("float32", "bfloat16"):
+            _, (xdt, a, Bh, Ch) = ssd_inputs(torch, Bb, S, H, P, G, N,
+                                             dtype, seed=S + P + N)
+            kw = dict(chunk=chunk, hq_per_group=H // G)
+            y, h = ops.ssd_scan(xdt, a, Bh, Ch, **kw)
+            torch.cuda.synchronize()
+            want_y, want_h = ref.ssd_scan_plain(xdt, a, Bh, Ch, **kw)
+            tol = SSD_TOL[dtype]
+            what = (f"{name} B/C {dtype} B={Bb} S={S} H={H} P={P} G={G} "
+                    f"N={N} chunk={chunk}")
+            err = max_err(torch, [("y", y, want_y), ("h_final", h, want_h)],
+                          tol, what)
+            log(f"[ssd] {what}: max_abs_err={err:.3e} (tol {tol} + {tol} "
+                f"* |plain|)")
+            if name == "main_path" and dtype == "bfloat16":
+                row["max_abs_err"] = err
+            del xdt, a, Bh, Ch, y, h, want_y, want_h
+    row.update(ssd_timing(torch, ops, ref, *ssd_main_geometry()[1:]))
+    return row
+
+
+def ssd_timing(torch, ops, ref, B, S, H, P, G, N, chunk):
+    from repro_torch.models.ssd import ssd_chunked
+    sets = [ssd_inputs(torch, B, S, H, P, G, N, "bfloat16", seed=300 + i)
+            for i in range(4)]
+    kw = dict(chunk=chunk, hq_per_group=H // G)
+    kernel_ms = time_ms(torch, lambda m, k: ops.ssd_scan(*k, **kw), sets)
+    plain_ms = time_ms(torch, lambda m, k: ref.ssd_scan_plain(*k, **kw),
+                       sets, iters=10)
+    # yardstick: the port's chunked form on cuBLAS einsums, model layout
+    Q = min(chunk, S)
+    chunked_ms = time_ms(torch, lambda m, k: ssd_chunked(*m, chunk=Q), sets,
+                         iters=10)
+    n_bytes, flops_bc, flops_f32 = ssd_work(B * H, S, P, N, B * G, Q, 2)
+    b_bytes = n_bytes / PEAK_BYTES
+    b_ops = flops_bc / PEAK_FLOPS + flops_f32 / PEAK_FLOPS_F32
+    bound_ms = 1e3 * max(b_bytes, b_ops)
+    log(f"[ssd] kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"ssd_chunked_ms={chunked_ms:.4f} bound_ms={bound_ms:.6f} "
+        f"({n_bytes} bytes, {flops_bc:.0f} bf16 flops of C B^T at "
+        f"{PEAK_FLOPS:.3g}/s + {flops_f32:.0f} float32 flops at "
+        f"{PEAK_FLOPS_F32:.3g}/s)")
+    log("[ssd] library_ms is null: no single PyTorch call computes an SSD "
+        "scan; ssd_chunked_ms (the port's models/ssd.ssd_chunked forward "
+        "on cuBLAS einsums, which the kernel's backward recomputes "
+        "through) is the yardstick")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+            "library_ms": None, "ssd_chunked_ms": chunked_ms}
+
+
+# ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
-def phase_engine(torch, profile: bool = False):
+ENGINE_ARCH = "llama3-8b"
+
+
+def phase_engine(torch, arch, profile: bool = False):
+    """Serve the main path's requests on ``arch`` at full width and depth
+    through the port's ServeEngine.  Returns the ring kernel's launches."""
     from repro_torch.configs import REGISTRY
     from repro_torch.core.topology import ChipletTopology
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.serving.engine import EngineConfig, ServeEngine
 
-    cfg = REGISTRY["llama3-8b"]
+    cfg = REGISTRY[arch]
+    dense = cfg.family == "dense"
+    tag = f"[engine {cfg.name}]"
 
     def engine():
         topo = ChipletTopology(n_pods=1, groups_per_pod=2, chips_per_group=1)
@@ -424,9 +574,11 @@ def phase_engine(torch, profile: bool = False):
     t0 = time.perf_counter()
     eng = engine()
     torch.cuda.synchronize()
-    log(f"[engine] {cfg.name}: d_model={cfg.d_model} layers={cfg.n_layers} "
-        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab} {cfg.param_dtype}; set-up "
+    log(f"{tag} d_model={cfg.d_model} layers={cfg.n_layers} "
+        + (f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} " if dense
+           else f"ssd heads={cfg.ssm_heads}x{cfg.ssm_head_dim} "
+                f"state={cfg.ssm_state} ")
+        + f"vocab={cfg.vocab} {cfg.param_dtype}; set-up "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
 
@@ -441,25 +593,42 @@ def phase_engine(torch, profile: bool = False):
                                  f"{r.max_new} tokens")
         if not all(0 <= t < cfg.vocab for t in r.generated):
             raise AssertionError(f"request {r.rid}: token out of vocab")
-    if launches <= 0:
-        raise AssertionError("the ring kernel never launched on the main path")
-    hits = res["counters"].get("kv_prefix_hits", 0.0)
-    if hits <= 0:
-        raise AssertionError("no prefix hit: the sharing path did not run")
+    c = res["counters"]
+    hits = c.get("kv_prefix_hits", 0.0)
+    if dense:
+        if launches <= 0:
+            raise AssertionError("the ring kernel never launched on the "
+                                 "main path")
+        if hits <= 0:
+            raise AssertionError("no prefix hit: the sharing path did not "
+                                 "run")
+    else:
+        # state-only streams: a state slot each, no ring pages, so no
+        # prefix sharing (the JAX engine shares only ring pages)
+        if launches or hits:
+            raise AssertionError(f"state-only model: ring launches "
+                                 f"{launches}, prefix hits {hits}")
+        if eng.pool.pages_per_stream or not eng.pool.has_state:
+            raise AssertionError("the pool did not take the state-slot "
+                                 "layout")
+        if c.get("kv_reservations", 0) < len(reqs) + 1:
+            raise AssertionError(f"{c.get('kv_reservations', 0)} state "
+                                 f"reservations for {len(reqs) + 1} "
+                                 "requests")
     eng.pool.audit([r.table for r in eng.submitted if r.table is not None])
     st = ServeEngine.stats(reqs)
-    c = res["counters"]
-    log(f"[engine] {len(reqs)} requests, {st['tokens']} tokens in "
+    log(f"{tag} {len(reqs)} requests, {st['tokens']} tokens in "
         f"{wall:.2f} s: {st['tokens'] / wall:.1f} tokens/s; "
         f"TTFT p50 {st['ttft_p50'] * 1e3:.1f} ms, "
         f"TPOT p50 {st['tpot_p50'] * 1e3:.1f} ms")
-    log(f"[engine] ring kernel launches {launches} over "
+    log(f"{tag} ring kernel launches {launches} over "
         f"{int(c.get('chunk_ticks', 0))} chunk ticks ({cfg.n_layers} "
-        f"layers), kv_prefix_hits {int(hits)}, relayouts "
+        f"layers), kv_prefix_hits {int(hits)}, kv_reservations "
+        f"{int(c.get('kv_reservations', 0))}, relayouts "
         f"{len(res['relayouts'])}, pool audit ok")
-    log("[engine] " + json.dumps({
-        "layers": cfg.n_layers, "wall_s": wall, "tokens": st["tokens"],
-        "tokens_per_s": st["tokens"] / wall,
+    log(f"{tag} " + json.dumps({
+        "arch": cfg.name, "layers": cfg.n_layers, "wall_s": wall,
+        "tokens": st["tokens"], "tokens_per_s": st["tokens"] / wall,
         **{k: st[k] for k in ("ttft_p50", "ttft_p99", "tpot_p50",
                               "tpot_p99")},
         **{k: c.get(k, 0.0) for k in ("chunk_ticks", "split_ticks",
@@ -469,7 +638,8 @@ def phase_engine(torch, profile: bool = False):
     if profile:
         steps = sum(t for t, _ in spent.values())
         log("[profile] " + json.dumps({
-            "wall_s": wall, "chunk_step_s": spent["chunk"][0],
+            "arch": cfg.name, "wall_s": wall,
+            "chunk_step_s": spent["chunk"][0],
             "chunk_steps": spent["chunk"][1],
             "decode_step_s": spent["decode"][0],
             "decode_steps": spent["decode"][1],
@@ -585,32 +755,40 @@ def profile_replay(torch, eng, cfg, main_wall):
             log(f"[host] {line.rstrip()[:150]}")
 
 
-def phase_engine_reference(torch):
-    """Small input, float32: the engine's tokens with the kernel equal its
-    tokens with the plain attention."""
+def phase_engine_reference(torch, arch, runs):
+    """Small input, float32: the reduced ``arch`` engine gives the same
+    tokens in every run of ``runs``, each (label, device, chunk kernel),
+    on the same weights drawn on the CPU."""
     import numpy as np
     from repro_torch.configs import REGISTRY, reduced_config
     from repro_torch.core.topology import ChipletTopology
+    from repro_torch.models.params import init_params
     from repro_torch.serving.engine import EngineConfig, ServeEngine
 
-    cfg = reduced_config(REGISTRY["llama3-8b"])
+    cfg = reduced_config(REGISTRY[arch])
+    base = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(2, cfg.vocab, size=int(n))
                for n in (5, 19, 33, 40)]
     outs = {}
-    for kernel in ("blocked", "dense"):
+    for label, device, kernel in runs:
         topo = ChipletTopology(n_pods=1, groups_per_pod=2, chips_per_group=1)
         eng = ServeEngine(cfg, topo, EngineConfig(
             max_batch=2, max_len=48, pool_streams=2, chunk_kernel=kernel),
-            seed=0)
+            params=_to_device(base, device), device=device)
         reqs = [eng.submit(p, max_new=12) for p in prompts]
         eng.run_until_done()
-        outs[kernel] = [r.generated for r in reqs]
-    if outs["blocked"] != outs["dense"]:
-        raise AssertionError("reduced llama3-8b: kernel and plain attention "
-                             "give different tokens")
-    log("[engine] reduced llama3-8b float32: kernel == plain attention "
-        "tokens for 4 requests")
+        outs[label] = [r.generated for r in reqs]
+    labels = " == ".join(outs)
+    if any(v != outs[runs[0][0]] for v in outs.values()):
+        raise AssertionError(f"reduced {arch} float32: not {labels} tokens")
+    log(f"[engine {cfg.name}] float32: {labels} tokens for 4 requests")
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.clone().to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -620,6 +798,10 @@ def phase_engine_reference(torch):
 TRAIN_ARCH = "llama3.2-3b"
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 2048, 4
 TRAIN_REMAT = "none"
+# mamba2-780m saves about 144 KB a token a layer for its backward, so B=4
+# (57 GB of activations beside 9.4 GB of state) fits one card with remat
+# "none" and B=8 does not (PERF.md, phase 5's cell)
+SSM_B, SSM_REMAT = 4, "none"
 
 
 def free_card(torch):
@@ -627,9 +809,12 @@ def free_card(torch):
     torch.cuda.empty_cache()
 
 
-def phase_train(torch, profile: bool = False):
-    """4 steps of the port's train step at full width and depth.  Returns
-    the flash kernels' (forward, backward) launches over the 4 steps."""
+def phase_train(torch, arch, B, remat, kernels, probes, profile=False):
+    """4 steps of the port's train step on ``arch`` at full width and
+    depth, bf16, S = TRAIN_S.  ``kernels``: name -> (wrapper with a
+    ``launches`` count, launches expected per step); ``probes``: name ->
+    a parameter slice that must change.  Returns name -> launches over the
+    4 steps."""
     import dataclasses
     import math
     import shutil
@@ -637,13 +822,12 @@ def phase_train(torch, profile: bool = False):
     from repro_torch.configs import REGISTRY
     from repro_torch.data.pipeline import (ShardedLoader, SyntheticCorpus,
                                            make_batch, write_corpus_shards)
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.params import init_params, n_params
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
-    cfg = dataclasses.replace(REGISTRY[TRAIN_ARCH], remat=TRAIN_REMAT)
-    B, S = TRAIN_B, TRAIN_S
+    cfg = dataclasses.replace(REGISTRY[arch], remat=remat)
+    S = TRAIN_S
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(cfg, gen, device="cuda")
@@ -651,14 +835,12 @@ def phase_train(torch, profile: bool = False):
     # warmup of one step so bf16 weights move from the first update
     step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
     torch.cuda.synchronize()
-    log(f"[train] {cfg.name}: layers={cfg.n_layers} d_model={cfg.d_model} "
-        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
-        f"vocab={cfg.vocab} {n_params(cfg)} params {cfg.param_dtype}, "
-        f"remat={cfg.remat}; B={B} S={S}; set-up "
+    tag = f"[train {cfg.name}]"
+    log(f"{tag} layers={cfg.n_layers} d_model={cfg.d_model} "
+        f"family={cfg.family} vocab={cfg.vocab} {n_params(cfg)} params "
+        f"{cfg.param_dtype}, remat={cfg.remat}; B={B} S={S}; set-up "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card")
-    probes = {"wq[0]": lambda p: p["layers"]["attn"]["wq"][0],
-              "embed[:4096]": lambda p: p["embed"][:4096]}
     before = {k: f(params).clone() for k, f in probes.items()}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
     try:
@@ -673,8 +855,8 @@ def phase_train(torch, profile: bool = False):
     finally:
         shutil.rmtree(tmp)
     torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention.launches = 0
-    ops.flash_attention_bwd.launches = 0
+    for fn, _ in kernels.values():
+        fn.launches = 0
     secs = []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -686,16 +868,14 @@ def phase_train(torch, profile: bool = False):
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise AssertionError(f"step {i + 1}: loss {loss}, grad norm "
                                  f"{gnorm}")
-        log(f"[train] step {i + 1}: loss {loss:.6f} grad_norm {gnorm:.6f} "
+        log(f"{tag} step {i + 1}: loss {loss:.6f} grad_norm {gnorm:.6f} "
             f"lr {float(m['lr']):.3e} {secs[-1]:.6f} s"
             + (f", peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
                "GiB after the first step" if i == 0 else ""))
-    launches = (ops.flash_attention.launches,
-                ops.flash_attention_bwd.launches)
-    per_fwd = cfg.n_layers * (1 if cfg.remat == "none" else 2)
-    want = (TRAIN_STEPS * per_fwd, TRAIN_STEPS * cfg.n_layers)
+    launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    want = {name: TRAIN_STEPS * per for name, (_, per) in kernels.items()}
     if launches != want:
-        raise AssertionError(f"flash launches (fwd, bwd) {launches} over "
+        raise AssertionError(f"kernel launches {launches} over "
                              f"{TRAIN_STEPS} steps, expected {want}")
     for k, f in probes.items():
         if torch.equal(f(params), before[k]):
@@ -703,23 +883,32 @@ def phase_train(torch, profile: bool = False):
                                  "steps")
     steady = sum(secs[1:]) / len(secs[1:])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[train] flash launches fwd {launches[0]} bwd {launches[1]} "
-        f"({per_fwd} and {cfg.n_layers} a step); parameters changed")
-    log("[train] " + json.dumps({
+    log(f"{tag} launches {launches} ("
+        + ", ".join(f"{per} a step" for _, per in kernels.values())
+        + "); parameters changed")
+    log(f"{tag} " + json.dumps({
         "arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S,
         "remat": cfg.remat, "step_s": secs, "steady_step_s": steady,
         "tokens_per_s": B * S / steady, "peak_gib": peak}))
     if profile:
-        profile_train_step(torch, step, params, opt, batches[-1])
+        profile_train_step(torch, step, params, opt, batches[-1],
+                           KERNEL_SYMBOLS[arch])
     del params, opt, batches, before
     free_card(torch)
     return launches
 
 
-def profile_train_step(torch, step, params, opt, batch):
+# the device symbols of each training path's hand-written kernels
+KERNEL_SYMBOLS = {
+    TRAIN_ARCH: ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
+    "mamba2-780m": ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"),
+}
+
+
+def profile_train_step(torch, step, params, opt, batch, symbols):
     """One more step under torch.profiler: the card's busy time against
-    the step's wall, the kernels by device time, the flash kernels'
-    share."""
+    the step's wall, the kernels by device time, the share of the kernels
+    named by ``symbols``."""
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
@@ -742,13 +931,11 @@ def profile_train_step(torch, step, params, opt, batch):
             "saw no device activity)")
         return
     busy = sum(r[0] for r in rows) / 1e6
-    flash = {n: sum(r[0] for r in rows if n in r[2]) / 1e6
-             for n in ("flash_fwd_kernel", "flash_dq_kernel",
-                       "flash_dkv_kernel")}
+    mine = {n: sum(r[0] for r in rows if n in r[2]) / 1e6 for n in symbols}
     log(f"[profile] train step: wall {wall:.6f} s profiled, device busy "
         f"{busy:.6f} s (idle share {1 - busy / wall:.4f})")
-    log("[profile] flash kernels: " + ", ".join(
-        f"{n} {t:.6f} s ({t / busy:.4f} of busy)" for n, t in flash.items()))
+    log("[profile] hand-written kernels: " + ", ".join(
+        f"{n} {t:.6f} s ({t / busy:.4f} of busy)" for n, t in mine.items()))
     for dev, count, key in sorted(rows, reverse=True)[:15]:
         log(f"[profile]   {dev / 1e3:12.3f} ms {count:7d}x  {key[:90]}")
 
@@ -757,10 +944,11 @@ def profile_train_step(torch, step, params, opt, batch):
 # phase 4b
 # ---------------------------------------------------------------------------
 
-def phase_trainer(torch):
-    """The port's Trainer end to end on a reduced llama3.2-3b in float32:
+def phase_trainer(torch, arch, kernel):
+    """The port's Trainer end to end on a reduced ``arch`` in float32:
     checkpoint and resume on the card, and the card's losses against the
-    CPU's (the plain attention)."""
+    CPU's (the plain versions of the kernels).  ``kernel``: the wrapper
+    whose launches show the card run went through its CUDA kernel."""
     import dataclasses
     import os
     import shutil
@@ -768,18 +956,12 @@ def phase_trainer(torch):
     from repro_torch.configs import REGISTRY, reduced_config
     from repro_torch.data.pipeline import (ShardedLoader, SyntheticCorpus,
                                            write_corpus_shards)
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.models.params import init_params
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-    cfg = reduced_config(REGISTRY[TRAIN_ARCH])
+    cfg = reduced_config(REGISTRY[arch])
     base = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-
-    def copy_to(device, tree=base):
-        if isinstance(tree, dict):
-            return {k: copy_to(device, v) for k, v in tree.items()}
-        return tree.clone().to(device)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     try:
@@ -795,14 +977,14 @@ def phase_trainer(torch):
                                                  total_steps=20))
             return Trainer(cfg, ShardedLoader(files, seq_len=64, batch=2),
                            tcfg, log=lambda s: None,
-                           params=copy_to(device), device=device)
+                           params=_to_device(base, device), device=device)
 
-        f0 = ops.flash_attention.launches
+        f0 = kernel.launches
         card = trainer("cuda", "ckpt_cuda")
         losses = card.run()["losses"]
-        if ops.flash_attention.launches == f0:
-            raise AssertionError("the Trainer on the card launched no "
-                                 "flash kernel")
+        if kernel.launches == f0:
+            raise AssertionError(f"the Trainer on the card launched no "
+                                 f"{kernel.__name__} kernel")
         if card.ckpt.steps() != [3, 6]:
             raise AssertionError(f"checkpoints {card.ckpt.steps()}")
         shutil.rmtree(card.ckpt._step_dir(6))
@@ -819,8 +1001,9 @@ def phase_trainer(torch):
     log(f"[trainer] {cfg.name} float32 on the card: losses "
         f"{[round(x, 6) for x in losses]}; resumed at step 3: "
         f"{[round(x, 6) for x in again]} (max rel err {resume_err:.3e}, "
-        f"tol 1e-5); CPU (plain attention) max abs err {cpu_err:.3e} "
-        f"(tol 1e-4)")
+        f"tol 1e-5); CPU (plain versions) max abs err {cpu_err:.3e} "
+        f"(tol 1e-4); {kernel.__name__} launched "
+        f"{kernel.launches - f0} times on the card")
     if resume_err > 1e-5:
         raise AssertionError("resumed losses differ from the first run")
     if cpu_err > 1e-4:
@@ -830,12 +1013,12 @@ def phase_trainer(torch):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1, 2 and 2b only")
+                    help="phases 1, 2, 2b and 2c only")
     ap.add_argument("--profile", action="store_true",
-                    help="time phase 3's two step kinds, then replay it "
-                         "on a fresh engine under torch.profiler and "
-                         "cProfile; profile one more training step in "
-                         "phase 4")
+                    help="time phases 3's and 6's two step kinds, then "
+                         "replay each on a fresh engine under "
+                         "torch.profiler and cProfile; profile one more "
+                         "training step in phases 4 and 5")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -846,21 +1029,50 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     t0 = time.perf_counter()
     phase_build(torch)
     rows = [phase_ring_kernel(torch)]
     flash = phase_flash_kernels(torch)
     rows += [flash["fwd"], flash["bwd"]]
+    rows.append(phase_ssd_kernel(torch))
     for row in rows:
         row["launches"] = 0
     if not args.kernels_only:
         free_card(torch)
-        rows[0]["launches"] = phase_engine(torch, args.profile)
-        phase_engine_reference(torch)
+        rows[0]["launches"] = phase_engine(torch, ENGINE_ARCH, args.profile)
+        phase_engine_reference(torch, ENGINE_ARCH, [
+            ("kernel", "cuda", "blocked"),
+            ("plain attention", "cuda", "dense")])
         free_card(torch)
-        rows[1]["launches"], rows[2]["launches"] = phase_train(
-            torch, args.profile)
-        phase_trainer(torch)
+        n_dense = REGISTRY[TRAIN_ARCH].n_layers
+        flash_launches = phase_train(
+            torch, TRAIN_ARCH, TRAIN_B, TRAIN_REMAT,
+            # the forward runs twice a layer under remat
+            {"flash_attention_fwd": (fa_ops.flash_attention, n_dense * (
+                1 if TRAIN_REMAT == "none" else 2)),
+             "flash_attention_bwd": (fa_ops.flash_attention_bwd, n_dense)},
+            {"wq[0]": lambda p: p["layers"]["attn"]["wq"][0],
+             "embed[:4096]": lambda p: p["embed"][:4096]}, args.profile)
+        rows[1]["launches"] = flash_launches["flash_attention_fwd"]
+        rows[2]["launches"] = flash_launches["flash_attention_bwd"]
+        phase_trainer(torch, TRAIN_ARCH, fa_ops.flash_attention)
+        # one launch a layer and step; the backward recomputes through
+        # ssd_chunked and launches nothing
+        rows[3]["launches"] = phase_train(
+            torch, SSM_ARCH, SSM_B, SSM_REMAT,
+            {"ssd_scan": (ssd_ops.ssd_scan, REGISTRY[SSM_ARCH].n_layers)},
+            {"wx[0]": lambda p: p["layers"]["ssd"]["wx"][0],
+             "A_log": lambda p: p["layers"]["ssd"]["A_log"],
+             "embed[:4096]": lambda p: p["embed"][:4096]},
+            args.profile)["ssd_scan"]
+        phase_trainer(torch, SSM_ARCH, ssd_ops.ssd_scan)
+        free_card(torch)
+        phase_engine(torch, SSM_ARCH, args.profile)
+        phase_engine_reference(torch, SSM_ARCH, [
+            ("card", "cuda", "blocked"), ("CPU", "cpu", "blocked")])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,11 +1,14 @@
-"""Serving path of the dense decoder family: cache layout, the paged block
-pool's storage ops, the single-token decode step and the fused multi-token
-chunk step.
+"""Serving path of the dense and SSM families: cache layout, the paged
+block pool's storage ops, the single-token decode step and the fused
+multi-token chunk step.
 
-Caches are ring buffers of width W = min(max_len, window) per layer, kept
-as nested dicts of tensors shaped like the JAX package's cache pytrees:
-``{"layers": {"k": (L, B, W, Hkv, dh), "v": ...}}``.  The layer stack is a
-Python loop over the stacked layer weights.
+Caches are nested dicts of tensors shaped like the JAX package's cache
+pytrees.  The dense family keeps ring buffers of width W = min(max_len,
+window) per layer: ``{"layers": {"k": (L, B, W, Hkv, dh), "v": ...}}``.
+The SSM family keeps per-stream state only: ``{"layers": {"conv_B",
+"conv_C", "conv_x": (L, B, K-1, ·) in the compute type, "ssm": (L, B, H,
+P, N) float32}}``.  The layer stack is a Python loop over the stacked
+layer weights.
 
 Where the JAX package updates arrays functionally (``.at[].set``) under
 buffer donation, the port writes in place and says so: the pool storage
@@ -21,6 +24,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssd as ssd_mod
+from repro_torch.models.params import PORTED_FAMILIES
 from repro_torch.models.transformer import (
     _attn_out, _attn_proj, _ffn, cdt, embed_tokens, head_logits, rope_for)
 
@@ -40,11 +45,11 @@ class CacheLeafSpec:
 class CacheViewSpec:
     """Per-leaf layout of the serving cache.  ``paths`` name each leaf in
     the cache dict (in the JAX package's leaf order), ``shapes`` give its
-    shape for ONE stream (batch axis of size 1)."""
+    shape for ONE stream (batch axis of size 1), ``dtypes`` its type."""
     leaves: Tuple[CacheLeafSpec, ...]
     paths: Tuple[Tuple[str, ...], ...]
     shapes: Tuple[Tuple[int, ...], ...]
-    dtype: torch.dtype
+    dtypes: Tuple[torch.dtype, ...]
     width: int                      # shared ring width of all token leaves
 
     @property
@@ -57,18 +62,31 @@ def _attn_cache_width(cfg: ModelConfig, max_len: int) -> int:
 
 
 def cache_view_specs(cfg: ModelConfig, max_len: int) -> CacheViewSpec:
-    """The dense family's cache: per layer a K and a V ring, stream axis 1,
-    token axis 2.  The JAX package finds the same layout by probing
-    ``init_cache`` shapes; the port declares it."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} cache "
-                                  "layout is not ported yet (ROADMAP A8)")
-    W = _attn_cache_width(cfg, max_len)
-    leaf = CacheLeafSpec(batch_axis=1, token_axis=2, width=W)
-    shape = (cfg.n_layers, 1, W, cfg.n_kv_heads, cfg.head_dim)
-    return CacheViewSpec(leaves=(leaf, leaf),
-                         paths=(("layers", "k"), ("layers", "v")),
-                         shapes=(shape, shape), dtype=cdt(cfg), width=W)
+    """The serving cache's layout, declared per family (the JAX package
+    finds the same layout by probing ``init_cache`` shapes).  Dense: per
+    layer a K and a V ring, stream axis 1, token axis 2.  SSM: per layer
+    the three conv tails and the SSD state, stream axis 1, no token axis
+    (width 0), in the JAX leaf order (sorted keys)."""
+    L_ = cfg.n_layers
+    if cfg.family == "dense":
+        W = _attn_cache_width(cfg, max_len)
+        leaf = CacheLeafSpec(batch_axis=1, token_axis=2, width=W)
+        shape = (L_, 1, W, cfg.n_kv_heads, cfg.head_dim)
+        return CacheViewSpec(leaves=(leaf, leaf),
+                             paths=(("layers", "k"), ("layers", "v")),
+                             shapes=(shape, shape),
+                             dtypes=(cdt(cfg), cdt(cfg)), width=W)
+    if cfg.family == "ssm":
+        one = ssd_mod.ssd_init_state(cfg, 1, cdt(cfg), device="meta")
+        names = sorted(one)
+        return CacheViewSpec(
+            leaves=tuple(CacheLeafSpec(batch_axis=1, token_axis=None,
+                                       width=0) for _ in names),
+            paths=tuple(("layers", k) for k in names),
+            shapes=tuple((L_,) + tuple(one[k].shape) for k in names),
+            dtypes=tuple(one[k].dtype for k in names), width=0)
+    raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} cache "
+                              "layout is not ported yet (ROADMAP A8)")
 
 
 def _get(tree, path):
@@ -96,10 +114,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Zero cache for ``batch`` streams with context capacity ``max_len``."""
     spec = cache_view_specs(cfg, max_len)
     leaves = []
-    for s, shape in zip(spec.leaves, spec.shapes):
+    for s, shape, dtype in zip(spec.leaves, spec.shapes, spec.dtypes):
         shape = list(shape)
         shape[s.batch_axis] = batch
-        leaves.append(torch.zeros(shape, dtype=spec.dtype, device=device))
+        leaves.append(torch.zeros(shape, dtype=dtype, device=device))
     return tree_from_leaves(spec, leaves)
 
 
@@ -128,13 +146,13 @@ def init_block_pool(cfg: ModelConfig, spec: CacheViewSpec, n_blocks: int,
     """Zeroed physical storage for ``n_blocks`` KV pages + ``n_states``
     per-stream state slots (index 0 of each is the engine's null slot)."""
     leaves = []
-    for s, shape in zip(spec.leaves, spec.shapes):
+    for s, shape, dtype in zip(spec.leaves, spec.shapes, spec.dtypes):
         ax = s.batch_axis
         if s.token_axis is not None:
             new = shape[:ax] + (n_blocks, block_tokens) + shape[ax + 2:]
         else:
             new = shape[:ax] + (n_states,) + shape[ax + 1:]
-        leaves.append(torch.zeros(new, dtype=spec.dtype, device=device))
+        leaves.append(torch.zeros(new, dtype=dtype, device=device))
     return tree_from_leaves(spec, leaves)
 
 
@@ -294,18 +312,39 @@ def _layer(params, l: int):
     return take(params["layers"])
 
 
-def _check_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+def _check_family(cfg: ModelConfig):
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: {cfg.family!r} steps are "
                                   "not ported yet (ROADMAP A8)")
 
 
+def _ssd_layers(params, cfg: ModelConfig, cache, x, step):
+    """The SSM family's layer stack for one serving step: ``step(x_norm,
+    layer params, layer state) -> (out, new state)`` per layer, each
+    layer's state slices written back into ``cache`` in place."""
+    states = cache["layers"]
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        lc = {k: v[l] for k, v in states.items()}
+        s, st = step(L.rms_norm(x, lp["ln"], cfg.norm_eps), lp["ssd"], lc)
+        x = x + s
+        for k, v in st.items():
+            states[k][l].copy_(v)
+    return x
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     """One token for every stream.  tokens: (B, 1); pos: (B,) absolute.
-    Writes each layer's ring in ``cache`` in place and returns
-    (logits (B, V) f32, cache)."""
-    _check_dense(cfg)
+    Writes each layer's ring (dense) or state (SSM) in ``cache`` in place
+    and returns (logits (B, V) f32, cache)."""
+    _check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
+    if cfg.family == "ssm":
+        x = _ssd_layers(params, cfg, cache, x,
+                        lambda xn, p, st: ssd_mod.ssd_decode_step(xn, p, cfg,
+                                                                  st))
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return head_logits(params, cfg, x[:, 0]), cache
     rope = rope_for(cfg, pos[:, None])
     kc_all, vc_all = cache["layers"]["k"], cache["layers"]["v"]
     for l in range(cfg.n_layers):
@@ -323,23 +362,11 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     return head_logits(params, cfg, x[:, 0]), cache
 
 
-def prefill_chunk_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
-                       tokens, pos, n_tokens, chunk_kernel="dense",
-                       all_logits=False):
-    """One continuous-batching tick as ONE fused multi-token forward.
-
-    tokens: (B, C); pos: (B,) absolute position of tokens[:, 0]; n_tokens:
-    (B,) in [0, C] (0 = idle slot).  Every stream's chunk attends jointly
-    over [prior ring, intra-chunk causal] (``layers.chunk_attention``;
-    ``chunk_kernel="blocked"`` is the CUDA kernel on the card), then the
-    ring write keeps the last W active tokens.  Inactive tokens write no
-    ring slot; an idle slot's logits row is NEG_INF.  Writes ``cache`` in
-    place and returns (last-active-token logits (B, V), cache) — or, with
-    ``all_logits``, the per-position logits (B, C, V) with positions at or
-    past ``n_tokens`` set to NEG_INF."""
-    _check_dense(cfg)
-    B, C = tokens.shape
-    x = embed_tokens(params, cfg, tokens)
+def _dense_chunk_layers(params, cfg: ModelConfig, cache, x, pos, n_tokens,
+                        chunk_kernel):
+    """The dense family's layer stack for one chunk step, each layer's
+    ring written back into ``cache`` in place."""
+    C = x.shape[1]
     q_pos = pos[:, None] + torch.arange(C, device=pos.device)[None, :]
     rope = rope_for(cfg, q_pos)
     kc_all, vc_all = cache["layers"]["k"], cache["layers"]["v"]
@@ -355,6 +382,35 @@ def prefill_chunk_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
         x = h + _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
         kc_all[l].copy_(kc)
         vc_all[l].copy_(vc)
+    return x
+
+
+def prefill_chunk_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
+                       tokens, pos, n_tokens, chunk_kernel="dense",
+                       all_logits=False):
+    """One continuous-batching tick as ONE fused multi-token forward.
+
+    tokens: (B, C); pos: (B,) absolute position of tokens[:, 0]; n_tokens:
+    (B,) in [0, C] (0 = idle slot).  Every stream's chunk attends jointly
+    over [prior ring, intra-chunk causal] (``layers.chunk_attention``;
+    ``chunk_kernel="blocked"`` is the CUDA kernel on the card), then the
+    ring write keeps the last W active tokens.  Inactive tokens write no
+    ring slot; an idle slot's logits row is NEG_INF.  Writes ``cache`` in
+    place and returns (last-active-token logits (B, V), cache) — or, with
+    ``all_logits``, the per-position logits (B, C, V) with positions at or
+    past ``n_tokens`` set to NEG_INF.  SSM layers run their chunked scan
+    from the carried state (``ssd.ssd_chunk_step``); an inactive token
+    leaves the state as it was."""
+    _check_family(cfg)
+    B, C = tokens.shape
+    x = embed_tokens(params, cfg, tokens)
+    if cfg.family == "ssm":
+        x = _ssd_layers(params, cfg, cache, x,
+                        lambda xn, p, st: ssd_mod.ssd_chunk_step(
+                            xn, p, cfg, st, n_tokens))
+    else:
+        x = _dense_chunk_layers(params, cfg, cache, x, pos, n_tokens,
+                                chunk_kernel)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     n = n_tokens.long()
     if all_logits:

@@ -23,6 +23,57 @@ NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
+# Projections with float32 output
+# ---------------------------------------------------------------------------
+
+def _mm_f32(a, b):
+    """a (M, K) @ b (K, N) -> (M, N) float32 from operands of one type,
+    with no float32 copy of either on the card: cuBLAS's bf16 -> f32 GEMM
+    (``out_dtype``) there; the CPU upcasts, which computes the same
+    function (products of bf16 values are exact in float32)."""
+    if a.dtype == torch.float32 or a.device.type != "cuda":
+        return a.float() @ b.float()
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """x (M, K) @ w (K, N) -> float32, as a JAX einsum with
+    ``preferred_element_type=float32`` computes it: the product is never
+    rounded to the operands' type, and the float32 cotangent is contracted
+    in float32.  On the card the backward splits the float32 cotangent
+    into two bf16 parts (hi + lo, 16 of float32's 24 mantissa bits) and
+    sums their two bf16 -> f32 GEMMs, so no float32 copy of the weight
+    (the (V, D) embedding, for the output head) is made."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if x.dtype == torch.float32 or g.device.type != "cuda":
+            parts = (g,)
+        else:
+            hi = g.to(x.dtype)
+            parts = (hi, (g - hi.float()).to(x.dtype))
+        gx, gw = _mm_f32(parts[0], w.t()), _mm_f32(x.t(), parts[0])
+        for p in parts[1:]:
+            gx += _mm_f32(p, w.t())
+            gw += _mm_f32(x.t(), p)
+        return gx.to(x.dtype), gw.to(w.dtype)
+
+
+def matmul_f32(x, w):
+    """x (..., K) @ w (K, N) -> float32 (..., N) from operands of one type,
+    differentiable; see ``_MatmulF32``."""
+    lead = x.shape[:-1]
+    return _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w) \
+        .reshape(*lead, w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
@@ -192,3 +243,30 @@ def cache_positions(pos, W):
     slots = torch.arange(W, device=pos.device)
     p = pos.long()[:, None]
     return p - ((p - slots[None, :]) % W)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (SSM front-ends)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x, w, bias=None):
+    """x: (B, S, C); w: (K, C) depthwise causal conv along S, summed in
+    float32 tap by tap (the JAX package's order) and rounded to x's type."""
+    K, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(K):
+        out = out + pad[:, i:i + S, :].float() * w[i].float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def conv1d_step(x_t, conv_state, w, bias=None):
+    """One decode step.  x_t: (B, C); conv_state: (B, K-1, C) past inputs.
+    Returns (out (B, C), new state (B, K-1, C))."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # (B, K, C)
+    out = torch.einsum("bkc,kc->bc", window.float(), w.float())
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x_t.dtype), window[:, 1:, :]

@@ -1,4 +1,4 @@
-"""Parameter definitions and initialisers for the dense decoder family.
+"""Parameter definitions and initialisers for the dense and SSM families.
 
 ``model_def`` yields the same tree paths and shapes as the JAX package's
 ``models/params.py``: a nested dict whose layer leaves are stacked on a
@@ -6,7 +6,7 @@ leading layer axis.  Parameters are plain dicts of tensors, so a tree of
 JAX arrays converts leaf by leaf (``from_reference``) and the tests can
 drive both packages with the same weights.
 
-Only ``family == "dense"`` is ported; the other families raise
+The dense and SSM families are ported; the other families raise
 ``NotImplementedError`` until their slice lands (ROADMAP A8).
 """
 from __future__ import annotations
@@ -31,14 +31,17 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "fan_in"       # fan_in | ones | normal:<std>
+    init: str = "fan_in"       # fan_in | zeros | ones | const:<v> | normal:<std>
 
     def stacked(self, n: int) -> "ParamDef":
         return ParamDef((n,) + self.shape, self.init)
 
 
+PORTED_FAMILIES = ("dense", "ssm")
+
+
 def _check_family(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             "(ROADMAP A8)")
@@ -57,6 +60,38 @@ def _mlp_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
     return {"wi": wi, "wo": ParamDef((F, D))}
 
 
+def _ssd_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    D, di, K = cfg.d_model, cfg.d_inner, cfg.conv_width
+    GN, H = cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+    return {
+        "wz": ParamDef((D, di)), "wx": ParamDef((D, di)),
+        "wB": ParamDef((D, GN)), "wC": ParamDef((D, GN)),
+        "wdt": ParamDef((D, H)),
+        "conv_x": ParamDef((K, di), "normal:0.05"),
+        "bx": ParamDef((di,), "zeros"),
+        "conv_B": ParamDef((K, GN), "normal:0.05"),
+        "bB": ParamDef((GN,), "zeros"),
+        "conv_C": ParamDef((K, GN), "normal:0.05"),
+        "bC": ParamDef((GN,), "zeros"),
+        "A_log": ParamDef((H,), "const:0.0"),
+        "dt_bias": ParamDef((H,), "const:-2.0"),
+        "D_skip": ParamDef((H,), "ones"),
+        "norm": ParamDef((di,), "ones"),
+        "out_proj": ParamDef((di, D)),
+    }
+
+
+def layer_def(cfg: ModelConfig, layer_type: str) -> Dict:
+    D = cfg.d_model
+    if layer_type == "attn":
+        return {"ln1": ParamDef((D,), "ones"), "attn": _attn_def(cfg),
+                "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
+    if layer_type == "ssd":
+        return {"ln": ParamDef((D,), "ones"), "ssd": _ssd_def(cfg)}
+    raise NotImplementedError(f"{layer_type!r} layers are not ported yet "
+                              "(ROADMAP A8)")
+
+
 def model_def(cfg: ModelConfig) -> Dict:
     _check_family(cfg)
     D, V, L = cfg.d_model, cfg.vocab_padded, cfg.n_layers
@@ -64,8 +99,7 @@ def model_def(cfg: ModelConfig) -> Dict:
                  "final_norm": ParamDef((D,), "ones")}
     if not cfg.tie_embeddings:
         out["head"] = ParamDef((D, V))
-    layer = {"ln1": ParamDef((D,), "ones"), "attn": _attn_def(cfg),
-             "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
+    layer = layer_def(cfg, cfg.layer_types()[0])
     out["layers"] = tree_map(lambda p: p.stacked(L), layer)
     return out
 
@@ -99,6 +133,14 @@ def n_params(cfg: ModelConfig) -> int:
     return sum(math.prod(s) for s in param_shapes(cfg).values())
 
 
+def _const(init: str) -> Optional[float]:
+    """The fill value of a constant leaf (zeros, ones, const:<v>), else
+    None."""
+    if init.startswith("const:"):
+        return float(init.split(":")[1])
+    return {"zeros": 0.0, "ones": 1.0}.get(init)
+
+
 def _std(path: Tuple[str, ...], shape: Tuple[int, ...], init: str) -> float:
     """Init scale of one (unstacked) leaf: the fixed std of ``normal:``
     leaves, else 1/sqrt(fan-in) over the dims the projection contracts —
@@ -124,8 +166,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     out: Dict = {}
     for path, p in _leaves(defs):
         t = torch.empty(p.shape, dtype=dtype, device=device)
-        if p.init == "ones":
-            t.fill_(1.0)
+        const = _const(p.init)
+        if const is not None:
+            t.fill_(const)
         elif path[0] == "layers":
             std = _std(path, p.shape[1:], p.init)
             for i in range(p.shape[0]):

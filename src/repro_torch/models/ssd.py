@@ -1,0 +1,254 @@
+"""Mamba2 SSD (state-space duality) block: the JAX package's
+``models/ssd.py`` on PyTorch.
+
+* ``segsum`` and ``ssd_chunked``: the chunked SSD form in float32 with
+  torch einsums (cuBLAS on the card), seeded with an optional carried
+  state.  It is the backward of ``ops.ssd_with_state`` (recomputed under
+  autograd) and the serving chunk step's scan.
+* ``ssd_block_apply``: the full-sequence block (training forward).  Its
+  scan always goes through ``ops.ssd_with_state`` — the CUDA kernel on
+  the card, its plain version on the CPU; ``cfg.use_pallas`` is not read.
+* ``ssd_init_state``, ``ssd_chunk_step`` and ``ssd_decode_step``: the
+  serving steps from a carried state (torch ops, as the JAX package's run
+  jnp: no kernel has an initial-state entry point).
+
+params (per layer):
+  wz, wx: (D, di)     wB, wC: (D, G*N)     wdt: (D, H)
+  conv_x: (K, di) + bx,  conv_B/conv_C: (K, G*N) + bB/bC
+  A_log: (H,)   dt_bias: (H,)   D_skip: (H,)
+  norm: (di,)   out_proj: (di, D)
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan import ops
+from repro_torch.models.layers import (causal_conv1d, conv1d_step,
+                                       matmul_f32, rms_norm)
+
+
+def segsum(a):
+    """Stable segment-sum: out[..., i, j] = sum_{k=j+1..i} a[..., k] (i >= j),
+    -inf above the diagonal."""
+    T = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones(T, T, dtype=torch.bool, device=a.device).tril()
+    return out.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, B_, C_, *, chunk: int, initial_state=None):
+    """Chunked SSD.  x: (B, S, H, P); dt: (B, S, H); A: (H,); B_/C_:
+    (B, S, G, N).  Returns y (B, S, H, P) in x's dtype and the final state
+    (B, H, P, N) float32.  Math in float32.  ``initial_state`` seeds the
+    inter-chunk recurrence (None = zeros, the prefill case)."""
+    Bb, S, H, P = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk "
+                         f"{chunk}")
+    nc = S // chunk
+    rep = H // G
+
+    xf, dtf = x.float(), dt.float()
+    Bf = B_.float().repeat_interleave(rep, dim=2)           # (B,S,H,N)
+    Cf = C_.float().repeat_interleave(rep, dim=2)
+    a = dtf * A.float()[None, None, :]                      # (B,S,H)
+    xdt = xf * dtf[..., None]
+
+    def r(t):  # (B, S, ...) -> (B, nc, chunk, ...)
+        return t.reshape((Bb, nc, chunk) + tuple(t.shape[2:]))
+
+    xc, ac, Bc, Cc = r(xdt), r(a), r(Bf), r(Cf)
+
+    # intra-chunk (dense)
+    L = torch.exp(segsum(ac.permute(0, 1, 3, 2)))           # (B,nc,H,Q,Q)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", scores * L, xc)
+
+    # per-chunk end states
+    a_cum = torch.cumsum(ac, dim=2)                         # (B,nc,Q,H)
+    a_tot = a_cum[:, :, -1, :]                              # (B,nc,H)
+    decay_to_end = torch.exp(a_tot[:, :, None, :] - a_cum)
+    S_c = torch.einsum("bcqhn,bcqh,bcqhp->bchpn", Bc, decay_to_end, xc)
+
+    # inter-chunk recurrence (a short loop over nc), state before each chunk
+    h = (initial_state.float() if initial_state is not None
+         else torch.zeros((Bb, H, P, N), dtype=torch.float32,
+                          device=x.device))
+    prev = []
+    for c in range(nc):
+        prev.append(h)
+        h = h * torch.exp(a_tot[:, c])[..., None, None] + S_c[:, c]
+    h_prev = torch.stack(prev, dim=1)                       # (B,nc,H,P,N)
+
+    # inter-chunk output
+    y_inter = torch.einsum("bcqhn,bcqh,bchpn->bcqhp", Cc, torch.exp(a_cum),
+                           h_prev)
+    y = (y_intra + y_inter).reshape(Bb, S, H, P)
+    return y.to(x.dtype), h
+
+
+def _proj_conv(x, w, conv_w, conv_b, K):
+    """Returns (activated conv output, pre-conv tail for decode state)."""
+    h = x @ w
+    tail = h[:, -(K - 1):, :]
+    h = causal_conv1d(h, conv_w, conv_b)
+    return F.silu(h.float()).to(x.dtype), tail
+
+
+def _dt(x, params):
+    """softplus(x @ wdt + dt_bias) in float32; the projection's float32
+    output is not rounded to x's type (``preferred_element_type``)."""
+    return F.softplus(matmul_f32(x, params["wdt"])
+                      + params["dt_bias"].float())
+
+
+def _gate_norm_out(y, z, params, cfg):
+    """y * silu(z), the gated RMS norm and the output projection."""
+    y = y * F.silu(z.float()).to(y.dtype)
+    y = rms_norm(y, params["norm"], cfg.norm_eps)
+    return y @ params["out_proj"]
+
+
+def _front_pad(pad, *ts):
+    """Pad each (B, S, ...) tensor with ``pad`` zero steps at the front."""
+    return [F.pad(t, (0, 0) * (t.dim() - 2) + (pad, 0)) for t in ts]
+
+
+def ssd_block_apply(x, params, cfg):
+    """Full Mamba2 block (training forward).  x: (B, S, D) -> (out (B, S,
+    D), decode state {ssm, conv_x, conv_B, conv_C})."""
+    G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    P, di, K = cfg.ssm_head_dim, cfg.d_inner, cfg.conv_width
+    Bb, S, _ = x.shape
+    z = x @ params["wz"]
+    xs, tail_x = _proj_conv(x, params["wx"], params["conv_x"], params["bx"],
+                            K)
+    B_, tail_B = _proj_conv(x, params["wB"], params["conv_B"], params["bB"],
+                            K)
+    C_, tail_C = _proj_conv(x, params["wC"], params["conv_C"], params["bC"],
+                            K)
+    dtv = _dt(x, params)
+    xs = xs.reshape(Bb, S, H, P)
+    B_ = B_.reshape(Bb, S, G, N)
+    C_ = C_.reshape(Bb, S, G, N)
+    A = -torch.exp(params["A_log"].float())
+    chunk = min(cfg.ssd_chunk, S)
+    pad = (-S) % chunk
+    if pad:  # front-pad: zero inputs add nothing to the state (exact)
+        xs, dtv, B_, C_ = _front_pad(pad, xs, dtv, B_, C_)
+    y, state = ops.ssd_with_state(xs, dtv, A, B_, C_, chunk)
+    if pad:
+        y = y[:, pad:]
+        xs = xs[:, pad:]
+    # the skip term in x's dtype, as the JAX block adds it
+    y = y + xs * params["D_skip"].to(x.dtype)[None, None, :, None]
+    out = _gate_norm_out(y.reshape(Bb, S, di), z, params, cfg)
+    full_state = {"ssm": state, "conv_x": tail_x, "conv_B": tail_B,
+                  "conv_C": tail_C}
+    return out, full_state
+
+
+def ssd_init_state(cfg, batch, dtype=torch.float32, device="cuda"):
+    """Zero decode state: ``ssm`` float32, the conv tails in ``dtype``."""
+    G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    di, K = cfg.d_inner, cfg.conv_width
+    return {
+        "ssm": torch.zeros((batch, H, cfg.ssm_head_dim, N),
+                           dtype=torch.float32, device=device),
+        "conv_x": torch.zeros((batch, K - 1, di), dtype=dtype,
+                              device=device),
+        "conv_B": torch.zeros((batch, K - 1, G * N), dtype=dtype,
+                              device=device),
+        "conv_C": torch.zeros((batch, K - 1, G * N), dtype=dtype,
+                              device=device),
+    }
+
+
+def ssd_chunk_step(x, params, cfg, state, n_tokens):
+    """Multi-token chunk step from a CARRIED state (serving fused prefill).
+
+    x: (B, C, D); state from ``ssd_init_state``; n_tokens: (B,) in [0, C]
+    (active tokens are a prefix).  The chunked SSD form seeded with the
+    carried SSM state, the three conv front-ends resumed from their
+    carried tails.  Inactive tokens are masked via dt = 0 (decay 1, zero
+    input), so the final state is the state after each stream's last
+    active token; front-padding to the SSD chunk multiple is exact for the
+    same reason.  Torch ops (``ssd_chunked``), as the JAX step runs jnp."""
+    G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    P, di, K = cfg.ssm_head_dim, cfg.d_inner, cfg.conv_width
+    Bb, C, _ = x.shape
+    n = n_tokens.long()
+    active = torch.arange(C, device=x.device)[None, :] < n[:, None]
+    z = x @ params["wz"]
+
+    def piece(w, conv_w, conv_b, st):
+        h = x @ w
+        ext = torch.cat([st, h], dim=1)                 # (B, K-1+C, k)
+        idx = n[:, None] + torch.arange(K - 1, device=x.device)[None, :]
+        tail = torch.gather(ext, 1, idx[:, :, None].expand(-1, -1,
+                                                           ext.shape[2]))
+        hc = causal_conv1d(ext, conv_w, conv_b)[:, K - 1:]
+        return F.silu(hc.float()).to(x.dtype), tail
+
+    xs, cx = piece(params["wx"], params["conv_x"], params["bx"],
+                   state["conv_x"])
+    B_, cb = piece(params["wB"], params["conv_B"], params["bB"],
+                   state["conv_B"])
+    C_, cc = piece(params["wC"], params["conv_C"], params["bC"],
+                   state["conv_C"])
+    dtv = torch.where(active[..., None], _dt(x, params), 0.0)
+    A = -torch.exp(params["A_log"].float())
+    xs = xs.reshape(Bb, C, H, P)
+    B_ = B_.reshape(Bb, C, G, N)
+    C_ = C_.reshape(Bb, C, G, N)
+    chunk = min(cfg.ssd_chunk, C)
+    pad = (-C) % chunk
+    if pad:  # front-pad with dt = 0 steps: the state passes unchanged
+        xs, dtv, B_, C_ = _front_pad(pad, xs, dtv, B_, C_)
+    y, h = ssd_chunked(xs, dtv, A, B_, C_, chunk=chunk,
+                       initial_state=state["ssm"])
+    if pad:
+        y = y[:, pad:]
+        xs = xs[:, pad:]
+    # the skip term in float32, as the JAX chunk step adds it
+    y = y.float() + xs.float() * params["D_skip"].float()[None, None, :,
+                                                          None]
+    out = _gate_norm_out(y.reshape(Bb, C, di).to(x.dtype), z, params, cfg)
+    return out, {"ssm": h, "conv_x": cx, "conv_B": cb, "conv_C": cc}
+
+
+def ssd_decode_step(x_t, params, cfg, state):
+    """One decode step.  x_t: (B, 1, D); state from ``ssd_init_state``."""
+    G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    P, di = cfg.ssm_head_dim, cfg.d_inner
+    Bb = x_t.shape[0]
+    xt = x_t[:, 0]
+    z = xt @ params["wz"]
+
+    def piece(w, conv_w, conv_b, st):
+        h, new_st = conv1d_step(xt @ w, st, conv_w, conv_b)
+        return F.silu(h.float()).to(xt.dtype), new_st
+
+    xs, cx = piece(params["wx"], params["conv_x"], params["bx"],
+                   state["conv_x"])
+    B_, cb = piece(params["wB"], params["conv_B"], params["bB"],
+                   state["conv_B"])
+    C_, cc = piece(params["wC"], params["conv_C"], params["bC"],
+                   state["conv_C"])
+    dtv = _dt(xt, params)                                       # (B, H)
+    A = -torch.exp(params["A_log"].float())
+    xs = xs.reshape(Bb, H, P)
+    B_ = B_.reshape(Bb, G, N).repeat_interleave(H // G, dim=1).float()
+    C_ = C_.reshape(Bb, G, N).repeat_interleave(H // G, dim=1).float()
+    decay = torch.exp(dtv * A[None, :])                         # (B, H)
+    ssm = state["ssm"] * decay[..., None, None] + torch.einsum(
+        "bhn,bhp,bh->bhpn", B_, xs.float(), dtv)
+    y = torch.einsum("bhn,bhpn->bhp", C_, ssm)
+    # the skip term in float32, as the JAX decode step adds it
+    y = y + xs.float() * params["D_skip"].float()[None, :, None]
+    out = _gate_norm_out(y.reshape(Bb, di).to(x_t.dtype), z, params, cfg)
+    return out[:, None, :], {"ssm": ssm, "conv_x": cx, "conv_B": cb,
+                             "conv_C": cc}

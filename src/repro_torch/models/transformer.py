@@ -1,15 +1,17 @@
 """Transformer blocks, the full-sequence forward and the chunked loss.
 
 Counterparts of the same-named functions in the JAX package's
-``models/transformer.py``, for the dense decoder family: the helpers the
-serving steps use (embedding, output head, attention projections, the
-feed-forward block) and the training path (``attn_block``,
-``apply_layer``, ``forward``, ``chunked_ce_loss``, ``loss_fn``).
+``models/transformer.py``, for the dense decoder family and the SSM
+family: the helpers the serving steps use (embedding, output head,
+attention projections, the feed-forward block) and the training path
+(``attn_block``, ``apply_layer``, ``forward``, ``chunked_ce_loss``,
+``loss_fn``).
 
 What differs from the JAX forward:
 
-* Attention always goes through ``ops.flash_attention``: on the card its
-  CUDA kernels, on the CPU its plain version.  ``cfg.use_pallas`` is not
+* Attention always goes through ``ops.flash_attention`` and the SSD scan
+  through ``ssd_scan.ops.ssd_with_state``: on the card their CUDA
+  kernels, on the CPU their plain versions.  ``cfg.use_pallas`` is not
   read, and ``cfg.attn_block_q/kv`` (TPU tile sizes) are not used: the
   CUDA kernels choose their own tiles.
 * The layer stack is a Python loop over the layer slices of the stacked
@@ -22,8 +24,8 @@ What differs from the JAX forward:
 * ``head_pad_to`` and the sharding pins (``_shard_padded_heads``,
   ``_seq_gather``, ``_wsc_tree``) do nothing on one card and are not
   ported.
-* Other families, encoder-decoder and VLM raise ``NotImplementedError``
-  (ROADMAP A8).
+* The other families (MoE, hybrid, encoder-decoder, VLM) raise
+  ``NotImplementedError`` (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.models import layers as L
-from repro_torch.models.params import torch_dtype
+from repro_torch.models import ssd as ssd_mod
+from repro_torch.models.params import PORTED_FAMILIES, torch_dtype
 
 LOSS_CHUNK = 1024
 
@@ -49,11 +52,10 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
 
 
 def head_logits(params, cfg: ModelConfig, x):
-    """x: (..., D) -> f32 logits (..., V_padded)."""
-    if cfg.tie_embeddings:
-        logits = (x @ params["embed"].t()).float()
-    else:
-        logits = (x @ params["head"]).float()
+    """x: (..., D) -> f32 logits (..., V_padded), never rounded to the
+    compute type (the JAX einsum's ``preferred_element_type``)."""
+    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    logits = L.matmul_f32(x, w)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if cfg.vocab_padded != cfg.vocab:   # pad columns are never predicted
@@ -120,6 +122,10 @@ def apply_layer(x, lp, cfg: ModelConfig, layer_type: str, rope, *,
                 window=0, causal=True):
     """One block over the whole sequence.  Returns (x, state_for_decode,
     aux)."""
+    if layer_type == "ssd":
+        s, state = ssd_mod.ssd_block_apply(
+            L.rms_norm(x, lp["ln"], cfg.norm_eps), lp["ssd"], cfg)
+        return x + s, state, {}
     if layer_type != "attn":
         raise NotImplementedError(f"{layer_type!r} blocks are not ported "
                                   "yet (ROADMAP A8)")
@@ -140,29 +146,31 @@ def layer_params(layers, i: int):
             for k, v in layers.items()}
 
 
-def _layer_out(x, lp, cfg, rope, window):
-    return apply_layer(x, lp, cfg, "attn", rope, window=window)[0]
+def _layer_out(x, lp, cfg, layer_type, rope, window):
+    return apply_layer(x, lp, cfg, layer_type, rope, window=window)[0]
 
 
 def forward(params, cfg: ModelConfig, tokens, extras=None):
     """Full-sequence forward to the final hidden states: (x (B, S, D),
-    aux loss).  ``extras`` carries nothing for the dense family."""
-    if cfg.family != "dense":
+    aux loss).  ``extras`` carries nothing for the dense and SSM
+    families."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's "
                                   "forward is not ported yet (ROADMAP A8)")
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     rope = rope_for(cfg, positions)
-    window = cfg.window
+    lt = cfg.layer_types()[0]
+    layer = functools.partial(_layer_out, cfg=cfg, layer_type=lt, rope=rope,
+                              window=cfg.window if lt == "attn" else 0)
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         if cfg.remat == "none":
-            x = _layer_out(x, lp, cfg, rope, window)
+            x = layer(x, lp)
         else:
-            x = checkpoint(functools.partial(_layer_out, lp=lp, cfg=cfg,
-                                             rope=rope, window=window),
-                           x, use_reentrant=False)
+            x = checkpoint(functools.partial(layer, lp=lp), x,
+                           use_reentrant=False)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -30,7 +30,11 @@ The default configuration is the path this module runs:
     watermark spill rung, as in the JAX package.
 
 Steps run eagerly: where the JAX package jits a step and donates the pool
-storage, the port writes the storage in place.
+storage, the port writes the storage in place.  The dense and SSM
+families are served; an SSM model's streams hold a state slot and no
+ring pages, so they take the pool's state-slot paths and never share a
+prompt prefix (the JAX engine shares prefixes only for models with ring
+pages).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): speculative decoding, the asynchronous swap tier, the slot monolith
@@ -59,7 +63,7 @@ from repro_torch.core.tasks import BLOCK, WaitQueue
 from repro_torch.core.topology import ChipletTopology
 from repro_torch.launch.steps import make_serve_chunk_step, make_serve_step
 from repro_torch.models import decode as dec
-from repro_torch.models.params import init_params
+from repro_torch.models.params import PORTED_FAMILIES, init_params
 from repro_torch.serving.kvpool import KVBlockPool, KVTable, kv_bytes_exact
 
 
@@ -256,7 +260,7 @@ class ServeEngine:
         unported = _unported(ecfg)
         if unported:
             raise NotImplementedError(f"not ported yet: {unported}")
-        if cfg.family != "dense":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family "
                                       "is not ported yet (ROADMAP A8)")
         if ecfg.evict_mode not in ("swap", "restart"):
@@ -329,9 +333,12 @@ class ServeEngine:
         ml = ecfg.max_len
         self._kv_fn = lambda n: kv_bytes_exact(cfg, n, ml)
         self._share = ecfg.prefix_share and self.pool.pages_per_stream > 0
-        # prefill chunk: one KV page by default.  No C <= W clamp: the
-        # fused forward handles chunks wider than the ring
-        self._chunk = ecfg.prefill_chunk or self.pool.block_tokens
+        # prefill chunk: one KV page by default (ring models), the
+        # configured page size for pure-state models (no ring pages).  No
+        # C <= W clamp: the fused forward handles chunks wider than the ring
+        self._chunk = ecfg.prefill_chunk or (
+            self.pool.block_tokens if self.pool.pages_per_stream
+            else ecfg.block_tokens)
         self._build_groups()
         self.sched.register_relayout(self._relayout)
 

@@ -1,10 +1,11 @@
 """The port's configs and parameter trees against the JAX package.
 
 Every architecture's config (full and reduced) equals the JAX package's
-field by field; for the dense family the port's parameter tree has the
-JAX tree's paths, shapes and dtype, and ``from_reference`` carries JAX
-weights across exactly.  The families not ported yet raise
-``NotImplementedError``."""
+field by field; for the dense and SSM families the port's parameter tree
+has the JAX tree's paths, shapes and dtype, ``from_reference`` carries
+JAX weights across exactly, and the constant leaves (zeros, ones,
+``const:<v>``) hold the JAX package's values.  The families not ported
+yet raise ``NotImplementedError``."""
 import dataclasses
 
 import jax
@@ -46,13 +47,16 @@ def test_config_fields_match(arch):
         assert t.layer_types() == j.layer_types()
 
 
+PORTED = ("dense", "ssm")
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_or_not_ported(arch):
-    """Dense: same paths and shapes as ``repro.models.params`` at full
-    size, same bytes and count.  Other families: NotImplementedError from
-    every entry point, naming the ROADMAP item."""
+    """Dense and SSM: same paths and shapes as ``repro.models.params`` at
+    full size, same bytes and count.  Other families: NotImplementedError
+    from every entry point, naming the ROADMAP item."""
     cfg = T_REGISTRY[arch]
-    if cfg.family != "dense":
+    if cfg.family not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP A8"):
             TP.param_shapes(cfg)
         with pytest.raises(NotImplementedError, match="ROADMAP A8"):
@@ -67,7 +71,7 @@ def test_param_tree_or_not_ported(arch):
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if REGISTRY[a].family == "dense"])
+                                  if REGISTRY[a].family in PORTED])
 def test_init_and_from_reference(arch):
     """Reduced size: ``init_params`` fills every leaf of the JAX tree's
     shape in the config's dtype, seeded (same seed, same weights), and
@@ -99,3 +103,9 @@ def test_init_and_from_reference(arch):
         assert tuple(x.shape) == flat_j[path].shape, path
         assert x.dtype == dtype and torch.equal(x, y), path
         assert torch.isfinite(x.float()).all(), path
+    defs = dict(flat(TP.model_def(tcfg)))
+    for path, x in flat(a):
+        if TP._const(defs[path].init) is not None:
+            np.testing.assert_array_equal(
+                x.float().numpy(), np.asarray(flat_j[path], np.float32),
+                err_msg=f"constant leaf {path}")

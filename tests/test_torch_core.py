@@ -93,11 +93,27 @@ def test_cost_estimates_match_on_the_same_hardware(arch, shape):
 
 def test_cost_estimate_of_unported_family_raises():
     """The estimate prices parameters from the port's own parameter tree,
-    which holds the dense family only so far."""
+    which holds the dense and SSM families so far: the hybrid family
+    still raises."""
     _, tt = _topos(1, 16, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TM.estimate(t_get_config("mamba2-780m"), SHAPES["train_4k"],
+        TM.estimate(t_get_config("recurrentgemma-9b"), SHAPES["train_4k"],
                     TL.Layout(tt, 1))
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k"])
+def test_ssm_cost_estimates_match_on_the_same_hardware(shape):
+    """mamba2-780m: the port's estimate, priced from its own SSM parameter
+    tree, equals the JAX package's on every layout of the topology."""
+    jt, tt = _topos(1, 16, 16, same_hw=True)
+    jcfg, tcfg = get_config("mamba2-780m"), t_get_config("mamba2-780m")
+    jf, tf = JL.layout_family(jt), TL.layout_family(tt)
+    for jl, tl in zip(jf, tf):
+        assert dataclasses.asdict(TM.estimate(tcfg, SHAPES[shape], tl)) == \
+            dataclasses.asdict(JM.estimate(jcfg, SHAPES[shape], jl))
+    assert TM.best_layout(tcfg, SHAPES[shape], tf).spread_rate == \
+        JM.best_layout(jcfg, SHAPES[shape], jf).spread_rate
 
 
 @pytest.mark.parametrize("rates,start,threshold", [

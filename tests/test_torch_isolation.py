@@ -23,6 +23,7 @@ import repro_torch, repro_torch.serving.engine, repro_torch.launch.steps
 import repro_torch.kernels.flash_attention.ops, repro_torch.core
 import repro_torch.runtime.trainer, repro_torch.optim.adamw
 import repro_torch.data.pipeline, repro_torch.checkpoint.manager
+import repro_torch.models.ssd, repro_torch.kernels.ssd_scan.ops
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(",".join(bad))
@@ -103,6 +104,24 @@ def test_kernel_wrapper_has_no_fallback():
     pos = torch.empty(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no ring_chunk_attention kernel"):
         ops.ring_chunk_attention(q, kv, kv, ring, ring, pos, pos)
+
+
+def test_ssd_wrappers_have_no_fallback():
+    """The SSD scan wrapper launches its CUDA kernel or raises for a
+    tensor that is not on the CPU, and so does the autograd wrapper that
+    calls it."""
+    from repro_torch.kernels.ssd_scan import ops
+    xdt = torch.empty(2, 8, 4, device="meta")
+    a = torch.empty(2, 8, device="meta")
+    bc = torch.empty(2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="no ssd_scan kernel"):
+        ops.ssd_scan(xdt, a, bc, bc, chunk=4)
+    x = torch.empty(1, 8, 2, 4, device="meta")
+    dt = torch.empty(1, 8, 2, device="meta")
+    A = torch.empty(2, device="meta")
+    B_ = torch.empty(1, 8, 1, 16, device="meta")
+    with pytest.raises(ValueError, match="no ssd_scan kernel"):
+        ops.ssd_with_state(x, dt, A, B_, B_, 4)
 
 
 @pytest.mark.parametrize("option,value", [

@@ -59,13 +59,11 @@ def t_trainer(cfg, files, ckpt_dir, params, steps=4, ckpt_every=100, **kw):
                    log=lambda s: None, params=params, device="cpu", **kw)
 
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
-    """The JAX Trainer, 4 steps on reduced llama3.2-3b with the adaptive
+def _jax_trainer_run(tmp, arch):
+    """The JAX Trainer, 4 steps on reduced ``arch`` with the adaptive
     controller at threshold 0 (a relayout every second step, logical on
     one device): its starting weights, losses and counters."""
-    tmp = tmp_path_factory.mktemp("jax_trainer")
-    cfg = reduced_config(REGISTRY[ARCH])
+    cfg = reduced_config(REGISTRY[arch])
     files = j_write(str(tmp / "data"), JCorpus(cfg.vocab, seed=3),
                     n_shards=2, tokens_per_shard=4000)
     mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
@@ -81,9 +79,14 @@ def jax_run(tmp_path_factory):
     return params0, out
 
 
-def test_trainer_matches_jax_trainer(jax_run, tmp_path):
-    params0, jout = jax_run
-    cfg = t_reduced(T_REGISTRY[ARCH])
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    return _jax_trainer_run(tmp_path_factory.mktemp("jax_trainer"), ARCH)
+
+
+def _matches_jax_trainer(arch, jax_out, tmp_path):
+    params0, jout = jax_out
+    cfg = t_reduced(T_REGISTRY[arch])
     trainer = t_trainer(cfg, corpus_files(tmp_path, cfg.vocab),
                         tmp_path / "ckpt", from_reference(params0, "cpu"),
                         topology=ChipletTopology(1, 4, 2),
@@ -98,10 +101,23 @@ def test_trainer_matches_jax_trainer(jax_run, tmp_path):
     assert CheckpointManager(str(tmp_path / "ckpt")).latest() == 4
 
 
-def test_resume_continues_with_the_same_losses(tmp_path):
+def test_trainer_matches_jax_trainer(jax_run, tmp_path):
+    _matches_jax_trainer(ARCH, jax_run, tmp_path)
+
+
+def test_ssm_trainer_matches_jax_trainer(tmp_path_factory, tmp_path):
+    """The same on reduced mamba2-780m: the SSD kernel's route (its plain
+    version here) against the JAX Trainer's jnp SSD."""
+    ssm = "mamba2-780m"
+    _matches_jax_trainer(ssm, _jax_trainer_run(
+        tmp_path_factory.mktemp("jax_ssm_trainer"), ssm), tmp_path)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-780m"])
+def test_resume_continues_with_the_same_losses(tmp_path, arch):
     """6 steps with a checkpoint every 3; a fresh Trainer resumed from step
     3 (the step-6 checkpoint removed) gives the same losses for 4-6."""
-    cfg = t_reduced(T_REGISTRY[ARCH])
+    cfg = t_reduced(T_REGISTRY[arch])
     files = corpus_files(tmp_path, cfg.vocab)
     first = t_trainer(cfg, files, tmp_path / "ckpt", None, steps=6,
                       ckpt_every=3)
