@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py              # all phases, one card
-    python3 chip_smoke.py --profile    # + where phases 3-6 spend their time
+    python3 chip_smoke.py --profile    # + where phases 3-8 spend their time
 
 Phases (any error fails the run with a non-zero exit):
 
@@ -12,7 +12,8 @@ Phases (any error fails the run with a non-zero exit):
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shape and at the edge geometries (ring wrap, a chunk
    wider than the ring, idle rows, GQA 8:1, window with softcap, a short
-   history in a wide ring); time the kernel, the plain version and one
+   history in a wide ring) and at phase 8's dh 256 shape (16 query heads
+   over one kv head, in bf16 and float32); time the kernel at both shapes, the plain version and one
    PyTorch library call computing the same function, beside the least time
    the card could take for the bytes and operations this input needs.
 3. Serve requests through the port's ``ServeEngine`` on llama3-8b at full
@@ -25,10 +26,12 @@ Phases (any error fails the run with a non-zero exit):
    on a fresh engine under torch.profiler and cProfile.
 2b. Hold the flash-attention forward and backward kernels against their
    plain versions (out, lse, dq, dk, dv, every element) at the training
-   path's shape and on the ``FA_SWEEP`` geometries plus a ragged sequence,
-   in float32 and bf16; time both kernels, their plain versions and
-   ``scaled_dot_product_attention`` (forward, and forward + backward)
-   beside the least time the card could take.
+   paths' shapes (phase 4's, and phase 7's dh 256 with one kv head and a
+   2048 window), on the ``FA_SWEEP`` geometries and on ragged sequences,
+   in float32 and bf16; time both kernels at both training shapes, their
+   plain versions and ``scaled_dot_product_attention`` (forward, and
+   forward + backward; the backend it took is printed) beside the least
+   time the card could take.
 4. Train llama3.2-3b at full width and depth (bf16, random weights from
    a seeded generator) for 4 steps of the port's ``make_train_step`` at
    B=2, S=2048, on batches a ``SyntheticCorpus`` wrote to a temporary
@@ -59,11 +62,37 @@ Phases (any error fails the run with a non-zero exit):
    (no ring pages, so no prefix sharing, as in the JAX engine), the
    pool's audit passes.  Then, on a reduced mamba2-780m in float32, the
    card's tokens equal the CPU's.
+2d. Hold the RG-LRU scan kernel against its plain version (h and h_final,
+   every element, tol 1e-5 plus the same share of |plain|) forward and in
+   reverse, from zero and from a carried state, at phase 7's shape (B=1,
+   S=4096, W=4096), on the JAX ``LRU_SWEEP`` geometries, ragged S and W,
+   and the serving chunk's shape; the autograd wrapper's gradients (its
+   backward is the reverse scan on the kernel) against the CPU route to
+   1e-4; time the kernel and its plain version beside the byte bound
+   (no single PyTorch call computes a linear recurrence: the library
+   column stays empty, ``torch.mul`` over the same bytes is printed as a
+   yardstick).
+7. Train recurrentgemma-9b at full width and 14 layers (four (rec, rec,
+   attn) groups and the two-layer tail; bf16, random weights from a
+   seeded generator) for 4 steps at B=1, S=4096, remat "none", as phase 4:
+   losses and grad norms finite, parameters changed, the scan launched
+   forward and in reverse in each rec layer and each flash kernel once in
+   each attn layer, every step.
+7b. The port's ``Trainer`` on a reduced recurrentgemma-9b, as phase 4b.
+8. Serve phase 3's requests on recurrentgemma-9b at full width and depth
+   (38 layers): every request completes with its budget, the ring kernel
+   runs in each of the 12 attn layers and the scan in each of the 26 rec
+   layers every chunk tick, a prompt prefix is shared through the state
+   checkpoints, each stream holds ring pages and a state slot, the pool's
+   audit passes.  Then, on a reduced recurrentgemma-9b in float32, the
+   card's tokens equal the CPU's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches (counted over its main path: phase
 3 for the ring kernel, phase 4 for the flash kernels, phase 5 for the SSD
-kernel), error and times.
+kernel, phase 7 for the RG-LRU scan; ``hybrid_*`` and
+``serving_launches`` give the numbers on the hybrid's paths, phases 7
+and 8), error and times.
 """
 from __future__ import annotations
 
@@ -140,6 +169,16 @@ RING_GEOMETRIES = [
      (16, 11), 256, 0.0, "float32"),
     ("short_history", 3, 16, 1024, 8, 2, 128, (0, 37, 500), (16, 16, 7), 0,
      0.0, "float32"),
+    # recurrentgemma-9b's local attention in phase 8's chunk step: dh 256,
+    # 16 query heads over one kv head, ring 1024 (= max_len, under the
+    # 2048 window)
+    ("hybrid_path", 8, 16, 1024, 16, 1, 256,
+     (0, 16, 208, 1008, 1024, 1500, 3000, 64),
+     (16, 16, 16, 16, 16, 16, 9, 0), 2048, 0.0, "bfloat16"),
+    ("hybrid_path_f32", 2, 16, 1024, 16, 1, 256, (700, 2100), (16, 11),
+     2048, 0.0, "float32"),
+    ("dh256_wrap_window", 2, 10, 8, 16, 1, 256, (5, 21), (10, 7), 5, 0.0,
+     "float32"),
 ]
 
 
@@ -209,9 +248,13 @@ def phase_ring_kernel(torch):
                                  f"version beyond {tol}")
         if name == "main_path":
             row["max_abs_err"] = max_err
+            row.update(ring_timing(torch, F, ops, ref, B, C, W, Hq, Hkv, dh,
+                                   pos, nt, dtype, window))
+        elif name == "hybrid_path":
+            row["hybrid_max_abs_err"] = max_err
             timing = ring_timing(torch, F, ops, ref, B, C, W, Hq, Hkv, dh,
-                                 pos, nt, dtype)
-            row.update(timing)
+                                 pos, nt, dtype, window)
+            row.update({f"hybrid_{k}": v for k, v in timing.items()})
     return row
 
 
@@ -232,12 +275,16 @@ def ring_work(torch, ins, mask):
     return n_bytes, 4.0 * dh * Hq * float(seen.sum())
 
 
-def ring_timing(torch, F, ops, ref, B, C, W, Hq, Hkv, dh, pos, nt, dtype):
+def ring_timing(torch, F, ops, ref, B, C, W, Hq, Hkv, dh, pos, nt, dtype,
+                window=0):
+    import functools
     sets = [ring_inputs(torch, B, C, W, Hq, Hkv, dh, pos, nt, dtype,
                         seed=100 + i) for i in range(4)]
-    kernel_ms = time_ms(torch, ops.ring_chunk_attention, sets)
-    plain_ms = time_ms(torch, ref.ring_chunk_attention_ref, sets)
-    mask = ref.visible(sets[0][5], sets[0][6], W, C)       # (B, C, W+C)
+    kernel_ms = time_ms(torch, functools.partial(ops.ring_chunk_attention,
+                                                 window=window), sets)
+    plain_ms = time_ms(torch, functools.partial(
+        ref.ring_chunk_attention_ref, window=window), sets)
+    mask = ref.visible(sets[0][5], sets[0][6], W, C, window)  # (B,C,W+C)
     G = Hq // Hkv
 
     def sdpa(q, kn, vn, kc, vc, p, n, _mask=mask[:, None]):
@@ -251,9 +298,11 @@ def ring_timing(torch, F, ops, ref, B, C, W, Hq, Hkv, dh, pos, nt, dtype):
     n_bytes, flops = ring_work(torch, sets[0], mask)
     bound_bytes, bound_flops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS
     bound_ms = 1e3 * max(bound_bytes, bound_flops)
-    log(f"[ring] kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+    log(f"[ring] B={B} C={C} W={W} Hq={Hq} Hkv={Hkv} dh={dh} {dtype}: "
+        f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={library_ms:.4f} bound_ms={bound_ms:.6f} "
-        f"({n_bytes} bytes, {flops:.0f} flops needed)")
+        f"({n_bytes} bytes, {flops:.0f} flops needed); SDPA backend: "
+        + sdpa_backend(torch, sdpa, sets[0]))
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes >= bound_flops
             else "operations", "library_ms": library_ms}
@@ -265,6 +314,9 @@ def ring_timing(torch, F, ops, ref, B, C, W, Hq, Hkv, dh, pos, nt, dtype):
 
 # name, B, S, Hq, Hkv, dh, causal, window
 FLASH_MAIN = ("main_path", 2, 2048, 24, 8, 128, True, 0)
+# phase 7's shape: recurrentgemma-9b's local attention, dh 256, 16 query
+# heads over one kv head, window 2048 at S 4096
+FLASH_HYBRID = ("hybrid_path", 1, 4096, 16, 1, 256, True, 2048)
 FLASH_GEOMETRIES = [
     ("fa_sweep_0", 2, 128, 4, 2, 64, True, 0),
     ("fa_sweep_1", 1, 256, 4, 4, 32, True, 64),
@@ -273,6 +325,7 @@ FLASH_GEOMETRIES = [
     ("fa_sweep_4", 2, 64, 4, 1, 64, True, 0),
     ("fa_sweep_5", 1, 192, 6, 3, 32, True, 48),
     ("ragged_s200", 2, 200, 6, 2, 16, True, 0),
+    ("ragged_dh256", 1, 1000, 16, 1, 256, True, 300),
 ]
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/"
 
@@ -314,7 +367,7 @@ def phase_flash_kernels(torch):
                 "source": FLASH_SOURCE + "flash_attention_bwd.cu",
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:367"},
     }
-    for geo in [FLASH_MAIN] + FLASH_GEOMETRIES:
+    for geo in [FLASH_MAIN, FLASH_HYBRID] + FLASH_GEOMETRIES:
         name, B, S, Hq, Hkv, dh, causal, window = geo
         dtypes = ("bfloat16",) if name == "main_path" else ("float32",
                                                             "bfloat16")
@@ -342,10 +395,16 @@ def phase_flash_kernels(torch):
             if name == "main_path":
                 rows["fwd"]["max_abs_err"] = fwd_err
                 rows["bwd"]["max_abs_err"] = bwd_err
+            elif name == "hybrid_path" and dtype == "bfloat16":
+                rows["fwd"]["hybrid_max_abs_err"] = fwd_err
+                rows["bwd"]["hybrid_max_abs_err"] = bwd_err
             del q, k, v, do, out, lse, want_out, want_lse, grads, want
+            torch.cuda.empty_cache()
     timing = flash_timing(torch, ops, ref, *FLASH_MAIN[1:])
+    hybrid = flash_timing(torch, ops, ref, *FLASH_HYBRID[1:])
     for part in ("fwd", "bwd"):
         rows[part].update(timing[part])
+        rows[part].update({f"hybrid_{k}": v for k, v in hybrid[part].items()})
     return rows
 
 
@@ -382,11 +441,17 @@ def flash_timing(torch, ops, ref, B, S, Hq, Hkv, dh, causal, window):
     bwd_ref = lambda q, k, v, do, out, lse: ref.flash_attention_bwd_ref(
         q, k, v, out, lse, do, **kw)
 
-    # yardsticks only: the port never calls scaled_dot_product_attention
+    # yardsticks only: the port never calls scaled_dot_product_attention;
+    # a window needs the band as a mask, causal alone is_causal
+    mask = ref.attention_mask(S, S, causal, window, "cuda") if window \
+        else None
+    sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None,
+                   enable_gqa=Hq != Hkv)
+
     def sdpa(q, k, v, do, out, lse):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=Hq != Hkv)
+            **sdpa_kw)
 
     leaves = [tuple(t.detach().clone().requires_grad_(True) for t in s[:3])
               + (s[3].transpose(1, 2),) for s in sets]
@@ -394,7 +459,7 @@ def flash_timing(torch, ops, ref, B, S, Hq, Hkv, dh, causal, window):
     def sdpa_fwd_bwd(q, k, v, do_t):
         o = F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=Hq != Hkv)
+            **sdpa_kw)
         return torch.autograd.grad(o, (q, k, v), do_t)
 
     t = {"fwd": time_ms(torch, fwd, sets), "bwd": time_ms(torch, bwd, sets),
@@ -412,16 +477,39 @@ def flash_timing(torch, ops, ref, B, S, Hq, Hkv, dh, causal, window):
                      "bound_ms": 1e3 * max(b_bytes, b_flops),
                      "bound_by": "bytes" if b_bytes >= b_flops
                      else "operations", "library_ms": t[part + "_lib"]}
-        log(f"[flash] {part}: kernel_ms={t[part]:.4f} "
+        log(f"[flash] {part} B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh} "
+            f"window={window}: kernel_ms={t[part]:.4f} "
             f"plain_ms={t[part + '_plain']:.4f} "
             f"library_ms={t[part + '_lib']:.4f} "
             f"bound_ms={out[part]['bound_ms']:.6f} ({n_bytes} bytes, "
             f"{flops:.0f} flops needed)")
-    log("[flash] library_ms is scaled_dot_product_attention(is_causal=True, "
-        "enable_gqa=True): forward for flash_attention_fwd, forward + "
-        "backward for flash_attention_bwd; bwd kernel_ms includes the "
-        "wrapper's delta = rowsum(out * do)")
+    log(f"[flash] library_ms is scaled_dot_product_attention({'the band '
+        'mask' if window else 'is_causal=True'}, enable_gqa=True): forward "
+        "for flash_attention_fwd, forward + backward for "
+        "flash_attention_bwd; bwd kernel_ms includes the wrapper's delta = "
+        "rowsum(out * do); SDPA backend: forward "
+        + sdpa_backend(torch, sdpa, sets[0]) + "; forward + backward "
+        + sdpa_backend(torch, sdpa_fwd_bwd, leaves[0]))
     return out
+
+
+def sdpa_backend(torch, fn, args):
+    """The device kernels one call of ``fn(*args)`` runs, by device time
+    (names the backend scaled_dot_product_attention took)."""
+    fn(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    rows = sorted(((getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0)), e.key)
+                   for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  reverse=True)
+    names = [key[:70] for dev, key in rows if dev > 0][:3]
+    return " | ".join(names) if names else "not measured (no device events)"
 
 
 # ---------------------------------------------------------------------------
@@ -548,6 +636,110 @@ def ssd_timing(torch, ops, ref, B, S, H, P, G, N, chunk):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "recurrentgemma-9b"
+# recurrentgemma-9b at full width and 14 layers (four (rec, rec, attn)
+# groups and the model's two-layer (rec, rec) tail): 4,144,336,896
+# parameters, 46.3 GiB of bf16 weights and grads and f32 moments, plus
+# about 18.7 GiB of saved activations at B=1, S=4096 (PERF.md); all 38
+# layers' optimizer state (105 GiB) does not fit one card.  RecurrentGemma
+# trains at 8192; at 4096 the 2048 window still masks.
+HYBRID_B, HYBRID_S, HYBRID_LAYERS, HYBRID_REMAT = 1, 4096, 14, "none"
+# the JAX package's LRU tests: 1e-5 on h, 1e-4 on gradients
+LRU_TOL, LRU_GRAD_TOL = 1e-5, 1e-4
+LRU_GEOMETRIES = [
+    # name, B, S, W
+    ("lru_sweep_0", 2, 128, 64), ("lru_sweep_1", 1, 64, 128),
+    ("lru_sweep_2", 3, 32, 16), ("lru_sweep_3", 1, 256, 32),
+    ("ragged_s100_w300", 2, 100, 300), ("ragged_s65_w33", 3, 65, 33),
+    ("serving_chunk", 8, 16, 4096),
+]
+LRU_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/lru_scan.cu"
+
+
+def lru_main_geometry():
+    """The training path's scan shape: a rec layer of phase 7."""
+    return ("main_path", HYBRID_B, HYBRID_S, 4096)
+
+
+def lru_inputs(torch, B, S, W, seed):
+    """a in (0, 1) (a sigmoid of a normal, as the JAX LRU test draws it),
+    b and a carried state, float32 on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device="cuda")
+    return torch.sigmoid(rnd(B, S, W)), rnd(B, S, W), rnd(B, W)
+
+
+def phase_lru_kernel(torch):
+    """The RG-LRU scan kernel against its plain version on every element
+    of h and h_final, forward and reverse, from zero and from a carried
+    state, at the training shape and on the sweep; the autograd wrapper's
+    gradients against the CPU route; times at the training shape."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+
+    row = {"name": "lru_scan", "route": "cuda", "source": LRU_SOURCE,
+           "replaces": "src/repro/kernels/rglru_scan/kernel.py:57"}
+    worst = 0.0
+    for name, B, S, W in [lru_main_geometry()] + LRU_GEOMETRIES:
+        for reverse in (False, True):
+            for carried in (False, True):
+                a, b, h0 = lru_inputs(torch, B, S, W, seed=S + W)
+                h0 = h0 if carried else None
+                h, fin = ops.lru_scan(a, b, h0, reverse=reverse)
+                torch.cuda.synchronize()
+                want_h, want_fin = ref.lru_scan_plain(a, b, h0,
+                                                      reverse=reverse)
+                what = (f"{name} B={B} S={S} W={W} reverse={reverse} "
+                        f"h0={carried}")
+                err = max_err(torch, [("h", h, want_h),
+                                      ("h_final", fin, want_fin)],
+                              LRU_TOL, what)
+                log(f"[lru] {what}: max_abs_err={err:.3e} (tol {LRU_TOL} + "
+                    f"{LRU_TOL} * |plain|)")
+                if name == "main_path":
+                    worst = max(worst, err)
+    row["max_abs_err"] = worst
+    a, b, _ = lru_inputs(torch, 2, 130, 64, seed=7)
+    g = torch.randn(2, 130, 64, device="cuda")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        ta = a.detach().to(dev).clone().requires_grad_(True)
+        tb = b.detach().to(dev).clone().requires_grad_(True)
+        ops.lru(ta, tb).backward(g.to(dev))
+        grads.append((ta.grad, tb.grad))
+    err = max_err(torch, [("da", grads[0][0].cpu(), grads[1][0]),
+                          ("db", grads[0][1].cpu(), grads[1][1])],
+                  LRU_GRAD_TOL, "lru gradients, card vs CPU")
+    log(f"[lru] ops.lru gradients (the backward's reverse scan on the "
+        f"kernel) against the CPU route: max_abs_err={err:.3e} (tol "
+        f"{LRU_GRAD_TOL})")
+    row.update(lru_timing(torch, ops, ref, *lru_main_geometry()[1:]))
+    return row
+
+
+def lru_timing(torch, ops, ref, B, S, W):
+    sets = [lru_inputs(torch, B, S, W, seed=400 + i)[:2] for i in range(4)]
+    kernel_ms = time_ms(torch, ops.lru_scan, sets)
+    plain_ms = time_ms(torch, ref.lru_scan_plain, sets, iters=3, warmup=1)
+    # yardstick: one elementwise pass that moves the same bytes
+    outs = [torch.empty_like(a) for a, _ in sets]
+    mul_ms = time_ms(torch, lambda a, b, h: torch.mul(a, b, out=h),
+                     [s + (h,) for s, h in zip(sets, outs)])
+    n_bytes = 3 * B * S * W * 4 + B * W * 4   # a, b in; h, h_final out
+    bound_ms = 1e3 * n_bytes / PEAK_BYTES
+    log(f"[lru] B={B} S={S} W={W}: kernel_ms={kernel_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({n_bytes} bytes "
+        f"at {PEAK_BYTES:.3g} B/s; one multiply-add an element); "
+        f"yardstick torch.mul(a, b, out=h) {mul_ms:.4f} ms")
+    log("[lru] library_ms is null: no single PyTorch call computes a linear "
+        "recurrence; torch.mul over the same bytes is the yardstick")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None, "mul_ms": mul_ms}
+
+
+# ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
@@ -556,14 +748,18 @@ ENGINE_ARCH = "llama3-8b"
 
 def phase_engine(torch, arch, profile: bool = False):
     """Serve the main path's requests on ``arch`` at full width and depth
-    through the port's ServeEngine.  Returns the ring kernel's launches."""
+    through the port's ServeEngine.  Returns the launches of the ring and
+    the RG-LRU scan kernels over the run."""
     from repro_torch.configs import REGISTRY
     from repro_torch.core.topology import ChipletTopology
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.serving.engine import EngineConfig, ServeEngine
 
     cfg = REGISTRY[arch]
     dense = cfg.family == "dense"
+    types = cfg.layer_types()
+    n_attn, n_rec = types.count("attn"), types.count("rec")
     tag = f"[engine {cfg.name}]"
 
     def engine():
@@ -574,18 +770,25 @@ def phase_engine(torch, arch, profile: bool = False):
     t0 = time.perf_counter()
     eng = engine()
     torch.cuda.synchronize()
-    log(f"{tag} d_model={cfg.d_model} layers={cfg.n_layers} "
-        + (f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} " if dense
-           else f"ssd heads={cfg.ssm_heads}x{cfg.ssm_head_dim} "
-                f"state={cfg.ssm_state} ")
+    if cfg.family == "ssm":
+        widths = (f"ssd heads={cfg.ssm_heads}x{cfg.ssm_head_dim} "
+                  f"state={cfg.ssm_state} ")
+    else:
+        widths = f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
+        if cfg.family == "hybrid":
+            widths += (f"({n_rec} rec + {n_attn} attn layers, lru width "
+                       f"{cfg.lru_width}, local window {cfg.local_window}) ")
+    log(f"{tag} d_model={cfg.d_model} layers={cfg.n_layers} " + widths
         + f"vocab={cfg.vocab} {cfg.param_dtype}; set-up "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
 
     spent, timed = step_timers(torch, eng) if profile else (None, None)
     ops.ring_chunk_attention.launches = 0
+    lru_ops.lru_scan.launches = 0
     first, reqs, res, wall = serve(torch, eng, cfg, around=timed)
     launches = ops.ring_chunk_attention.launches
+    lru_launches = lru_ops.lru_scan.launches
 
     for r in [first] + reqs:
         if not r.done or len(r.generated) != r.max_new:
@@ -595,6 +798,7 @@ def phase_engine(torch, arch, profile: bool = False):
             raise AssertionError(f"request {r.rid}: token out of vocab")
     c = res["counters"]
     hits = c.get("kv_prefix_hits", 0.0)
+    ticks = int(c.get("chunk_ticks", 0))
     if dense:
         if launches <= 0:
             raise AssertionError("the ring kernel never launched on the "
@@ -602,6 +806,24 @@ def phase_engine(torch, arch, profile: bool = False):
         if hits <= 0:
             raise AssertionError("no prefix hit: the sharing path did not "
                                  "run")
+    elif cfg.family == "hybrid":
+        # every chunk tick runs the chunk step once: the ring kernel in
+        # each local-attention layer, the scan in each recurrent layer
+        if launches != n_attn * ticks or lru_launches != n_rec * ticks:
+            raise AssertionError(
+                f"{ticks} chunk ticks: ring launches {launches} (want "
+                f"{n_attn * ticks}), lru_scan launches {lru_launches} "
+                f"(want {n_rec * ticks})")
+        if hits <= 0:
+            raise AssertionError("no prefix hit: the state-checkpoint "
+                                 "sharing path did not run")
+        if not (eng.pool.pages_per_stream and eng.pool.has_state):
+            raise AssertionError("the pool did not take ring pages and a "
+                                 "state slot per stream")
+        if c.get("kv_reservations", 0) < len(reqs) + 1:
+            raise AssertionError(f"{c.get('kv_reservations', 0)} "
+                                 f"reservations for {len(reqs) + 1} "
+                                 "requests")
     else:
         # state-only streams: a state slot each, no ring pages, so no
         # prefix sharing (the JAX engine shares only ring pages)
@@ -621,9 +843,9 @@ def phase_engine(torch, arch, profile: bool = False):
         f"{wall:.2f} s: {st['tokens'] / wall:.1f} tokens/s; "
         f"TTFT p50 {st['ttft_p50'] * 1e3:.1f} ms, "
         f"TPOT p50 {st['tpot_p50'] * 1e3:.1f} ms")
-    log(f"{tag} ring kernel launches {launches} over "
-        f"{int(c.get('chunk_ticks', 0))} chunk ticks ({cfg.n_layers} "
-        f"layers), kv_prefix_hits {int(hits)}, kv_reservations "
+    log(f"{tag} ring kernel launches {launches}, lru_scan launches "
+        f"{lru_launches} over {ticks} chunk ticks ({n_attn} attn, {n_rec} "
+        f"rec layers), kv_prefix_hits {int(hits)}, kv_reservations "
         f"{int(c.get('kv_reservations', 0))}, relayouts "
         f"{len(res['relayouts'])}, pool audit ok")
     log(f"{tag} " + json.dumps({
@@ -633,7 +855,7 @@ def phase_engine(torch, arch, profile: bool = False):
                               "tpot_p99")},
         **{k: c.get(k, 0.0) for k in ("chunk_ticks", "split_ticks",
                                       "decode_steps")},
-        "ring_launches": launches,
+        "ring_launches": launches, "lru_launches": lru_launches,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
     if profile:
         steps = sum(t for t, _ in spent.values())
@@ -648,7 +870,7 @@ def phase_engine(torch, arch, profile: bool = False):
         gc.collect()                # the engine's tasks hold it in cycles
         torch.cuda.empty_cache()
         profile_replay(torch, engine(), cfg, wall)
-    return launches
+    return {"ring": launches, "lru": lru_launches}
 
 
 def serve(torch, eng, cfg, around=None):
@@ -809,12 +1031,13 @@ def free_card(torch):
     torch.cuda.empty_cache()
 
 
-def phase_train(torch, arch, B, remat, kernels, probes, profile=False):
+def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
+                S=TRAIN_S, layers=0):
     """4 steps of the port's train step on ``arch`` at full width and
-    depth, bf16, S = TRAIN_S.  ``kernels``: name -> (wrapper with a
-    ``launches`` count, launches expected per step); ``probes``: name ->
-    a parameter slice that must change.  Returns name -> launches over the
-    4 steps."""
+    depth (``layers`` cuts the depth when given), bf16, sequence ``S``.
+    ``kernels``: name -> (wrapper with a ``launches`` count, launches
+    expected per step); ``probes``: name -> a parameter slice that must
+    change.  Returns name -> launches over the 4 steps."""
     import dataclasses
     import math
     import shutil
@@ -826,8 +1049,8 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False):
     from repro_torch.models.params import init_params, n_params
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
-    cfg = dataclasses.replace(REGISTRY[arch], remat=remat)
-    S = TRAIN_S
+    cfg = dataclasses.replace(REGISTRY[arch], remat=remat,
+                              n_layers=layers or REGISTRY[arch].n_layers)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(cfg, gen, device="cuda")
@@ -902,6 +1125,9 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False):
 KERNEL_SYMBOLS = {
     TRAIN_ARCH: ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
     "mamba2-780m": ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"),
+    HYBRID_ARCH: ("lru_chunk_local", "lru_carry", "lru_fixup",
+                  "flash_fwd_kernel", "flash_dq256_kernel",
+                  "flash_dkv256_kernel"),
 }
 
 
@@ -1013,12 +1239,12 @@ def phase_trainer(torch, arch, kernel):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="phases 1, 2, 2b and 2c only")
+                    help="phases 1, 2, 2b, 2c and 2d only")
     ap.add_argument("--profile", action="store_true",
-                    help="time phases 3's and 6's two step kinds, then "
-                         "replay each on a fresh engine under "
+                    help="time phases 3's, 6's and 8's two step kinds, "
+                         "then replay each on a fresh engine under "
                          "torch.profiler and cProfile; profile one more "
-                         "training step in phases 4 and 5")
+                         "training step in phases 4, 5 and 7")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1031,6 +1257,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import REGISTRY
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     t0 = time.perf_counter()
     phase_build(torch)
@@ -1038,11 +1265,13 @@ def main() -> int:
     flash = phase_flash_kernels(torch)
     rows += [flash["fwd"], flash["bwd"]]
     rows.append(phase_ssd_kernel(torch))
+    rows.append(phase_lru_kernel(torch))
     for row in rows:
         row["launches"] = 0
     if not args.kernels_only:
         free_card(torch)
-        rows[0]["launches"] = phase_engine(torch, ENGINE_ARCH, args.profile)
+        rows[0]["launches"] = phase_engine(torch, ENGINE_ARCH,
+                                           args.profile)["ring"]
         phase_engine_reference(torch, ENGINE_ARCH, [
             ("kernel", "cuda", "blocked"),
             ("plain attention", "cuda", "dense")])
@@ -1073,11 +1302,45 @@ def main() -> int:
         phase_engine(torch, SSM_ARCH, args.profile)
         phase_engine_reference(torch, SSM_ARCH, [
             ("card", "cuda", "blocked"), ("CPU", "cpu", "blocked")])
+        free_card(torch)
+        # phase 7: the scan forward and reverse in each rec layer, each
+        # flash kernel once in each attn layer, a step
+        types = REGISTRY[HYBRID_ARCH].layer_types()[:HYBRID_LAYERS]
+        n_rec, n_attn = types.count("rec"), types.count("attn")
+        hybrid = phase_train(
+            torch, HYBRID_ARCH, HYBRID_B, HYBRID_REMAT,
+            {"lru_scan": (lru_ops.lru_scan, 2 * n_rec),
+             "flash_attention_fwd": (fa_ops.flash_attention, n_attn * (
+                 1 if HYBRID_REMAT == "none" else 2)),
+             "flash_attention_bwd": (fa_ops.flash_attention_bwd, n_attn)},
+            # (lam, a bf16 -5.0, moves by less than half its ulp in 4
+            # steps of lr 3e-4, so it is no probe)
+            {"w_a[0]": lambda p: p["groups"]["b0_rec"]["rec"]["w_a"][0],
+             "w_in[0]": lambda p: p["groups"]["b0_rec"]["rec"]["w_in"][0],
+             "wq[0]": lambda p: p["groups"]["b2_attn"]["attn"]["wq"][0],
+             "tail w_out": lambda p: p["tail"]["t1_rec"]["rec"]["w_out"],
+             "embed[:4096]": lambda p: p["embed"][:4096]},
+            args.profile, S=HYBRID_S, layers=HYBRID_LAYERS)
+        rows[4]["launches"] = hybrid["lru_scan"]
+        rows[1]["hybrid_launches"] = hybrid["flash_attention_fwd"]
+        rows[2]["hybrid_launches"] = hybrid["flash_attention_bwd"]
+        phase_trainer(torch, HYBRID_ARCH, lru_ops.lru_scan)
+        free_card(torch)
+        # phase 8
+        served = phase_engine(torch, HYBRID_ARCH, args.profile)
+        rows[0]["hybrid_launches"] = served["ring"]
+        rows[4]["serving_launches"] = served["lru"]
+        phase_engine_reference(torch, HYBRID_ARCH, [
+            ("card", "cuda", "blocked"), ("CPU", "cpu", "blocked")])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in rows]}))
+    # the contract's keys first, then each kernel's numbers on its other
+    # path (hybrid_*: recurrentgemma-9b's shapes, phases 7 and 8)
+    print(json.dumps({"kernels": [
+        {**{k: row[k] for k in keys},
+         **{k: v for k, v in row.items() if k not in keys}}
+        for row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

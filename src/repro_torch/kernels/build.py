@@ -31,6 +31,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention_fwd": "flash_attention/csrc/flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
+    "lru_scan": "rglru_scan/csrc/lru_scan.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -189,6 +189,109 @@ __device__ __forceinline__ void pv_tile(float (&acc)[4][DH / 16], const float* P
   }
 }
 
+// --- column chunks (the dh 256 backward) ---------------------------------
+//
+// At dh 256 the backward's four (64 x dh) float32 tiles do not fit a block's
+// 227 KB, so two of them are held DC = 128 columns at a time, with a row
+// stride of DC + 4.  A chunk's thread columns follow the dh 128 layout: the
+// accumulator column c of a (rows x 256) thread tile is chunk c / 8, local
+// column acc_col<128>(tx, c % 8).
+
+constexpr int DC = 128;          // columns of a chunk
+constexpr int LDC = DC + 4;      // row stride of a chunk tile
+
+// Columns [d0, d0 + WIDTH) of rows r0 .. r0 + BM - 1 of the row space of kv
+// head hk, row stride LD; rows past n_rows load as 0.
+template <typename T, int WIDTH, int LD>
+__device__ __forceinline__ void load_rows_cols(float* dst,
+                                               const T* __restrict__ src,
+                                               Strides st, int b, int hk,
+                                               int G, int r0, int n_rows,
+                                               int d0) {
+  for (int i = threadIdx.x; i < BM * WIDTH; i += THREADS) {
+    const int rr = i / WIDTH, d = i % WIDTH, r = r0 + rr;
+    float x = 0.f;
+    if (r < n_rows) {
+      x = to_float(src[b * st.b + (long long)(r / G) * st.s +
+                       (long long)(hk * G + r % G) * st.h + d0 + d]);
+    }
+    dst[rr * LD + d] = x;
+  }
+}
+
+// Columns [d0, d0 + WIDTH) of keys k0 .. k0 + BN - 1 of kv head hk, row
+// stride LD; keys past n_keys load as 0.
+template <typename T, int WIDTH, int LD>
+__device__ __forceinline__ void load_keys_cols(float* dst,
+                                               const T* __restrict__ src,
+                                               Strides st, int b, int hk,
+                                               int k0, int n_keys, int d0) {
+  for (int i = threadIdx.x; i < BN * WIDTH; i += THREADS) {
+    const int c = i / WIDTH, d = i % WIDTH, key = k0 + c;
+    float x = 0.f;
+    if (key < n_keys) {
+      x = to_float(src[b * st.b + (long long)key * st.s + hk * st.h + d0 + d]);
+    }
+    dst[c * LD + d] = x;
+  }
+}
+
+// dot_tile over LEN columns of A (row stride LDA) and B (row stride LDB),
+// both already offset to their first column; the same order of sums as
+// dot_tile, so a product taken chunk by chunk equals the whole one.
+template <int LEN, int LDA, int LDB>
+__device__ __forceinline__ void dot_cols(float (&acc)[4][4], const float* A,
+                                         int ra, const float* B, int rb) {
+#pragma unroll 2
+  for (int d = 0; d < LEN; d += 4) {
+    float4 a[4], c[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ra + i) * LDA + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      c[j] = *reinterpret_cast<const float4*>(B + (rb + 16 * j) * LDB + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float s = acc[i][j];
+        s = fmaf(a[i].x, c[j].x, s);
+        s = fmaf(a[i].y, c[j].y, s);
+        s = fmaf(a[i].z, c[j].z, s);
+        s = fmaf(a[i].w, c[j].w, s);
+        acc[i][j] = s;
+      }
+    }
+  }
+}
+
+// pv_tile into the 8 accumulator columns C0 .. C0 + 7 of a (rows x NCT)
+// thread tile, from a (BN x DC) chunk V of row stride LDC.
+template <int NCT, int C0>
+__device__ __forceinline__ void pv_cols(float (&acc)[4][NCT], const float* P,
+                                        int ra, const float* V, int tx) {
+#pragma unroll 2
+  for (int k = 0; k < BN; k += 4) {
+    float p[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) load_vec<4>(P + (ra + i) * LDP + k, p[i]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float vv[8];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        load_vec<4>(V + (k + e) * LDC + 4 * tx + 64 * n, vv + n * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          acc[i][C0 + c] = fmaf(p[i][e], vv[c], acc[i][C0 + c]);
+      }
+    }
+  }
+}
+
 // max and sum over the 16 lanes of one ty (adjacent lanes of one warp)
 __device__ __forceinline__ float max16(float x) {
 #pragma unroll

@@ -34,8 +34,10 @@
 //     of it can see, found from pos alone: the never-written slots of a
 //     short history (pos < W) and the slots outside a window are neither
 //     loaded nor multiplied.
-// This first version computes with FMA loops in float32; wgmma and TMA are
-// later work.
+// The tiles sit in dynamic shared memory, sized per head dim: at dh 256
+// (recurrentgemma's local attention, Hq 16 over one kv head) they take 68 KB,
+// over the 48 KB a static allocation may hold.  This first version computes
+// with FMA loops in float32; wgmma and TMA are later work.
 //
 // Layouts (all contiguous): q, out (B, C, Hq, dh); k_new, v_new
 // (B, C, Hkv, dh); k_cache, v_cache (B, W, Hkv, dh); pos, n_tokens (B,) int32.
@@ -64,6 +66,13 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+template <int DH>
+constexpr size_t ring_smem() {
+  return sizeof(float) * (BM * (DH + 1) + BN * (DH + 1) + BN * DH +
+                          BM * (BN + 1)) +
+         sizeof(int) * BN;
+}
+
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 ring_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new,
@@ -74,11 +83,15 @@ ring_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new
                             const int* __restrict__ ntok_p, T* __restrict__ out,
                             int C, int W, int Hq, int Hkv, int window,
                             float softcap, float scale) {
-  __shared__ float Qs[BM][DH + 1];     // +1: rows of different threads hit
-  __shared__ float Ks[BN][DH + 1];     // different banks at the same d
-  __shared__ float Vs[BN][DH];
-  __shared__ float Ps[BM][BN + 1];
-  __shared__ int Kp[BN];
+  // dynamic shared memory (ring_smem<DH>() bytes): Qs BM x (DH+1), Ks
+  // BN x (DH+1) (+1: rows of different threads hit different banks at the
+  // same d), Vs BN x DH, Ps BM x (BN+1), then the BN key positions
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + BM * (DH + 1);
+  float* Vs = Ks + BN * (DH + 1);
+  float* Ps = Vs + BN * DH;
+  int* Kp = reinterpret_cast<int*>(Ps + BM * (BN + 1));
 
   const int G = Hq / Hkv;
   const int b = blockIdx.x / Hkv;
@@ -98,7 +111,7 @@ ring_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new
       const int g = row / C, t = row % C;
       x = to_float(q[(((size_t)b * C + t) * Hq + hk * G + g) * DH + d]);
     }
-    Qs[rr][d] = x;
+    Qs[rr * (DH + 1) + d] = x;
   }
 
   const int row = r0 + r;
@@ -164,8 +177,8 @@ ring_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new
         kx = to_float(Kg[off]);
         vx = to_float(Vg[off]);
       }
-      Ks[c][d] = kx;
-      Vs[c][d] = vx;
+      Ks[c * (DH + 1) + d] = kx;
+      Vs[c * DH + d] = vx;
     }
     if (tid < BN) {
       const int key = j0 + tid;
@@ -188,9 +201,10 @@ ring_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new
     for (int j = 0; j < CPT; ++j) s[j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < DH; ++d) {
-      const float qv = Qs[r][d];
+      const float qv = Qs[r * (DH + 1) + d];
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) s[j] += qv * Ks[lane + TPR * j][d];
+      for (int j = 0; j < CPT; ++j)
+        s[j] += qv * Ks[(lane + TPR * j) * (DH + 1) + d];
     }
     float mt = NEG_INF;
 #pragma unroll
@@ -212,7 +226,7 @@ ring_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const float p = ok[j] ? expf(s[j] - m_new) : 0.f;   // re-mask
-      Ps[r][lane + TPR * j] = p;
+      Ps[r * (BN + 1) + lane + TPR * j] = p;
       ls += p;
     }
     ls += __shfl_xor_sync(0xffffffffu, ls, 1);
@@ -224,9 +238,9 @@ ring_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new
     for (int i = 0; i < DH / TPR; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int c = 0; c < BN; ++c) {
-      const float p = Ps[r][c];
+      const float p = Ps[r * (BN + 1) + c];
 #pragma unroll
-      for (int i = 0; i < DH / TPR; ++i) acc[i] += p * Vs[c][lane + TPR * i];
+      for (int i = 0; i < DH / TPR; ++i) acc[i] += p * Vs[c * DH + lane + TPR * i];
     }
   }
 
@@ -253,14 +267,25 @@ cudaError_t launch_typed(const void* q, const void* kn, const void* vn,
   const T* vct = static_cast<const T*>(vc);
   T* ot = static_cast<T*>(out);
 #define RCA_LAUNCH(D)                                                        \
-  ring_chunk_attention_kernel<T, D><<<grid, THREADS, 0, stream>>>(           \
-      qt, knt, vnt, kct, vct, pos, ntok, ot, C, W, Hq, Hkv, window, softcap, \
-      scale)
+  case D: {                                                                  \
+    auto kernel = ring_chunk_attention_kernel<T, D>;                         \
+    constexpr size_t smem = ring_smem<D>();                                  \
+    if (smem > 48 * 1024) {                                                  \
+      const cudaError_t err = cudaFuncSetAttribute(                          \
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);   \
+      if (err != cudaSuccess) return err;                                    \
+    }                                                                        \
+    kernel<<<grid, THREADS, smem, stream>>>(qt, knt, vnt, kct, vct, pos,     \
+                                            ntok, ot, C, W, Hq, Hkv, window, \
+                                            softcap, scale);                 \
+    break;                                                                   \
+  }
   switch (dh) {
-    case 16: RCA_LAUNCH(16); break;
-    case 32: RCA_LAUNCH(32); break;
-    case 64: RCA_LAUNCH(64); break;
-    case 128: RCA_LAUNCH(128); break;
+    RCA_LAUNCH(16)
+    RCA_LAUNCH(32)
+    RCA_LAUNCH(64)
+    RCA_LAUNCH(128)
+    RCA_LAUNCH(256)
     default: return cudaErrorInvalidValue;
   }
 #undef RCA_LAUNCH

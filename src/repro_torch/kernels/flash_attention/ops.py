@@ -25,7 +25,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 @functools.lru_cache(maxsize=None)

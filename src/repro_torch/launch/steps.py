@@ -13,7 +13,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import decode as dec
 from repro_torch.models import transformer as T
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import STACKED, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 
@@ -21,10 +21,10 @@ def _grad_tree(cfg: ModelConfig, params):
     """(tree to differentiate, gradient buffers).  Every leaf becomes a
     detached leaf view of its storage whose ``.grad`` is preset to a zero
     buffer, so backward accumulates straight into the buffer; the stacked
-    layer leaves become a list of per-layer dicts of views whose grads are
-    the matching slices of one stacked buffer.  (Slicing a stacked leaf
-    that requires grad would instead make every layer's backward write a
-    full-size zero tensor.)"""
+    layer (or hybrid group) leaves become a list of per-layer dicts of
+    views whose grads are the matching slices of one stacked buffer.
+    (Slicing a stacked leaf that requires grad would instead make every
+    layer's backward write a full-size zero tensor.)"""
 
     def walk(p, g):
         if isinstance(p, dict):
@@ -33,12 +33,20 @@ def _grad_tree(cfg: ModelConfig, params):
         view.grad = g
         return view
 
+    def stack_len(tree):
+        while isinstance(tree, dict):
+            tree = next(iter(tree.values()))
+        return tree.shape[0]
+
     grads = tree_map(torch.zeros_like, params)
-    tree = {k: walk(v, grads[k]) for k, v in params.items()
-            if k != "layers"}
-    tree["layers"] = [walk(T.layer_params(params["layers"], i),
-                           T.layer_params(grads["layers"], i))
-                      for i in range(cfg.n_layers)]
+    tree = {}
+    for k, v in params.items():
+        if k in STACKED:
+            tree[k] = [walk(T.layer_params(v, i),
+                            T.layer_params(grads[k], i))
+                       for i in range(stack_len(v))]
+        else:
+            tree[k] = walk(v, grads[k])
     return tree, grads
 
 

@@ -1,5 +1,5 @@
-"""Serving path of the dense and SSM families: cache layout, the paged
-block pool's storage ops, the single-token decode step and the fused
+"""Serving path of the dense, SSM and hybrid families: cache layout, the
+paged block pool's storage ops, the single-token decode step and the fused
 multi-token chunk step.
 
 Caches are nested dicts of tensors shaped like the JAX package's cache
@@ -7,8 +7,14 @@ pytrees.  The dense family keeps ring buffers of width W = min(max_len,
 window) per layer: ``{"layers": {"k": (L, B, W, Hkv, dh), "v": ...}}``.
 The SSM family keeps per-stream state only: ``{"layers": {"conv_B",
 "conv_C", "conv_x": (L, B, K-1, ·) in the compute type, "ssm": (L, B, H,
-P, N) float32}}``.  The layer stack is a Python loop over the stacked
-layer weights.
+P, N) float32}}``.  The hybrid family keeps, per group and per tail
+layer, the rings of its local-attention layers (width min(max_len,
+local_window)) and the RG-LRU state of its recurrent layers (``h``
+float32, ``conv`` in the compute type): ``{"groups": {"b0_rec": {"conv":
+(G, B, K-1, W), "h": (G, B, W)}, ..., "b2_attn": {"k", "v": (G, B, W,
+Hkv, dh)}}, "tail": {"t0_rec": {"conv": (B, K-1, W), "h": (B, W)},
+...}}``.  The layer stack is a Python loop over the stacked layer (or
+group) weights.
 
 Where the JAX package updates arrays functionally (``.at[].set``) under
 buffer donation, the port writes in place and says so: the pool storage
@@ -24,10 +30,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.params import PORTED_FAMILIES
+from repro_torch.models.params import PORTED_FAMILIES, hybrid_structure
 from repro_torch.models.transformer import (
-    _attn_out, _attn_proj, _ffn, cdt, embed_tokens, head_logits, rope_for)
+    _attn_out, _attn_proj, _ffn, _window, cdt, embed_tokens, head_logits,
+    layer_params, rope_for, tail_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +66,45 @@ class CacheViewSpec:
 
 
 def _attn_cache_width(cfg: ModelConfig, max_len: int) -> int:
-    return min(max_len, cfg.window) if cfg.window else max_len
+    """Ring width of an attention layer: the hybrid's local attention keeps
+    ``local_window`` tokens, other attention ``window`` (0 = all)."""
+    w = cfg.local_window if cfg.block_pattern else cfg.window
+    return min(max_len, w) if w else max_len
+
+
+def _hybrid_spec(cfg: ModelConfig, max_len: int) -> CacheViewSpec:
+    """The hybrid cache's leaves in the JAX leaf order (sorted keys at
+    every level): group leaves carry the group axis first (stream axis 1),
+    tail leaves none (stream axis 0)."""
+    pattern, n_groups, tail = hybrid_structure(cfg)
+    W = _attn_cache_width(cfg, max_len)
+    state = rglru_mod.rglru_init_state(cfg, 1, cdt(cfg), device="meta")
+    leaves, paths, shapes, dtypes = [], [], [], []
+    layers = [("groups", f"b{i}_{t}", t) for i, t in enumerate(pattern)] \
+        + [("tail", f"t{i}_{t}", t) for i, t in enumerate(tail)]
+    for top, name, t in sorted(layers):
+        lead = (n_groups,) if top == "groups" else ()
+        ax = len(lead)
+        if t == "attn":
+            kv = lead + (1, W, cfg.n_kv_heads, cfg.head_dim)
+            entries = [("k", CacheLeafSpec(ax, ax + 1, W), kv, cdt(cfg)),
+                       ("v", CacheLeafSpec(ax, ax + 1, W), kv, cdt(cfg))]
+        elif t == "rec":
+            entries = [(k, CacheLeafSpec(ax, None, 0),
+                        lead + tuple(state[k].shape), state[k].dtype)
+                       for k in sorted(state)]
+        else:
+            raise NotImplementedError(f"{t!r} layers in a hybrid model are "
+                                      "not ported (ROADMAP A8)")
+        for k, leaf, shape, dtype in entries:
+            leaves.append(leaf)
+            paths.append((top, name, k))
+            shapes.append(shape)
+            dtypes.append(dtype)
+    has_ring = any(leaf.token_axis is not None for leaf in leaves)
+    return CacheViewSpec(leaves=tuple(leaves), paths=tuple(paths),
+                         shapes=tuple(shapes), dtypes=tuple(dtypes),
+                         width=W if has_ring else 0)
 
 
 def cache_view_specs(cfg: ModelConfig, max_len: int) -> CacheViewSpec:
@@ -66,8 +112,11 @@ def cache_view_specs(cfg: ModelConfig, max_len: int) -> CacheViewSpec:
     finds the same layout by probing ``init_cache`` shapes).  Dense: per
     layer a K and a V ring, stream axis 1, token axis 2.  SSM: per layer
     the three conv tails and the SSD state, stream axis 1, no token axis
-    (width 0), in the JAX leaf order (sorted keys)."""
+    (width 0), in the JAX leaf order (sorted keys).  Hybrid: see
+    ``_hybrid_spec``."""
     L_ = cfg.n_layers
+    if cfg.block_pattern:
+        return _hybrid_spec(cfg, max_len)
     if cfg.family == "dense":
         W = _attn_cache_width(cfg, max_len)
         leaf = CacheLeafSpec(batch_axis=1, token_axis=2, width=W)
@@ -304,85 +353,100 @@ def next_token_ids(logits, n_tokens):
 # Steps
 # ---------------------------------------------------------------------------
 
-def _layer(params, l: int):
-    """Layer ``l``'s weights out of the stacked layer tree (views)."""
-    def take(t):
-        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) \
-            else t[l]
-    return take(params["layers"])
-
-
 def _check_family(cfg: ModelConfig):
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: {cfg.family!r} steps are "
                                   "not ported yet (ROADMAP A8)")
 
 
-def _ssd_layers(params, cfg: ModelConfig, cache, x, step):
-    """The SSM family's layer stack for one serving step: ``step(x_norm,
-    layer params, layer state) -> (out, new state)`` per layer, each
-    layer's state slices written back into ``cache`` in place."""
+def _layer_stack(params, cfg: ModelConfig, cache, x, step):
+    """One serving step's layer stack: ``step(x, layer params, layer
+    cache, layer type) -> (x, new layer cache)`` per layer in order — the
+    layers, or a hybrid model's groups then tail — each layer's new cache
+    written back into ``cache`` in place."""
+
+    def run(x, lp, lc, t):
+        x, st = step(x, lp, lc, t)
+        for k, v in st.items():
+            lc[k].copy_(v)
+        return x
+
+    if cfg.block_pattern:
+        pattern, n_groups, _ = hybrid_structure(cfg)
+        for g in range(n_groups):
+            gp = layer_params(params["groups"], g)
+            for i, t in enumerate(pattern):
+                nm = f"b{i}_{t}"
+                lc = {k: v[g] for k, v in cache["groups"][nm].items()}
+                x = run(x, gp[nm], lc, t)
+        for nm, t in tail_layers(params["tail"]):
+            x = run(x, params["tail"][nm], cache["tail"][nm], t)
+        return x
+    lt = cfg.layer_types()[0]
     states = cache["layers"]
     for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        lc = {k: v[l] for k, v in states.items()}
-        s, st = step(L.rms_norm(x, lp["ln"], cfg.norm_eps), lp["ssd"], lc)
-        x = x + s
-        for k, v in st.items():
-            states[k][l].copy_(v)
+        x = run(x, layer_params(params["layers"], l),
+                {k: v[l] for k, v in states.items()}, lt)
     return x
+
+
+def _ffn_out(h, lp, cfg: ModelConfig):
+    return h + _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
+
+
+def _decode_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos):
+    """One layer of the single-token step."""
+    if t == "ssd":
+        s, st = ssd_mod.ssd_decode_step(
+            L.rms_norm(x, lp["ln"], cfg.norm_eps), lp["ssd"], cfg, lc)
+        return x + s, st
+    if t == "rec":
+        r, st = rglru_mod.rglru_decode_step(
+            L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["rec"], cfg, lc)
+        return _ffn_out(x + r, lp, cfg), st
+    xin = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _attn_proj(xin, lp["attn"], rope, cfg=cfg)
+    kc, vc = L.cache_update(lc["k"], lc["v"], k, v, pos)
+    kv_pos = L.cache_positions(pos, kc.shape[1])
+    o = L.decode_attention(q, kc, vc, kv_pos, pos, window=_window(cfg, t))
+    h = x + _attn_out(o, lp["attn"], x.dtype)
+    return _ffn_out(h, lp, cfg), {"k": kc, "v": vc}
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
     """One token for every stream.  tokens: (B, 1); pos: (B,) absolute.
-    Writes each layer's ring (dense) or state (SSM) in ``cache`` in place
-    and returns (logits (B, V) f32, cache)."""
+    Writes each layer's ring or state in ``cache`` in place and returns
+    (logits (B, V) f32, cache)."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
-    if cfg.family == "ssm":
-        x = _ssd_layers(params, cfg, cache, x,
-                        lambda xn, p, st: ssd_mod.ssd_decode_step(xn, p, cfg,
-                                                                  st))
-        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return head_logits(params, cfg, x[:, 0]), cache
     rope = rope_for(cfg, pos[:, None])
-    kc_all, vc_all = cache["layers"]["k"], cache["layers"]["v"]
-    for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        xin = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = _attn_proj(xin, lp["attn"], rope, cfg=cfg)
-        kc, vc = L.cache_update(kc_all[l], vc_all[l], k, v, pos)
-        kv_pos = L.cache_positions(pos, kc.shape[1])
-        o = L.decode_attention(q, kc, vc, kv_pos, pos, window=cfg.window)
-        h = x + _attn_out(o, lp["attn"], x.dtype)
-        x = h + _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
-        kc_all[l].copy_(kc)
-        vc_all[l].copy_(vc)
+    x = _layer_stack(params, cfg, cache, x,
+                     lambda x, lp, lc, t: _decode_layer(x, lp, lc, cfg, t,
+                                                        rope, pos))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return head_logits(params, cfg, x[:, 0]), cache
 
 
-def _dense_chunk_layers(params, cfg: ModelConfig, cache, x, pos, n_tokens,
-                        chunk_kernel):
-    """The dense family's layer stack for one chunk step, each layer's
-    ring written back into ``cache`` in place."""
-    C = x.shape[1]
-    q_pos = pos[:, None] + torch.arange(C, device=pos.device)[None, :]
-    rope = rope_for(cfg, q_pos)
-    kc_all, vc_all = cache["layers"]["k"], cache["layers"]["v"]
-    for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        xin = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = _attn_proj(xin, lp["attn"], rope, cfg=cfg)
-        o = L.chunk_attention(q, k, v, kc_all[l], vc_all[l], pos, n_tokens,
-                              window=cfg.window, kernel=chunk_kernel)
-        kc, vc = L.cache_update_chunk(kc_all[l], vc_all[l], k, v, pos,
-                                      n_tokens)
-        h = x + _attn_out(o, lp["attn"], x.dtype)
-        x = h + _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
-        kc_all[l].copy_(kc)
-        vc_all[l].copy_(vc)
-    return x
+def _chunk_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos, n_tokens,
+                 chunk_kernel):
+    """One layer of the fused multi-token chunk step."""
+    if t == "ssd":
+        s, st = ssd_mod.ssd_chunk_step(
+            L.rms_norm(x, lp["ln"], cfg.norm_eps), lp["ssd"], cfg, lc,
+            n_tokens)
+        return x + s, st
+    if t == "rec":
+        r, st = rglru_mod.rglru_chunk_step(
+            L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["rec"], cfg, lc,
+            n_tokens)
+        return _ffn_out(x + r, lp, cfg), st
+    xin = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = _attn_proj(xin, lp["attn"], rope, cfg=cfg)
+    o = L.chunk_attention(q, k, v, lc["k"], lc["v"], pos, n_tokens,
+                          window=_window(cfg, t), kernel=chunk_kernel)
+    kc, vc = L.cache_update_chunk(lc["k"], lc["v"], k, v, pos, n_tokens)
+    h = x + _attn_out(o, lp["attn"], x.dtype)
+    return _ffn_out(h, lp, cfg), {"k": kc, "v": vc}
 
 
 def prefill_chunk_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
@@ -398,19 +462,19 @@ def prefill_chunk_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
     ring slot; an idle slot's logits row is NEG_INF.  Writes ``cache`` in
     place and returns (last-active-token logits (B, V), cache) — or, with
     ``all_logits``, the per-position logits (B, C, V) with positions at or
-    past ``n_tokens`` set to NEG_INF.  SSM layers run their chunked scan
-    from the carried state (``ssd.ssd_chunk_step``); an inactive token
-    leaves the state as it was."""
+    past ``n_tokens`` set to NEG_INF.  SSM and RG-LRU layers run their
+    chunk scans from the carried state (``ssd.ssd_chunk_step``,
+    ``rglru.rglru_chunk_step``); an inactive token leaves the state as it
+    was."""
     _check_family(cfg)
     B, C = tokens.shape
     x = embed_tokens(params, cfg, tokens)
-    if cfg.family == "ssm":
-        x = _ssd_layers(params, cfg, cache, x,
-                        lambda xn, p, st: ssd_mod.ssd_chunk_step(
-                            xn, p, cfg, st, n_tokens))
-    else:
-        x = _dense_chunk_layers(params, cfg, cache, x, pos, n_tokens,
-                                chunk_kernel)
+    q_pos = pos[:, None] + torch.arange(C, device=pos.device)[None, :]
+    rope = rope_for(cfg, q_pos)
+    x = _layer_stack(params, cfg, cache, x,
+                     lambda x, lp, lc, t: _chunk_layer(
+                         x, lp, lc, cfg, t, rope, pos, n_tokens,
+                         chunk_kernel))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     n = n_tokens.long()
     if all_logits:

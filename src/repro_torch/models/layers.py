@@ -36,6 +36,9 @@ def _mm_f32(a, b):
     return torch.mm(a, b, out_dtype=torch.float32)
 
 
+GRAD_BLOCK = 16384      # weight-gradient columns summed at a time
+
+
 class _MatmulF32(torch.autograd.Function):
     """x (M, K) @ w (K, N) -> float32, as a JAX einsum with
     ``preferred_element_type=float32`` computes it: the product is never
@@ -43,7 +46,10 @@ class _MatmulF32(torch.autograd.Function):
     in float32.  On the card the backward splits the float32 cotangent
     into two bf16 parts (hi + lo, 16 of float32's 24 mantissa bits) and
     sums their two bf16 -> f32 GEMMs, so no float32 copy of the weight
-    (the (V, D) embedding, for the output head) is made."""
+    (the (V, D) embedding, for the output head) is made; the weight's
+    gradient is summed in float32 ``GRAD_BLOCK`` columns at a time, so its
+    float32 temporaries stay at one block's size (a whole (D, V) one is
+    4.2 GB at recurrentgemma's vocabulary of 256,000)."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -58,11 +64,17 @@ class _MatmulF32(torch.autograd.Function):
         else:
             hi = g.to(x.dtype)
             parts = (hi, (g - hi.float()).to(x.dtype))
-        gx, gw = _mm_f32(parts[0], w.t()), _mm_f32(x.t(), parts[0])
+        gx = _mm_f32(parts[0], w.t())
         for p in parts[1:]:
             gx += _mm_f32(p, w.t())
-            gw += _mm_f32(x.t(), p)
-        return gx.to(x.dtype), gw.to(w.dtype)
+        gw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+        for c0 in range(0, w.shape[1], GRAD_BLOCK):
+            cols = slice(c0, c0 + GRAD_BLOCK)
+            acc = _mm_f32(x.t(), parts[0][:, cols])
+            for p in parts[1:]:
+                acc += _mm_f32(x.t(), p[:, cols])
+            gw[:, cols] = acc
+        return gx.to(x.dtype), gw
 
 
 def matmul_f32(x, w):
@@ -253,10 +265,12 @@ def causal_conv1d(x, w, bias=None):
     """x: (B, S, C); w: (K, C) depthwise causal conv along S, summed in
     float32 tap by tap (the JAX package's order) and rounded to x's type."""
     K, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, K - 1, 0))
+    # one float32 copy of the padded input, whose K shifted views the
+    # products share (and autograd saves once)
+    pad = F.pad(x, (0, 0, K - 1, 0)).float()
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(K):
-        out = out + pad[:, i:i + S, :].float() * w[i].float()
+        out = out + pad[:, i:i + S, :] * w[i].float()
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)

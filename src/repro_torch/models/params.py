@@ -1,4 +1,5 @@
-"""Parameter definitions and initialisers for the dense and SSM families.
+"""Parameter definitions and initialisers for the dense, SSM and hybrid
+families.
 
 ``model_def`` yields the same tree paths and shapes as the JAX package's
 ``models/params.py``: a nested dict whose layer leaves are stacked on a
@@ -6,8 +7,12 @@ leading layer axis.  Parameters are plain dicts of tensors, so a tree of
 JAX arrays converts leaf by leaf (``from_reference``) and the tests can
 drive both packages with the same weights.
 
-The dense and SSM families are ported; the other families raise
-``NotImplementedError`` until their slice lands (ROADMAP A8).
+The dense, SSM and hybrid families are ported; the other families raise
+``NotImplementedError`` until their slice lands (ROADMAP A8).  A hybrid
+model (``cfg.block_pattern``) stacks its repeating groups under
+``groups`` (``b{i}_{type}``, stacked over the groups) and keeps the
+remainder layers under ``tail`` (``t{i}_{type}``, unstacked), as the JAX
+tree does.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ class ParamDef:
         return ParamDef((n,) + self.shape, self.init)
 
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig):
@@ -58,6 +63,19 @@ def _mlp_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
     glu = cfg.activation in ("swiglu", "gelu_glu", "relu_glu")
     wi = ParamDef((D, 2, F)) if glu else ParamDef((D, F))
     return {"wi": wi, "wo": ParamDef((F, D))}
+
+
+def _rglru_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    D, W, K = cfg.d_model, cfg.lru_width, cfg.conv_width
+    return {
+        "w_gate": ParamDef((D, W)), "w_in": ParamDef((D, W)),
+        "conv_w": ParamDef((K, W), "normal:0.05"),
+        "conv_b": ParamDef((W,), "zeros"),
+        "w_a": ParamDef((W, W), "normal:0.01"),
+        "w_x": ParamDef((W, W), "normal:0.01"),
+        "lam": ParamDef((W,), "const:-5.0"),
+        "w_out": ParamDef((W, D)),
+    }
 
 
 def _ssd_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -86,10 +104,22 @@ def layer_def(cfg: ModelConfig, layer_type: str) -> Dict:
     if layer_type == "attn":
         return {"ln1": ParamDef((D,), "ones"), "attn": _attn_def(cfg),
                 "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
+    if layer_type == "rec":
+        return {"ln1": ParamDef((D,), "ones"), "rec": _rglru_def(cfg),
+                "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
     if layer_type == "ssd":
         return {"ln": ParamDef((D,), "ones"), "ssd": _ssd_def(cfg)}
     raise NotImplementedError(f"{layer_type!r} layers are not ported yet "
                               "(ROADMAP A8)")
+
+
+def hybrid_structure(cfg: ModelConfig):
+    """(group pattern, n_groups, tail layer types) for pattern-based
+    models."""
+    types = cfg.layer_types()
+    period = len(cfg.block_pattern)
+    n_groups = cfg.n_layers // period
+    return cfg.block_pattern, n_groups, types[n_groups * period:]
 
 
 def model_def(cfg: ModelConfig) -> Dict:
@@ -99,9 +129,20 @@ def model_def(cfg: ModelConfig) -> Dict:
                  "final_norm": ParamDef((D,), "ones")}
     if not cfg.tie_embeddings:
         out["head"] = ParamDef((D, V))
+    if cfg.block_pattern:
+        pattern, n_groups, tail = hybrid_structure(cfg)
+        group = {f"b{i}_{t}": layer_def(cfg, t) for i, t in enumerate(pattern)}
+        out["groups"] = tree_map(lambda p: p.stacked(n_groups), group)
+        out["tail"] = {f"t{i}_{t}": layer_def(cfg, t)
+                       for i, t in enumerate(tail)}
+        return out
     layer = layer_def(cfg, cfg.layer_types()[0])
     out["layers"] = tree_map(lambda p: p.stacked(L), layer)
     return out
+
+
+# top-level trees whose leaves are stacked on a leading layer (or group) axis
+STACKED = ("layers", "groups")
 
 
 def tree_map(fn, tree):
@@ -169,7 +210,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         const = _const(p.init)
         if const is not None:
             t.fill_(const)
-        elif path[0] == "layers":
+        elif path[0] in STACKED:
             std = _std(path, p.shape[1:], p.init)
             for i in range(p.shape[0]):
                 t[i].normal_(0.0, std, generator=generator)

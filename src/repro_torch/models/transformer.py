@@ -1,30 +1,34 @@
 """Transformer blocks, the full-sequence forward and the chunked loss.
 
 Counterparts of the same-named functions in the JAX package's
-``models/transformer.py``, for the dense decoder family and the SSM
-family: the helpers the serving steps use (embedding, output head,
+``models/transformer.py``, for the dense decoder, SSM and hybrid
+families: the helpers the serving steps use (embedding, output head,
 attention projections, the feed-forward block) and the training path
 (``attn_block``, ``apply_layer``, ``forward``, ``chunked_ce_loss``,
 ``loss_fn``).
 
 What differs from the JAX forward:
 
-* Attention always goes through ``ops.flash_attention`` and the SSD scan
-  through ``ssd_scan.ops.ssd_with_state``: on the card their CUDA
-  kernels, on the CPU their plain versions.  ``cfg.use_pallas`` is not
+* Attention always goes through ``ops.flash_attention``, the SSD scan
+  through ``ssd_scan.ops.ssd_with_state`` and the RG-LRU scan through
+  ``rglru_scan.ops.lru``: on the card their CUDA kernels, on the CPU
+  their plain versions.  ``cfg.use_pallas`` is not
   read, and ``cfg.attn_block_q/kv`` (TPU tile sizes) are not used: the
   CUDA kernels choose their own tiles.
 * The layer stack is a Python loop over the layer slices of the stacked
-  parameters (``lax.scan`` in JAX).  ``params["layers"]`` may also be a
-  list of per-layer dicts — the train step hands one in so each layer's
-  gradient lands in its slice without a copy.
-* ``cfg.remat != "none"`` recomputes each layer in the backward pass
-  (``torch.utils.checkpoint`` of one layer, which saves only the layer's
-  input, as JAX's ``"full"`` policy does).
+  parameters (``lax.scan`` in JAX); a hybrid model loops over its groups
+  (``params["groups"]``), then its tail layers.  ``params["layers"]`` and
+  ``params["groups"]`` may also be lists of per-layer (per-group) dicts —
+  the train step hands them in so each gradient lands in its slice
+  without a copy.
+* ``cfg.remat != "none"`` recomputes each layer — for a hybrid model each
+  group, as the JAX forward remats ``group_body`` — in the backward pass
+  (``torch.utils.checkpoint``, which saves only the input, as JAX's
+  ``"full"`` policy does).
 * ``head_pad_to`` and the sharding pins (``_shard_padded_heads``,
   ``_seq_gather``, ``_wsc_tree``) do nothing on one card and are not
   ported.
-* The other families (MoE, hybrid, encoder-decoder, VLM) raise
+* The other families (MoE, encoder-decoder, VLM) raise
   ``NotImplementedError`` (ROADMAP A8).
 """
 from __future__ import annotations
@@ -37,8 +41,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.params import PORTED_FAMILIES, torch_dtype
+from repro_torch.models.params import (PORTED_FAMILIES, hybrid_structure,
+                                       torch_dtype)
 
 LOSS_CHUNK = 1024
 
@@ -126,6 +132,12 @@ def apply_layer(x, lp, cfg: ModelConfig, layer_type: str, rope, *,
         s, state = ssd_mod.ssd_block_apply(
             L.rms_norm(x, lp["ln"], cfg.norm_eps), lp["ssd"], cfg)
         return x + s, state, {}
+    if layer_type == "rec":
+        r, state = rglru_mod.rglru_block_apply(
+            L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["rec"], cfg)
+        h = x + r
+        f = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
+        return h + f, state, {}
     if layer_type != "attn":
         raise NotImplementedError(f"{layer_type!r} blocks are not ported "
                                   "yet (ROADMAP A8)")
@@ -150,9 +162,37 @@ def _layer_out(x, lp, cfg, layer_type, rope, window):
     return apply_layer(x, lp, cfg, layer_type, rope, window=window)[0]
 
 
+def _window(cfg: ModelConfig, layer_type: str) -> int:
+    """The attention window of a layer: the hybrid's local attention reads
+    ``local_window``, other attention ``window``."""
+    if layer_type != "attn":
+        return 0
+    return cfg.local_window if cfg.block_pattern else cfg.window
+
+
+def tail_layers(tail):
+    """A hybrid model's tail as (name, layer type) in layer order."""
+    names = sorted(tail, key=lambda n: int(n[1:].split("_", 1)[0]))
+    return [(n, n.split("_", 1)[1]) for n in names]
+
+
+def _group_out(x, gp, cfg, rope):
+    """One group of a hybrid model: its pattern's layers in order."""
+    for i, t in enumerate(cfg.block_pattern):
+        x = _layer_out(x, gp[f"b{i}_{t}"], cfg, t, rope, _window(cfg, t))
+    return x
+
+
+def _run(fn, x, p, cfg: ModelConfig):
+    """``fn(x, p)``, recomputed in the backward pass unless remat is off."""
+    if cfg.remat == "none":
+        return fn(x, p)
+    return checkpoint(lambda x_: fn(x_, p), x, use_reentrant=False)
+
+
 def forward(params, cfg: ModelConfig, tokens, extras=None):
     """Full-sequence forward to the final hidden states: (x (B, S, D),
-    aux loss).  ``extras`` carries nothing for the dense and SSM
+    aux loss).  ``extras`` carries nothing for the dense, SSM and hybrid
     families."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's "
@@ -161,16 +201,20 @@ def forward(params, cfg: ModelConfig, tokens, extras=None):
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     rope = rope_for(cfg, positions)
-    lt = cfg.layer_types()[0]
-    layer = functools.partial(_layer_out, cfg=cfg, layer_type=lt, rope=rope,
-                              window=cfg.window if lt == "attn" else 0)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        if cfg.remat == "none":
-            x = layer(x, lp)
-        else:
-            x = checkpoint(functools.partial(layer, lp=lp), x,
-                           use_reentrant=False)
+    if cfg.block_pattern:
+        _, n_groups, _ = hybrid_structure(cfg)
+        group = functools.partial(_group_out, cfg=cfg, rope=rope)
+        for g in range(n_groups):
+            x = _run(group, x, layer_params(params["groups"], g), cfg)
+        for name, t in tail_layers(params["tail"]):
+            x = _layer_out(x, params["tail"][name], cfg, t, rope,
+                           _window(cfg, t))
+    else:
+        lt = cfg.layer_types()[0]
+        layer = functools.partial(_layer_out, cfg=cfg, layer_type=lt,
+                                  rope=rope, window=_window(cfg, lt))
+        for i in range(cfg.n_layers):
+            x = _run(layer, x, layer_params(params["layers"], i), cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -30,11 +30,14 @@ The default configuration is the path this module runs:
     watermark spill rung, as in the JAX package.
 
 Steps run eagerly: where the JAX package jits a step and donates the pool
-storage, the port writes the storage in place.  The dense and SSM
+storage, the port writes the storage in place.  The dense, SSM and hybrid
 families are served; an SSM model's streams hold a state slot and no
 ring pages, so they take the pool's state-slot paths and never share a
 prompt prefix (the JAX engine shares prefixes only for models with ring
-pages).
+pages).  A hybrid model's streams hold ring pages for its local-attention
+layers and a state slot for its recurrent layers: a prompt prefix is
+shared through the state checkpoints the pool snaps at page boundaries,
+and a spill carries the state leaves with the pages.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): speculative decoding, the asynchronous swap tier, the slot monolith

@@ -1,7 +1,8 @@
 """The port's configs and parameter trees against the JAX package.
 
 Every architecture's config (full and reduced) equals the JAX package's
-field by field; for the dense and SSM families the port's parameter tree
+field by field; for the dense, SSM and hybrid families the port's
+parameter tree
 has the JAX tree's paths, shapes and dtype, ``from_reference`` carries
 JAX weights across exactly, and the constant leaves (zeros, ones,
 ``const:<v>``) hold the JAX package's values.  The families not ported
@@ -47,12 +48,13 @@ def test_config_fields_match(arch):
         assert t.layer_types() == j.layer_types()
 
 
-PORTED = ("dense", "ssm")
+PORTED = ("dense", "ssm", "hybrid")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_or_not_ported(arch):
-    """Dense and SSM: same paths and shapes as ``repro.models.params`` at
+    """Dense, SSM and hybrid: same paths and shapes as
+    ``repro.models.params`` at
     full size, same bytes and count.  Other families: NotImplementedError
     from every entry point, naming the ROADMAP item."""
     cfg = T_REGISTRY[arch]

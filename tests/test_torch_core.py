@@ -93,12 +93,23 @@ def test_cost_estimates_match_on_the_same_hardware(arch, shape):
 
 def test_cost_estimate_of_unported_family_raises():
     """The estimate prices parameters from the port's own parameter tree,
-    which holds the dense and SSM families so far: the hybrid family
+    which holds the dense, SSM and hybrid families so far: the MoE family
     still raises."""
     _, tt = _topos(1, 16, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TM.estimate(t_get_config("recurrentgemma-9b"), SHAPES["train_4k"],
+        TM.estimate(t_get_config("mixtral-8x22b"), SHAPES["train_4k"],
                     TL.Layout(tt, 1))
+
+
+def _estimates_match(arch, shape):
+    jt, tt = _topos(1, 16, 16, same_hw=True)
+    jcfg, tcfg = get_config(arch), t_get_config(arch)
+    jf, tf = JL.layout_family(jt), TL.layout_family(tt)
+    for jl, tl in zip(jf, tf):
+        assert dataclasses.asdict(TM.estimate(tcfg, SHAPES[shape], tl)) == \
+            dataclasses.asdict(JM.estimate(jcfg, SHAPES[shape], jl))
+    assert TM.best_layout(tcfg, SHAPES[shape], tf).spread_rate == \
+        JM.best_layout(jcfg, SHAPES[shape], jf).spread_rate
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
@@ -106,14 +117,16 @@ def test_cost_estimate_of_unported_family_raises():
 def test_ssm_cost_estimates_match_on_the_same_hardware(shape):
     """mamba2-780m: the port's estimate, priced from its own SSM parameter
     tree, equals the JAX package's on every layout of the topology."""
-    jt, tt = _topos(1, 16, 16, same_hw=True)
-    jcfg, tcfg = get_config("mamba2-780m"), t_get_config("mamba2-780m")
-    jf, tf = JL.layout_family(jt), TL.layout_family(tt)
-    for jl, tl in zip(jf, tf):
-        assert dataclasses.asdict(TM.estimate(tcfg, SHAPES[shape], tl)) == \
-            dataclasses.asdict(JM.estimate(jcfg, SHAPES[shape], jl))
-    assert TM.best_layout(tcfg, SHAPES[shape], tf).spread_rate == \
-        JM.best_layout(jcfg, SHAPES[shape], jf).spread_rate
+    _estimates_match("mamba2-780m", shape)
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k"])
+def test_hybrid_cost_estimates_match_on_the_same_hardware(shape):
+    """recurrentgemma-9b: the port's estimate, priced from its own hybrid
+    parameter tree (groups and tail), equals the JAX package's on every
+    layout of the topology."""
+    _estimates_match("recurrentgemma-9b", shape)
 
 
 @pytest.mark.parametrize("rates,start,threshold", [

@@ -2,8 +2,9 @@
 through the same ``torch.autograd.Function`` the CUDA kernels sit behind)
 against the JAX package: the Pallas kernels in interpret mode with blocks
 of 64 (as ``tests/test_kernels.py`` runs them), ``layers.blocked_attention``
-and ``ref.attention_ref``, on the ``FA_SWEEP`` geometries; and a ragged
-sequence length against a dense masked softmax written here in torch.
+and ``ref.attention_ref``, on the ``FA_SWEEP`` geometries and on head dim
+256 over one kv head; and ragged sequence lengths against a dense masked
+softmax written here in torch.
 
 Inputs are made from a seed with numpy and handed to both packages.
 Tolerances are the JAX kernel tests': forward 2e-5 in float32 and 2e-2 in
@@ -27,6 +28,11 @@ FA_SWEEP = [
     (1, 128, 2, 1, 128, True, 32, "float32"),
     (2, 64, 4, 1, 64, True, 0, "bfloat16"),
     (1, 192, 6, 3, 32, True, 48, "float32"),
+]
+# head dim 256 over one kv head (recurrentgemma's local attention)
+FA_256 = [
+    (1, 128, 16, 1, 256, True, 32, "float32"),
+    (1, 64, 4, 1, 256, True, 0, "bfloat16"),
 ]
 FWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRAD_TOL = 2e-4
@@ -59,7 +65,8 @@ def torch_grads(qkv, causal, window):
     return out, [t.grad for t in qkv]
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,dh,causal,window,dtype", FA_SWEEP)
+@pytest.mark.parametrize("B,S,Hq,Hkv,dh,causal,window,dtype",
+                         FA_SWEEP + FA_256)
 def test_forward_vs_pallas_interpret(B, S, Hq, Hkv, dh, causal, window,
                                      dtype):
     arrays = make(B, S, Hq, Hkv, dh, seed=S + dh)
@@ -70,7 +77,8 @@ def test_forward_vs_pallas_interpret(B, S, Hq, Hkv, dh, causal, window,
                                atol=FWD_TOL[dtype])
 
 
-@pytest.mark.parametrize("B,S,Hq,Hkv,dh,causal,window,dtype", FA_SWEEP[:4])
+@pytest.mark.parametrize("B,S,Hq,Hkv,dh,causal,window,dtype",
+                         FA_SWEEP[:4] + FA_256[:1])
 def test_grads_vs_pallas_interpret(B, S, Hq, Hkv, dh, causal, window,
                                    dtype):
     """The custom VJP's Pallas dq and dk/dv kernels against the port's
@@ -147,6 +155,7 @@ def dense_softmax(q, k, v, causal, window):
     (200, 6, 3, 32, True, 37),
     (77, 4, 4, 64, False, 0),
     (131, 8, 1, 16, False, 20),
+    (70, 16, 1, 256, True, 24),
 ])
 def test_ragged_vs_dense_softmax(S, Hq, Hkv, dh, causal, window):
     """A sequence that no tile size divides: forward and gradients against

@@ -1,7 +1,10 @@
 """The flash-attention CUDA kernels (forward, and the dq + dk/dv backward)
 against their plain PyTorch versions, on the card: the ``FA_SWEEP``
-geometries of ``tests/test_kernels.py``, a ragged sequence length and the
-training path's shape (llama3.2-3b: B=2, S=2048, 24 heads over 8, dh=128).
+geometries of ``tests/test_kernels.py``, a ragged sequence length, the
+dense training path's shape (llama3.2-3b: B=2, S=2048, 24 heads over 8,
+dh=128), head dim 256 with one kv head and the hybrid training path's
+shape (recurrentgemma-9b: B=1, S=4096, 16 heads over 1, dh=256, window
+2048).
 
 The kernels have no CPU mode, so the tests are marked ``gpu`` and skip
 where no CUDA device is visible.  This file imports neither JAX nor the JAX
@@ -32,6 +35,10 @@ EXTRA = [
     (2, 200, 6, 2, 64, True, 37, "bfloat16"),    # ragged S with a window
     (1, 77, 4, 4, 128, False, 0, "float32"),     # ragged, not causal
     (2, 2048, 24, 8, 128, True, 0, "bfloat16"),  # the training path's shape
+    (1, 200, 16, 1, 256, True, 64, "float32"),   # dh 256, MQA, ragged S
+    (2, 130, 4, 2, 256, False, 0, "float32"),    # dh 256, not causal
+    (1, 1000, 16, 1, 256, True, 300, "bfloat16"),  # dh 256 MQA window
+    (1, 4096, 16, 1, 256, True, 2048, "bfloat16"),  # the hybrid's shape
 ]
 IDS = [f"B{b}_S{s}_H{hq}x{hkv}_dh{dh}_{'c' if c else 'nc'}_w{w}_{t}"
        for b, s, hq, hkv, dh, c, w, t in FA_SWEEP + EXTRA]

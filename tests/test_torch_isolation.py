@@ -24,6 +24,7 @@ import repro_torch.kernels.flash_attention.ops, repro_torch.core
 import repro_torch.runtime.trainer, repro_torch.optim.adamw
 import repro_torch.data.pipeline, repro_torch.checkpoint.manager
 import repro_torch.models.ssd, repro_torch.kernels.ssd_scan.ops
+import repro_torch.models.rglru, repro_torch.kernels.rglru_scan.ops
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(",".join(bad))
@@ -122,6 +123,18 @@ def test_ssd_wrappers_have_no_fallback():
     B_ = torch.empty(1, 8, 1, 16, device="meta")
     with pytest.raises(ValueError, match="no ssd_scan kernel"):
         ops.ssd_with_state(x, dt, A, B_, B_, 4)
+
+
+def test_lru_wrappers_have_no_fallback():
+    """The RG-LRU scan wrapper, and the autograd wrapper that calls it,
+    launch the CUDA kernel or raise for a tensor that is not on the CPU."""
+    from repro_torch.kernels.rglru_scan import ops
+    a = torch.empty(1, 8, 16, device="meta")
+    h0 = torch.empty(1, 16, device="meta")
+    with pytest.raises(ValueError, match="no lru_scan kernel"):
+        ops.lru_scan(a, a, h0, reverse=True)
+    with pytest.raises(ValueError, match="no lru_scan kernel"):
+        ops.lru(a, a)
 
 
 @pytest.mark.parametrize("option,value", [

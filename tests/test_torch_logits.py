@@ -23,7 +23,7 @@ from repro_torch.configs import REGISTRY as T_REGISTRY
 from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.models import transformer as TT
 
-ARCHS = ["llama3-8b", "llama3.2-3b", "mamba2-780m"]
+ARCHS = ["llama3-8b", "llama3.2-3b", "mamba2-780m", "recurrentgemma-9b"]
 
 
 def configs(arch, **kw):
@@ -126,3 +126,31 @@ def test_padded_vocab_mask_gradient(arch):
     assert torch.count_nonzero(pad) == 0
     assert np.count_nonzero(np.asarray(jg)[500:] if key == "embed"
                             else np.asarray(jg)[:, 500:]) == 0
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "recurrentgemma-9b"])
+def test_weight_gradient_in_column_blocks(arch, monkeypatch):
+    """``matmul_f32``'s weight gradient summed 100 columns at a time (six
+    blocks of the 512-column head, the last one ragged) equals the
+    gradient summed whole, and both equal the JAX package's (float32
+    weights, so neither gradient is rounded to bf16)."""
+    from repro_torch.models import layers as TL
+    jcfg, tcfg = configs(arch)
+    jp, tp = bf16_weights(jcfg, seed=9)
+    key = "embed" if jcfg.tie_embeddings else "head"
+    rng = np.random.default_rng(10)
+    x = rng.standard_normal((2, 16, jcfg.d_model)).astype(np.float32)
+    g = rng.standard_normal((2, 16, jcfg.vocab_padded)).astype(np.float32)
+    _, vjp = jax.vjp(lambda w: JT.head_logits(dict(jp, **{key: w}), jcfg,
+                                              jnp.asarray(x)),
+                     jp[key].astype(jnp.float32))
+    want = np.asarray(vjp(jnp.asarray(g))[0], np.float32)
+    grads = []
+    for block in (TL.GRAD_BLOCK, 100):
+        monkeypatch.setattr(TL, "GRAD_BLOCK", block)
+        w = tp[key].float().requires_grad_(True)
+        TT.head_logits(dict(tp, **{key: w}), tcfg,
+                       torch.from_numpy(x)).backward(torch.from_numpy(g))
+        grads.append(w.grad)
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(grads[1].numpy(), want, rtol=1e-4, atol=1e-4)

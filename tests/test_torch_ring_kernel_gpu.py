@@ -1,5 +1,6 @@
 """The ring-chunk CUDA kernel against its plain PyTorch version, on the
-card, on the ``RING_SWEEP`` geometries of ``tests/test_kernels.py``.
+card, on the ``RING_SWEEP`` geometries of ``tests/test_kernels.py`` and on
+head dim 256 over one kv head (recurrentgemma's local attention).
 
 The kernel has no CPU mode, so the test is marked ``gpu`` and skips where
 no CUDA device is visible.  This file imports neither JAX nor the JAX
@@ -26,9 +27,12 @@ RING_SWEEP = [
     (1, 4, 8, 8, 1, 32, (11,), (4,), 0, 0.0, 32, 32, "float32"),
     (1, 5, 13, 2, 2, 16, (29,), (5,), 0, 0.0, 4, 8, "float32"),
     (2, 6, 12, 4, 2, 32, (9, 15), (6, 3), 0, 0.0, 8, 8, "bfloat16"),
+    (2, 8, 16, 16, 1, 256, (20, 3), (8, 5), 12, 0.0, 8, 8, "float32"),
+    (3, 6, 8, 16, 1, 256, (0, 13, 9), (0, 6, 4), 0, 0.0, 4, 8, "bfloat16"),
 ]
 IDS = ["basic", "ring_wrap_tails", "chunk_wider_than_ring", "idle_rows",
-       "window_softcap", "gqa_group8", "nondivisible_bkv", "bf16"]
+       "window_softcap", "gqa_group8", "nondivisible_bkv", "bf16",
+       "dh256_mqa_window", "dh256_mqa_bf16"]
 # the tolerances of the JAX package's kernel tests
 TOL = {"float32": 5e-5, "bfloat16": 2e-2}
 

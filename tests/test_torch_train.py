@@ -1,14 +1,14 @@
 """Parity of the port's training path (``models.transformer`` forward and
 loss, ``launch.steps`` train/eval steps, ``optim.adamw``) with the JAX
-package, on reduced llama3.2-3b, reduced llama3-8b and reduced
-mamba2-780m in float32 on the CPU, with weights carried across by
-``from_reference``.
+package, on reduced llama3.2-3b, reduced llama3-8b, reduced mamba2-780m
+and reduced recurrentgemma-9b in float32 on the CPU, with weights carried
+across by ``from_reference``.
 
 The loss agrees to 1e-5 on the JAX package's own weights.  Every gradient
 leaf, and the parameters, moments, ``count``, ``grad_norm`` and ``lr``
 after one and three steps, agree to 1e-4, against the JAX package with its
-Pallas kernels (flash attention or the SSD scan, interpret mode) and with
-its jnp routes.
+Pallas kernels (flash attention, the SSD scan or the RG-LRU scan,
+interpret mode) and with its jnp routes.
 
 The gradient and optimizer-step tests draw their weights with the port's
 ``init_params`` (a seeded ``torch.Generator``, std 1/sqrt(fan-in)) and
@@ -45,7 +45,7 @@ from repro_torch.optim.adamw import AdamWConfig as TAdamW
 from repro_torch.optim.adamw import init_opt_state as t_init_opt
 from repro_torch.optim.adamw import opt_state_from_reference
 
-ARCHS = ["llama3.2-3b", "llama3-8b", "mamba2-780m"]
+ARCHS = ["llama3.2-3b", "llama3-8b", "mamba2-780m", "recurrentgemma-9b"]
 OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
 B, S = 2, 64
 
@@ -207,8 +207,9 @@ def test_eval_step_and_opt_state_bridge(setup):
 
 
 def test_remat_recomputes_the_same_gradients(setup):
-    """``cfg.remat`` checkpoints each layer: same loss and gradients (the
-    forward kernel route runs twice a layer; plain route here)."""
+    """``cfg.remat`` checkpoints each layer (each group of a hybrid
+    model): same loss and gradients (the forward kernel route runs twice
+    a layer; plain route here)."""
     _, tcfg, jp, batch = setup
     tl, _, tg = TS.value_and_grad(tcfg, tparams(jp), tbatch(batch))
     rcfg = dataclasses.replace(tcfg, remat="full")

@@ -113,7 +113,16 @@ def test_ssm_trainer_matches_jax_trainer(tmp_path_factory, tmp_path):
         tmp_path_factory.mktemp("jax_ssm_trainer"), ssm), tmp_path)
 
 
-@pytest.mark.parametrize("arch", [ARCH, "mamba2-780m"])
+def test_hybrid_trainer_matches_jax_trainer(tmp_path_factory, tmp_path):
+    """The same on reduced recurrentgemma-9b: groups and tail, the RG-LRU
+    scan's route (its plain version here) and the windowed attention
+    against the JAX Trainer's jnp routes."""
+    hybrid = "recurrentgemma-9b"
+    _matches_jax_trainer(hybrid, _jax_trainer_run(
+        tmp_path_factory.mktemp("jax_hybrid_trainer"), hybrid), tmp_path)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-780m", "recurrentgemma-9b"])
 def test_resume_continues_with_the_same_losses(tmp_path, arch):
     """6 steps with a checkpoint every 3; a fresh Trainer resumed from step
     3 (the step-6 checkpoint removed) gives the same losses for 4-6."""
