@@ -6,8 +6,9 @@
 
 Phases (any error fails the run with a non-zero exit):
 
-1. Build every kernel from the sources in this checkout and print the
-   card's name and power limit.  TF32 is switched off for float32 matmuls
+1. Build every kernel from the sources in this checkout, print each
+   kernel's registers and spills from the compiler's log, and the card's
+   name and power limit.  TF32 is switched off for float32 matmuls
    and convolutions, so float32 references are full float32.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    serving path's shape and at the edge geometries (ring wrap, a chunk
@@ -27,11 +28,16 @@ Phases (any error fails the run with a non-zero exit):
 2b. Hold the flash-attention forward and backward kernels against their
    plain versions (out, lse, dq, dk, dv, every element) at the training
    paths' shapes (phase 4's, and phase 7's dh 256 with one kv head and a
-   2048 window), on the ``FA_SWEEP`` geometries and on ragged sequences,
-   in float32 and bf16; time both kernels at both training shapes, their
-   plain versions and ``scaled_dot_product_attention`` (forward, and
-   forward + backward; the backend it took is printed) beside the least
-   time the card could take.
+   2048 window), on the ``FA_SWEEP`` geometries, on ragged sequences,
+   every head dim, G of 1, 3 and 16, a window and no causal mask, in
+   float32 (the FMA kernels) and bf16 (the tensor-core kernels), and on
+   q/k/v as strided views of one buffer; a misaligned bf16 view must
+   raise, two bf16 backward runs must give bit-identical gradients, and
+   every bf16 call must have gone through the tensor-core route.  Time
+   both kernels at both training shapes (with the TFLOP/s of needed work
+   they reach), their plain versions and
+   ``scaled_dot_product_attention`` (forward, and forward + backward; the
+   backend it took is printed) beside the least time the card could take.
 4. Train llama3.2-3b at full width and depth (bf16, random weights from
    a seeded generator) for 4 steps of the port's ``make_train_step`` at
    B=2, S=2048, on batches a ``SyntheticCorpus`` wrote to a temporary
@@ -134,7 +140,8 @@ def phase_build(torch):
     for name, lib in libs.items():
         log(f"[build] {name}: {lib.relative_to(ROOT)}")
         for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("entry function", ": Used ",
+                                           "spill stores")):
                 log(f"[build]   {line.strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -326,6 +333,10 @@ FLASH_GEOMETRIES = [
     ("fa_sweep_5", 1, 192, 6, 3, 32, True, 48),
     ("ragged_s200", 2, 200, 6, 2, 16, True, 0),
     ("ragged_dh256", 1, 1000, 16, 1, 256, True, 300),
+    ("ragged_not_causal_dh128", 1, 77, 4, 4, 128, False, 0),
+    ("gqa3_window_dh128", 1, 300, 6, 2, 128, True, 100),
+    ("not_causal_dh256", 2, 130, 4, 2, 256, False, 0),
+    ("gqa16_ragged_dh64", 1, 333, 16, 1, 64, True, 0),
 ]
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/"
 
@@ -359,14 +370,23 @@ def max_err(torch, pairs, tol, what):
 def phase_flash_kernels(torch):
     from repro_torch.kernels.flash_attention import ops, ref
 
+    # the main path is bf16: its source is the tensor-core kernel; float32
+    # calls take the FMA kernel of ``f32_source``
     rows = {
         "fwd": {"name": "flash_attention_fwd", "route": "cuda",
-                "source": FLASH_SOURCE + "flash_attention_fwd.cu",
-                "replaces": "src/repro/kernels/flash_attention/kernel.py:101"},
+                "source": FLASH_SOURCE + "flash_attention_fwd_wgmma.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
+                "f32_source": FLASH_SOURCE + "flash_attention_fwd.cu",
+                "design": "wgmma+tma"},
         "bwd": {"name": "flash_attention_bwd", "route": "cuda",
-                "source": FLASH_SOURCE + "flash_attention_bwd.cu",
-                "replaces": "src/repro/kernels/flash_attention/kernel.py:367"},
+                "source": FLASH_SOURCE + "flash_attention_bwd_wgmma.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:367",
+                "f32_source": FLASH_SOURCE + "flash_attention_bwd.cu",
+                "design": "wgmma+tma"},
     }
+    calls = {"bfloat16": 0, "float32": 0}
+    parts = (("fwd", ops.flash_attention), ("bwd", ops.flash_attention_bwd))
+    before = {part: (fn.launches, fn.wgmma_launches) for part, fn in parts}
     for geo in [FLASH_MAIN, FLASH_HYBRID] + FLASH_GEOMETRIES:
         name, B, S, Hq, Hkv, dh, causal, window = geo
         dtypes = ("bfloat16",) if name == "main_path" else ("float32",
@@ -390,8 +410,20 @@ def phase_flash_kernels(torch):
                                       ("lse", lse, want_lse)], tf, what)
             bwd_err = max_err(torch, zip(("dq", "dk", "dv"), grads, want),
                               tb, what)
+            calls[dtype] += 1
+            extra = ""
+            if dtype == "bfloat16" and name in ("main_path", "hybrid_path"):
+                # one owner per output element: a second run is identical
+                again = ops.flash_attention_bwd(q, k, v, want_out, want_lse,
+                                                do, **kw)
+                calls[dtype] += 1
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    raise AssertionError(f"{what}: two backward runs differ")
+                extra = "; a second backward run is bit-identical"
+                del again
             log(f"[flash] {what}: forward max_abs_err={fwd_err:.3e} "
-                f"(tol {tf}), backward max_abs_err={bwd_err:.3e} (tol {tb})")
+                f"(tol {tf}), backward max_abs_err={bwd_err:.3e} (tol {tb})"
+                + extra)
             if name == "main_path":
                 rows["fwd"]["max_abs_err"] = fwd_err
                 rows["bwd"]["max_abs_err"] = bwd_err
@@ -400,6 +432,23 @@ def phase_flash_kernels(torch):
                 rows["bwd"]["hybrid_max_abs_err"] = bwd_err
             del q, k, v, do, out, lse, want_out, want_lse, grads, want
             torch.cuda.empty_cache()
+    calls["bfloat16"] += flash_strided_views(torch, ops, ref)
+    routes = {part: {"wgmma": fn.wgmma_launches - before[part][1],
+                     "fma": (fn.launches - before[part][0]
+                             - (fn.wgmma_launches - before[part][1]))}
+              for part, fn in parts}
+    log(f"[flash] launches by route: {routes} for {calls['bfloat16']} bf16 "
+        f"and {calls['float32']} float32 calls of each kernel (the "
+        f"forward {calls['bfloat16'] - 2} bf16: no second forward where "
+        "the backward ran twice)")
+    want_routes = {"fwd": {"wgmma": calls["bfloat16"] - 2,
+                           "fma": calls["float32"]},
+                   "bwd": {"wgmma": calls["bfloat16"],
+                           "fma": calls["float32"]}}
+    if routes != want_routes:
+        raise AssertionError(f"flash launches by route {routes}, expected "
+                             f"{want_routes}: a bf16 call did not take the "
+                             "tensor-core kernels")
     timing = flash_timing(torch, ops, ref, *FLASH_MAIN[1:])
     hybrid = flash_timing(torch, ops, ref, *FLASH_HYBRID[1:])
     for part in ("fwd", "bwd"):
@@ -408,12 +457,45 @@ def phase_flash_kernels(torch):
     return rows
 
 
+def flash_strided_views(torch, ops, ref):
+    """bf16 q/k/v as strided views of one fused buffer (the stride
+    contract) against the plain versions; a view whose strides break TMA's
+    16-byte rule must raise.  Returns the number of calls of each
+    kernel."""
+    B, S, Hq, Hkv, dh = 2, 150, 6, 2, 64
+    q, k, v, do = flash_inputs(torch, B, S, Hq, Hkv, dh, "bfloat16", seed=7)
+    qkv = torch.cat([q, k, v], dim=2)
+    qv, kv_, vv = qkv.split([Hq, Hkv, Hkv], dim=2)
+    out, lse = ops.flash_attention_fwd(qv, kv_, vv)
+    grads = ops.flash_attention_bwd(qv, kv_, vv, out, lse, do)
+    torch.cuda.synchronize()
+    want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do)
+    tol = FLASH_TOL["fwd", "bfloat16"]
+    err = max_err(torch, [("out", out, want_out), ("lse", lse, want_lse)]
+                  + list(zip(("dq", "dk", "dv"), grads, want)), tol,
+                  "strided views")
+    wide = torch.zeros(B, S, Hq, dh + 1, dtype=torch.bfloat16,
+                       device="cuda")
+    try:
+        ops.flash_attention_fwd(wide[..., :dh], k, v)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a bf16 view with a 130-byte head stride did "
+                             "not raise")
+    log(f"[flash] strided q/k/v views of one (B, S, Hq + 2 Hkv, dh) bf16 "
+        f"buffer: max_abs_err={err:.3e} (tol {tol}); a view with a "
+        f"130-byte head stride raises: {refused}")
+    return 1
+
+
 def flash_work(B, S, Hq, Hkv, dh, causal, window, itemsize, mask):
     """Bytes and flops the functions need on this input: every input read
     once and every output written once; 4 * dh flops per visible (query,
     key) pair forward, and five products of 2 * dh backward (s
-    recomputed, dp, dv, dq, dk: the least work; the two-kernel split does
-    seven)."""
+    recomputed, dp, dv, dq, dk: the least work; the tensor-core split does
+    eight)."""
     pairs = float(mask.sum()) * B * Hq
     q_bytes = B * S * Hq * dh * itemsize
     kv_bytes = 2 * B * S * Hkv * dh * itemsize
@@ -476,9 +558,11 @@ def flash_timing(torch, ops, ref, B, S, Hq, Hkv, dh, causal, window):
         out[part] = {"ms": t[part], "plain_ms": t[part + "_plain"],
                      "bound_ms": 1e3 * max(b_bytes, b_flops),
                      "bound_by": "bytes" if b_bytes >= b_flops
-                     else "operations", "library_ms": t[part + "_lib"]}
+                     else "operations", "library_ms": t[part + "_lib"],
+                     "tflops": flops / t[part] / 1e9}
         log(f"[flash] {part} B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh} "
             f"window={window}: kernel_ms={t[part]:.4f} "
+            f"({out[part]['tflops']:.1f} TFLOP/s of needed work) "
             f"plain_ms={t[part + '_plain']:.4f} "
             f"library_ms={t[part + '_lib']:.4f} "
             f"bound_ms={out[part]['bound_ms']:.6f} ({n_bytes} bytes, "
@@ -486,8 +570,8 @@ def flash_timing(torch, ops, ref, B, S, Hq, Hkv, dh, causal, window):
     log(f"[flash] library_ms is scaled_dot_product_attention({'the band '
         'mask' if window else 'is_causal=True'}, enable_gqa=True): forward "
         "for flash_attention_fwd, forward + backward for "
-        "flash_attention_bwd; bwd kernel_ms includes the wrapper's delta = "
-        "rowsum(out * do); SDPA backend: forward "
+        "flash_attention_bwd; bwd kernel_ms includes the delta = "
+        "rowsum(out * do) pre-pass kernel; SDPA backend: forward "
         + sdpa_backend(torch, sdpa, sets[0]) + "; forward + backward "
         + sdpa_backend(torch, sdpa_fwd_bwd, leaves[0]))
     return out
@@ -1080,6 +1164,8 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
     torch.cuda.reset_peak_memory_stats()
     for fn, _ in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "wgmma_launches"):
+            fn.wgmma_launches = 0
     secs = []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -1100,6 +1186,13 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
     if launches != want:
         raise AssertionError(f"kernel launches {launches} over "
                              f"{TRAIN_STEPS} steps, expected {want}")
+    # bf16 steps: a kernel with two routes (the flash kernels) launched on
+    # the tensor-core route only
+    for name, (fn, _) in kernels.items():
+        wgmma = getattr(fn, "wgmma_launches", None)
+        if wgmma is not None and wgmma != launches[name]:
+            raise AssertionError(f"{name}: {wgmma} of {launches[name]} "
+                                 "launches on the tensor-core route")
     for k, f in probes.items():
         if torch.equal(f(params), before[k]):
             raise AssertionError(f"{k} did not change in {TRAIN_STEPS} "
@@ -1108,7 +1201,10 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{tag} launches {launches} ("
         + ", ".join(f"{per} a step" for _, per in kernels.values())
-        + "); parameters changed")
+        + "); parameters changed"
+        + ("; every flash launch took the tensor-core route"
+           if any(hasattr(fn, "wgmma_launches") for fn, _ in kernels.values())
+           else ""))
     log(f"{tag} " + json.dumps({
         "arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S,
         "remat": cfg.remat, "step_s": secs, "steady_step_s": steady,
@@ -1123,11 +1219,12 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
 
 # the device symbols of each training path's hand-written kernels
 KERNEL_SYMBOLS = {
-    TRAIN_ARCH: ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
+    TRAIN_ARCH: ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+                 "flash_dkv_wgmma_kernel", "flash_delta_kernel"),
     "mamba2-780m": ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"),
     HYBRID_ARCH: ("lru_chunk_local", "lru_carry", "lru_fixup",
-                  "flash_fwd_kernel", "flash_dq256_kernel",
-                  "flash_dkv256_kernel"),
+                  "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+                  "flash_dkv_wgmma_kernel", "flash_delta_kernel"),
 }
 
 

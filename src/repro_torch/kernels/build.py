@@ -30,6 +30,10 @@ SOURCES: Dict[str, str] = {
     "ring_chunk_attention": "flash_attention/csrc/ring_chunk_attention.cu",
     "flash_attention_fwd": "flash_attention/csrc/flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
+    "flash_attention_fwd_wgmma":
+        "flash_attention/csrc/flash_attention_fwd_wgmma.cu",
+    "flash_attention_bwd_wgmma":
+        "flash_attention/csrc/flash_attention_bwd_wgmma.cu",
     "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
     "lru_scan": "rglru_scan/csrc/lru_scan.cu",
 }

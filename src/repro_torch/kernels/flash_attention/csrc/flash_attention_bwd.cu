@@ -27,9 +27,10 @@
 // columns each); q, do, k, v and the two score tiles sit in shared memory
 // as float32.  The dq grid is issued longest-first, like the forward; the
 // dk/dv grid is longest-first already (key tile 0 is seen by every row
-// under causal masking).  The causal load is uneven across blocks; this
-// first version keeps it so, with FMA loops in float32; tensor cores
-// (mma.sync or wgmma) and TMA are later work.
+// under causal masking).  The causal load is uneven across blocks.  FMA
+// loops in float32 serve float32 inputs only: the JAX package's float32
+// gradient tolerance (2e-4) is out of reach of TF32 tensor cores.  bf16
+// inputs take the tensor-core kernels of flash_attention_bwd_wgmma.cu.
 //
 // Head dim 256 (recurrentgemma's local attention) takes its own pair of
 // kernels: four (64 x 256) float32 tiles and the score tiles would need 284
@@ -521,8 +522,9 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
 // q and do (B, Sq, Hq, dh), k and v (B, Skv, Hkv, dh), each with element
 // strides (batch, sequence, head) and a unit dh stride; lse and delta
 // (B, Hq, Sq) float32 contiguous; dq (B, Sq, Hq, dh), dk and dv
-// (B, Skv, Hkv, dh) contiguous, written whole.  dtype 0 = float32,
-// 1 = bfloat16 (q, k, v, do and the gradients).  Launches the dq kernel,
+// (B, Skv, Hkv, dh) contiguous, written whole.  dtype 0 = float32 (q, k,
+// v, do and the gradients); any other (bf16 goes to
+// flash_attention_bwd_wgmma) is refused.  Launches the dq kernel,
 // then the dk/dv kernel; returns the first CUDA error code (0 = launched).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
@@ -543,10 +545,6 @@ extern "C" int flash_attention_bwd(
   if (dtype == 0) {
     err = launch_dh<float>(dh, q, k, v, dout, l, d, dq, dk, dv, qs, ks, vs,
                            dos, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
-  } else if (dtype == 1) {
-    err = launch_dh<__nv_bfloat16>(dh, q, k, v, dout, l, d, dq, dk, dv, qs,
-                                   ks, vs, dos, B, Sq, Skv, Hq, Hkv, causal,
-                                   window, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -25,9 +25,11 @@
 //     every tile with a skip;
 //   * blocks are issued longest-first (the last row tiles walk the most kv
 //     tiles under causal masking), which shortens the tail of the grid.
-// This first version multiplies with FMA loops in float32 (register tiles
-// of 4 x 4 scores a thread), far from the tensor cores' rate; mma.sync or
-// wgmma with TMA is later work.  Head dims 16 to 256: at dh 256
+// It multiplies with FMA loops in float32 (register tiles of 4 x 4 scores
+// a thread), far from the tensor cores' rate, and serves float32 inputs
+// only: the JAX package's float32 forward tolerance (2e-5) is out of reach
+// of TF32 tensor cores.  bf16 inputs take the tensor-core kernel of
+// flash_attention_fwd_wgmma.cu.  Head dims 16 to 256: at dh 256
 // (recurrentgemma's local attention, 16 query heads over one kv head, so a
 // 64-row tile holds 4 positions of every head) the block takes 150.5 KB of
 // shared memory and one block runs per SM.
@@ -181,8 +183,8 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* v,
 
 // q (B, Sq, Hq, dh), k and v (B, Skv, Hkv, dh), each with element strides
 // (batch, sequence, head) and a unit dh stride; out (B, Sq, Hq, dh) and lse
-// (B, Hq, Sq) contiguous.  dtype 0 = float32, 1 = bfloat16 (q, k, v, out).
-// Returns the launch's CUDA error code (0 = launched).
+// (B, Hq, Sq) contiguous.  dtype 0 = float32 (q, k, v, out); any other
+// (bf16 goes to flash_attention_fwd_wgmma) is refused.  Returns the launch's CUDA error code (0 = launched).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
     int Sq, int Skv, int Hq, int Hkv, int dh, long long qsb, long long qss,
@@ -198,9 +200,6 @@ extern "C" int flash_attention_fwd(
   if (dtype == 0) {
     err = launch_dh<float>(dh, q, k, v, out, l, qs, ks, vs, B, Sq, Skv, Hq,
                            Hkv, causal, window, scale, s);
-  } else if (dtype == 1) {
-    err = launch_dh<__nv_bfloat16>(dh, q, k, v, out, l, qs, ks, vs, B, Sq,
-                                   Skv, Hq, Hkv, causal, window, scale, s);
   } else {
     err = cudaErrorInvalidValue;
   }

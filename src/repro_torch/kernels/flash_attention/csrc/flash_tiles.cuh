@@ -8,8 +8,9 @@
 // BM rows therefore holds about BM / G positions of every head of the
 // group, and each K/V tile a block loads serves all G heads.
 //
-// Tiles live in shared memory as float32 (bf16 inputs are widened on
-// load), BM or BN rows of DH values with a row stride of DH + 4 floats, so
+// The kernels are instantiated for float32 inputs only (bf16 takes the
+// tensor-core kernels, see hopper.cuh).  Tiles live in shared memory as
+// float32, BM or BN rows of DH values with a row stride of DH + 4 floats, so
 // that the float4 reads of eight neighbouring rows hit distinct banks.
 // 256 threads form a 16 x 16 grid: thread (ty, tx) owns rows ty*4 .. ty*4+3
 // of a 64 x 64 score tile and its columns tx, tx+16, tx+32, tx+48; in a
@@ -43,19 +44,10 @@ struct Strides {                 // element strides of a (B, S, H, dh) tensor
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 // v rounded to the input type and back: the JAX kernels cast p and ds to
 // the input type before their products with v, do, k and q
 __device__ __forceinline__ float round_as(float v, const float*) { return v; }
-__device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // Whether query position t sees key j (the mask of the JAX kernels).
 __device__ __forceinline__ bool visible(int t, int j, int Skv, int causal,

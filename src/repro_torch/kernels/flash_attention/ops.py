@@ -3,16 +3,23 @@
 * ``ring_chunk_attention``: the serving path's fused prefill attention
   (``csrc/ring_chunk_attention.cu``).
 * ``flash_attention``: full-sequence GQA attention with its gradient, the
-  training path's (``csrc/flash_attention_fwd.cu`` and
-  ``csrc/flash_attention_bwd.cu``), through a ``torch.autograd.Function``
-  whose forward calls ``flash_attention_fwd`` and whose backward calls
-  ``flash_attention_bwd``.
+  training path's, through a ``torch.autograd.Function`` whose forward
+  calls ``flash_attention_fwd`` and whose backward calls
+  ``flash_attention_bwd``.  Two routes by dtype: bf16 goes to the
+  tensor-core kernels (``csrc/flash_attention_fwd_wgmma.cu``,
+  ``csrc/flash_attention_bwd_wgmma.cu``: TMA and wgmma), float32 to the
+  FMA kernels (``csrc/flash_attention_fwd.cu``,
+  ``csrc/flash_attention_bwd.cu``), whose float32 sums meet the JAX
+  package's float32 tolerances.
 
 For tensors on the card each wrapper launches its hand-written CUDA kernel
 or raises; for tensors on the CPU it computes the plain version of
 ``ref.py``.  There is no other fallback.  ``ring_chunk_attention.launches``,
 ``flash_attention.launches`` (forward kernel) and
-``flash_attention_bwd.launches`` (one per dq + dk/dv pair) count launches.
+``flash_attention_bwd.launches`` (one per backward: delta, dq and dk/dv on
+the bf16 route, dq and dk/dv on the float32 one) count launches, and
+``flash_attention.wgmma_launches`` / ``flash_attention_bwd.wgmma_launches``
+those of them that took the tensor-core route.
 """
 from __future__ import annotations
 
@@ -110,15 +117,60 @@ ring_chunk_attention.launches = 0
 # Full-sequence flash attention
 # ---------------------------------------------------------------------------
 
+# C entry point -> (pointers, strided tensors, takes a dtype argument)
+_FLASH_ARGS = {"flash_attention_fwd": (5, 3, True),
+               "flash_attention_bwd": (9, 4, True),
+               "flash_attention_fwd_wgmma": (5, 3, False),
+               "flash_attention_bwd_wgmma": (10, 5, False)}
+
+
 @functools.lru_cache(maxsize=None)
 def _flash_kernel(name: str):
     fn = getattr(build.load(name), name)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    n_ptr, n_strided = (5, 3) if name == "flash_attention_fwd" else (9, 4)
+    n_ptr, n_strided, dtype_arg = _FLASH_ARGS[name]
     fn.argtypes = ([ptr] * n_ptr + [i32] * 6 + [i64] * (3 * n_strided)
-                   + [i32, i32, ctypes.c_float, i32, ptr])
+                   + [i32, i32, ctypes.c_float] + [i32] * dtype_arg + [ptr])
     fn.restype = i32
     return fn
+
+
+def tma_strides(name, shape, strides, data_ptr, itemsize=2):
+    """The element strides (batch, sequence, head) under which the
+    tensor-core kernels' TMA maps read a (B, S, H, dh) tensor with a unit
+    dh stride.  TMA needs a 16-byte-aligned base and every byte stride a
+    positive multiple of 16; a dimension of size 1 is never stepped, so its
+    stride is replaced by the contiguous one.  Raises ValueError, naming the
+    tensor, where the layout breaks that rule (no silent copy)."""
+    B, S, H, dh = shape
+    sb, ss, sh, sd = strides
+    if sd != 1 and dh > 1:
+        raise ValueError(f"{name} must have a unit head_dim stride")
+    if data_ptr % 16:
+        raise ValueError(f"{name}: the bf16 flash kernels load by TMA, which "
+                         f"needs a 16-byte-aligned base; {name}'s data "
+                         f"pointer is {data_ptr % 16} bytes past one")
+    out = []
+    inner = dh
+    for dim, size, stride in (("head", H, sh), ("sequence", S, ss),
+                              ("batch", B, sb)):
+        if size == 1:
+            stride = inner
+        elif stride <= 0 or (stride * itemsize) % 16:
+            raise ValueError(
+                f"{name}: the bf16 flash kernels load by TMA, which needs "
+                f"every stride a positive multiple of 16 bytes; {name}'s "
+                f"{dim} stride is {stride} elements ({stride * itemsize} "
+                "bytes)")
+        out.append(stride)
+        inner = stride * size
+    sh, ss, sb = out
+    return sb, ss, sh
+
+
+def _tma(name, t):
+    return tma_strides(name, tuple(t.shape), t.stride(), t.data_ptr(),
+                       t.element_size())
 
 
 def _check_flash(q, k, v, extra=()):
@@ -158,9 +210,12 @@ def _flash_device(q, name):
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     """Forward of ``flash_attention``: (out (B, Sq, Hq, dh) in q.dtype,
-    lse (B, Hq, Sq) float32).  Launches ``csrc/flash_attention_fwd.cu``
-    for tensors on the card (counted in ``flash_attention.launches``), the
-    plain ``ref.flash_attention_fwd_ref`` for tensors on the CPU."""
+    lse (B, Hq, Sq) float32).  For tensors on the card launches
+    ``csrc/flash_attention_fwd_wgmma.cu`` (bf16; q, k and v must meet
+    TMA's alignment, see ``tma_strides``) or ``csrc/flash_attention_fwd.cu``
+    (float32), counted in ``flash_attention.launches`` (and, bf16, in
+    ``.wgmma_launches``); for tensors on the CPU the plain
+    ``ref.flash_attention_fwd_ref``."""
     if q.device.type == "cpu":
         return ref.flash_attention_fwd_ref(q, k, v, causal=causal,
                                            window=window)
@@ -172,28 +227,39 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    route = "wgmma" if q.dtype == torch.bfloat16 else "fma"
+    if route == "wgmma":
+        name, extra = "flash_attention_fwd_wgmma", ()
+        strides = _tma("q", q) + _tma("k", k) + _tma("v", v)
+    else:
+        name, extra = "flash_attention_fwd", (_DTYPES[q.dtype],)
+        strides = _strides(q) + _strides(k) + _strides(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _flash_kernel("flash_attention_fwd")(
+        err = _flash_kernel(name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Sq, Skv, Hq, Hkv, dh, *_strides(q),
-            *_strides(k), *_strides(v), int(bool(causal)), int(window),
-            float(dh ** -0.5), _DTYPES[q.dtype], stream)
+            lse.data_ptr(), B, Sq, Skv, Hq, Hkv, dh, *strides,
+            int(bool(causal)), int(window), float(dh ** -0.5), *extra,
+            stream)
     if err:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.wgmma_launches += route == "wgmma"
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0):
     """Gradients (dq, dk, dv) of ``flash_attention`` for the upstream
-    gradient ``do``, from the forward's ``out`` and ``lse``.  ``delta =
-    rowsum(out * do)`` is computed here with torch ops, as the JAX package
-    computes it outside its kernels; then ``csrc/flash_attention_bwd.cu``
-    launches its dq and dk/dv kernels for tensors on the card (one count
-    in ``flash_attention_bwd.launches``).  Tensors on the CPU take the
-    plain ``ref.flash_attention_bwd_ref``."""
+    gradient ``do``, from the forward's ``out`` and ``lse``.  For tensors
+    on the card, bf16 launches ``csrc/flash_attention_bwd_wgmma.cu`` (a
+    pre-pass kernel for ``delta = rowsum(out * do)``, then the dq and dk/dv
+    kernels; q, k, v and do must meet TMA's alignment, see
+    ``tma_strides``); float32 computes delta with torch ops, as the JAX
+    package computes it outside its kernels, and launches the dq and dk/dv
+    kernels of ``csrc/flash_attention_bwd.cu``.  One count in
+    ``flash_attention_bwd.launches`` a call (and, bf16, in
+    ``.wgmma_launches``).  Tensors on the CPU take the plain
+    ``ref.flash_attention_bwd_ref``."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
                                            causal=causal, window=window)
@@ -207,28 +273,45 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0):
     if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
         raise ValueError(f"lse must be float32 of shape {(B, Hq, Sq)}")
     lse = lse.contiguous()
-    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    route = "wgmma" if q.dtype == torch.bfloat16 else "fma"
+    if route == "wgmma":
+        # the kernel's own pre-pass writes delta = rowsum(out * do)
+        if out.dtype != q.dtype or out.stride(3) != 1:
+            raise ValueError("out must be bf16 with a unit head_dim stride")
+        name = "flash_attention_bwd_wgmma"
+        delta = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                            device=q.device)
+        ptrs = (q, k, v, out, do, lse, delta, dq, dk, dv)
+        args = (_tma("q", q) + _tma("k", k) + _tma("v", v) + _tma("do", do)
+                + _strides(out))
+        extra = ()
+    else:
+        name = "flash_attention_bwd"
+        delta = (out.float() * do.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        ptrs = (q, k, v, do, lse, delta, dq, dk, dv)
+        args = _strides(q) + _strides(k) + _strides(v) + _strides(do)
+        extra = (_DTYPES[q.dtype],)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _flash_kernel("flash_attention_bwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, Sq, Skv, Hq, Hkv, dh, *_strides(q),
-            *_strides(k), *_strides(v), *_strides(do), int(bool(causal)),
-            int(window), float(dh ** -0.5), _DTYPES[q.dtype], stream)
+        err = _flash_kernel(name)(
+            *(t.data_ptr() for t in ptrs), B, Sq, Skv, Hq, Hkv, dh, *args,
+            int(bool(causal)), int(window), float(dh ** -0.5), *extra,
+            stream)
     if err:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.wgmma_launches += route == "wgmma"
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.wgmma_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -264,3 +347,4 @@ def flash_attention(q, k, v, causal=True, window=0):
 
 
 flash_attention.launches = 0
+flash_attention.wgmma_launches = 0

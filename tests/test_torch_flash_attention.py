@@ -181,3 +181,62 @@ def test_cpu_route_launches_no_kernel():
     torch_grads(to_torch(arrays, "float32", grad=True), True, 0)
     assert (ops.flash_attention.launches,
             ops.flash_attention_bwd.launches) == (f0, b0)
+
+
+def test_cpu_route_counts_no_route():
+    """On CPU tensors neither route's count moves: the plain version is no
+    kernel launch, bf16 or float32."""
+    arrays = make(1, 32, 2, 1, 16, seed=1)
+    fns = (ops.flash_attention, ops.flash_attention_bwd)
+    before = [(fn.launches, fn.wgmma_launches) for fn in fns]
+    for dtype in ("float32", "bfloat16"):
+        torch_grads(to_torch(arrays, dtype, grad=True), True, 0)
+    assert [(fn.launches, fn.wgmma_launches) for fn in fns] == before
+
+
+# (B, S, H, dh), element strides, data pointer -> the TMA strides
+# (batch, sequence, head), or None where the layout must be refused
+TMA_CASES = [
+    # contiguous model layout: llama3.2-3b's q
+    ((2, 2048, 24, 128), (2048 * 24 * 128, 24 * 128, 128, 1), 4096,
+     (2048 * 24 * 128, 24 * 128, 128)),
+    # one kv head: its stride is never stepped, the contiguous one is used
+    ((1, 4096, 1, 256), (4096 * 256, 256, 7, 1), 0, (4096 * 256, 256, 256)),
+    # a head view of a fused qkv buffer: strided but aligned
+    ((2, 150, 2, 64), (150 * 10 * 64, 10 * 64, 64, 1), 6 * 64 * 2,
+     (150 * 10 * 64, 10 * 64, 64)),
+    # batch of one with an odd batch stride: never stepped either
+    ((1, 64, 2, 32), (3, 2 * 32, 32, 1), 32, (64 * 2 * 32, 2 * 32, 32)),
+    # head stride 17 elements = 34 bytes: not whole 16-byte units
+    ((2, 5, 3, 16), (5 * 3 * 17, 3 * 17, 17, 1), 0, None),
+    # sequence stride 4 elements = 8 bytes
+    ((1, 8, 1, 16), (128, 4, 16, 1), 0, None),
+    # base 8 bytes past a 16-byte boundary
+    ((2, 5, 3, 16), (240, 48, 16, 1), 8, None),
+    # a broadcast (stride 0) sequence dim
+    ((1, 8, 2, 16), (32, 0, 16, 1), 0, None),
+]
+
+
+@pytest.mark.parametrize("shape,strides,ptr,want", TMA_CASES)
+def test_tma_strides(shape, strides, ptr, want):
+    """The bf16 route's layout rule, as a pure function: TMA reads a
+    16-byte-aligned base with strides of whole positive 16-byte units;
+    what breaks the rule raises and names the tensor."""
+    if want is None:
+        with pytest.raises(ValueError, match="q.*TMA"):
+            ops.tma_strides("q", shape, strides, ptr)
+    else:
+        assert ops.tma_strides("q", shape, strides, ptr) == want
+
+
+def test_tma_strides_of_torch_views():
+    """``_tma`` reads shape, strides and pointer off a tensor: a fused qkv
+    buffer's head views pass, a view that slices the head dim raises."""
+    qkv = torch.zeros(2, 150, 10, 64, dtype=torch.bfloat16)
+    q, k, v = qkv.split([6, 2, 2], dim=2)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        assert ops._tma(name, t) == (150 * 10 * 64, 10 * 64, 64)
+    wide = torch.zeros(2, 150, 6, 65, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head stride is 65"):
+        ops._tma("q", wide[..., :64])
