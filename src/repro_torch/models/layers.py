@@ -63,7 +63,7 @@ class _MatmulF32(torch.autograd.Function):
             parts = (g,)
         else:
             hi = g.to(x.dtype)
-            parts = (hi, (g - hi.float()).to(x.dtype))
+            parts = (hi, (g - hi).to(x.dtype))    # f32 - bf16: no f32 copy
         gx = _mm_f32(parts[0], w.t())
         for p in parts[1:]:
             gx += _mm_f32(p, w.t())
@@ -126,10 +126,14 @@ def apply_rope(x, cos, sin):
 # ---------------------------------------------------------------------------
 
 def mlp_apply(x, params, activation: str):
-    """params: {wi: (D, 2, F) for GLU or (D, F), wo: (F, D)}."""
+    """params: {wi: (D, 2, F) for GLU or (D, F), wo: (F, D)}.  The ``wi``
+    product is float32 (``matmul_f32``, as the JAX einsum's
+    ``preferred_element_type``), so the gate and up pre-activations are
+    never rounded to ``x.dtype``; the activation's output is, and ``wo``
+    runs in ``x.dtype``."""
     if activation in ("swiglu", "gelu_glu", "relu_glu"):
         D, _, Fd = params["wi"].shape
-        h = (x @ params["wi"].reshape(D, 2 * Fd)).float()
+        h = matmul_f32(x, params["wi"].reshape(D, 2 * Fd))
         gate, up = h[..., :Fd], h[..., Fd:]
         if activation == "swiglu":
             act = F.silu(gate)
@@ -139,7 +143,7 @@ def mlp_apply(x, params, activation: str):
             act = F.relu(gate)
         h = (act * up).to(x.dtype)
     else:
-        h = (x @ params["wi"]).float()
+        h = matmul_f32(x, params["wi"])
         if activation == "squared_relu":
             h = F.relu(h).square()
         elif activation == "gelu":

@@ -1,14 +1,16 @@
 """Parity of the port's layer functions (``repro_torch.models.layers`` and
-the ``transformer`` helpers) with the JAX package, in float32 on the CPU.
+the ``transformer`` helpers) with the JAX package, on the CPU.
 
 The same numpy-seeded inputs go through the JAX function and its port;
-outputs must agree to 1e-5.  Attention cases cover ring wrap, a chunk
+outputs must agree to 1e-5 in float32, and to 2e-2 in the bf16 cases
+(the MLP and a 2-layer forward to the logits).  Attention cases cover ring wrap, a chunk
 wider than the ring (C > W), idle streams (n_tokens = 0), GQA 8:1 and
 softcap.  Chunk attention compares active rows only: for a row with no
 visible key the JAX dense path returns a discarded uniform row and the
 port returns 0 (ROADMAP C)."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -68,6 +70,69 @@ def test_mlp_apply(activation):
                                          for k, v in p.items()}, activation),
           TL.mlp_apply(t(x), {k: t(v) for k, v in p.items()}, activation),
           )
+
+
+# wo scales that put the bf16 outputs at a few hundred (tens for
+# squared_relu), where bf16-rounded gate and up pre-activations move many
+# outputs by more than the tolerance
+BF16_WO_SCALE = {"swiglu": 0.5, "gelu_glu": 0.5, "relu_glu": 0.5,
+                 "squared_relu": 0.05, "gelu": 5.0}
+BF16_TOL = 2e-2     # the JAX package's bf16 kernel tests
+
+
+@pytest.mark.parametrize("activation", sorted(BF16_WO_SCALE))
+def test_mlp_apply_bf16(activation):
+    """bf16 weights and input: the ``wi`` product stays float32 up to the
+    activation, as the JAX einsum's ``preferred_element_type`` keeps it;
+    rounding gate and up to bf16 first misses the tolerance by up to 3.4
+    on outputs of a few hundred."""
+    rng = np.random.default_rng(0)
+    D, Fd = 64, 96
+    glu = activation.endswith("glu")
+    p = {"wi": rnd(rng, D, 2, Fd) if glu else rnd(rng, D, Fd),
+         "wo": rnd(rng, Fd, D) * BF16_WO_SCALE[activation]}
+    x = rnd(rng, 2, 8, D)
+    tp = {k: t(v).to(torch.bfloat16) for k, v in p.items()}
+    tx = t(x).to(torch.bfloat16)
+    want = JL.mlp_apply(jnp.asarray(tx.float().numpy()).astype(jnp.bfloat16),
+                        {k: jnp.asarray(v.float().numpy())
+                         .astype(jnp.bfloat16) for k, v in tp.items()},
+                        activation)
+    got = TL.mlp_apply(tx, tp, activation)
+    assert got.dtype == torch.bfloat16
+    close(jnp.asarray(want, jnp.float32), got.float(), tol=BF16_TOL)
+
+
+def test_forward_logits_bf16():
+    """A 2-layer reduced llama3-8b in bf16, the full forward to the
+    logits, JAX (its Pallas flash kernel in interpret mode, the route the
+    port's attention mirrors) against the port on the same bf16 weights
+    carried across by ``from_reference``: within 2e-2 of the logits'
+    scale.  The weights are the port's seeded draw: the JAX init grows
+    the activations of a 2-layer model to about 800, where bf16 ties that
+    round the other way in one package move the logits by 3% of their
+    scale."""
+    from repro_torch.models.params import from_reference, init_params
+    kw = dict(param_dtype="bfloat16", compute_dtype="bfloat16", n_layers=2,
+              use_pallas=True)
+    jcfg = dataclasses.replace(reduced_config(REGISTRY["llama3-8b"]), **kw)
+    tcfg = dataclasses.replace(t_reduced(T_REGISTRY["llama3-8b"]), **kw)
+    drawn = init_params(tcfg, torch.Generator().manual_seed(5), device="cpu")
+    jp = jax.tree.map(lambda w: jnp.asarray(w.float().numpy())
+                      .astype(jnp.bfloat16), drawn)
+    tp = from_reference(jax.tree.map(np.asarray, jp), device="cpu")
+    tokens = np.random.default_rng(1).integers(
+        2, jcfg.vocab, size=(2, 32)).astype(np.int32)
+    jx, _ = JT.forward(jp, jcfg, jnp.asarray(tokens))
+    want = np.asarray(JT.head_logits(jp, jcfg, jx), np.float32)
+    tx, _ = TT.forward(tp, tcfg, torch.from_numpy(tokens))
+    assert tx.dtype == torch.bfloat16
+    got = TT.head_logits(tp, tcfg, tx).numpy()
+    real = slice(0, jcfg.vocab)
+    scale = float(np.abs(want[..., real]).max())
+    np.testing.assert_allclose(got[..., real] / scale,
+                               want[..., real] / scale, rtol=0,
+                               atol=BF16_TOL)
 
 
 # B, W, Hq, Hkv, dh, pos, window, softcap
