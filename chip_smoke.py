@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # all phases, one card
     python3 chip_smoke.py --profile    # + where phases 3-8 spend their time
+    python3 chip_smoke.py --ring-splits  # the bf16 ring kernel by split width
 
 Phases (any error fails the run with a non-zero exit):
 
@@ -10,17 +11,24 @@ Phases (any error fails the run with a non-zero exit):
    kernel's registers and spills from the compiler's log, and the card's
    name and power limit.  TF32 is switched off for float32 matmuls
    and convolutions, so float32 references are full float32.
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   serving path's shape and at the edge geometries (ring wrap, a chunk
-   wider than the ring, idle rows, GQA 8:1, window with softcap, a short
-   history in a wide ring) and at phase 8's dh 256 shape (16 query heads
-   over one kv head, in bf16 and float32); time the kernel at both shapes, the plain version and one
-   PyTorch library call computing the same function, beside the least time
+2. Hold the ring-chunk kernels against their plain PyTorch version on the
+   card, at the serving path's shape and at the edge geometries (ring
+   wrap, a chunk wider than the ring, idle rows and an idle stream, GQA
+   8:1, window with softcap, a short history in a wide ring) and at phase
+   8's dh 256 shape (16 query heads over one kv head), every geometry in
+   bf16 (the tensor-core kernel, the ring split across blocks) and the
+   float32 ones in float32 too (the FMA kernel): tolerance 2e-2 and 5e-5,
+   every row, each launch on its dtype's route, bf16 reruns at both
+   serving shapes bit-identical.  Time the bf16 kernel at both shapes
+   (the device time of its two kernels from torch.profiler, and CUDA
+   events over 30 calls), the plain version and one PyTorch library call
+   computing the same function (the same two ways), beside the least time
    the card could take for the bytes and operations this input needs.
 3. Serve requests through the port's ``ServeEngine`` on llama3-8b at full
    width and depth (bf16, random weights from a seeded generator): every
    request must complete with its token budget, the ring kernel must have
-   launched, prefix sharing must have hit, and the pool's audit must pass.
+   launched, every launch on the tensor-core route, prefix sharing must
+   have hit, and the pool's audit must pass.
    Then, on a reduced llama3-8b in float32, the engine with the kernel
    must give the same tokens as the engine with the plain attention.
    ``--profile`` also times the two step kinds of the run and replays it
@@ -87,7 +95,8 @@ Phases (any error fails the run with a non-zero exit):
 7b. The port's ``Trainer`` on a reduced recurrentgemma-9b, as phase 4b.
 8. Serve phase 3's requests on recurrentgemma-9b at full width and depth
    (38 layers): every request completes with its budget, the ring kernel
-   runs in each of the 12 attn layers and the scan in each of the 26 rec
+   (on the tensor-core route) runs in each of the 12 attn layers and the
+   scan in each of the 26 rec
    layers every chunk tick, a prompt prefix is shared through the state
    checkpoints, each stream holds ring pages and a state slot, the pool's
    audit passes.  Then, on a reduced recurrentgemma-9b in float32, the
@@ -219,50 +228,139 @@ def time_ms(torch, fn, sets, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, sets, symbols, iters=30):
+    """Mean device time a call of ``fn(*inputs)`` spends in the kernels
+    whose names contain one of ``symbols``, from torch.profiler's kernel
+    events over ``iters`` calls (cycling the input sets): symbol -> ms.
+    Unlike ``time_ms`` it leaves out host time between launches."""
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    spent = dict.fromkeys(symbols, 0.0)
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        dev = getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0))
+        for sym in symbols:
+            if sym in e.key:
+                spent[sym] += dev / 1e3 / iters
+    return spent
+
+
 def phase_ring_kernel(torch):
     from repro_torch.kernels.flash_attention import ops, ref
-    import torch.nn.functional as F
 
+    # the main path is bf16: its source is the tensor-core kernel; float32
+    # calls take the FMA kernel of ``f32_source``
     row = {"name": "ring_chunk_attention", "route": "cuda",
-           "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                     "ring_chunk_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention/kernel.py:220"}
+           "source": FLASH_SOURCE + "ring_chunk_attention_wgmma.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:220",
+           "f32_source": FLASH_SOURCE + "ring_chunk_attention.cu",
+           "design": "wgmma+tma, ring split across blocks"}
+    fn = ops.ring_chunk_attention
+    before = (fn.launches, fn.wgmma_launches)
+    calls = {"bfloat16": 0, "float32": 0}
     for (name, B, C, W, Hq, Hkv, dh, pos, nt, window, softcap,
          dtype) in RING_GEOMETRIES:
-        ins = ring_inputs(torch, B, C, W, Hq, Hkv, dh, pos, nt, dtype,
-                          seed=len(name))
-        out = ops.ring_chunk_attention(*ins, window=window, softcap=softcap)
-        torch.cuda.synchronize()
-        want = ref.ring_chunk_attention_ref(*ins, window=window,
-                                            softcap=softcap)
-        # every row, active or not: the kernel's tile skip must leave even
-        # the rows past n_tokens as the plain version has them
-        o, w = out.float(), want.float()
-        err = (o - w).abs()
-        tol = TOL[dtype]
-        max_err = float(err.max())
-        bad = bool((err > tol + tol * w.abs()).any())
-        if not torch.isfinite(o).all():
-            raise AssertionError(f"{name}: kernel output not finite")
-        # a row with no visible key (stream idle at pos 0) is exactly 0
-        for b in range(B):
-            if pos[b] == 0 and nt[b] == 0 and o[b].abs().max() != 0:
-                raise AssertionError(f"{name}: idle row of stream {b} not 0")
-        log(f"[ring] {name}: {dtype} B={B} C={C} W={W} Hq={Hq} Hkv={Hkv} "
-            f"dh={dh} max_abs_err={max_err:.3e} (tol {tol})")
-        if bad:
-            raise AssertionError(f"{name}: kernel disagrees with the plain "
-                                 f"version beyond {tol}")
-        if name == "main_path":
-            row["max_abs_err"] = max_err
-            row.update(ring_timing(torch, F, ops, ref, B, C, W, Hq, Hkv, dh,
-                                   pos, nt, dtype, window))
-        elif name == "hybrid_path":
-            row["hybrid_max_abs_err"] = max_err
-            timing = ring_timing(torch, F, ops, ref, B, C, W, Hq, Hkv, dh,
-                                 pos, nt, dtype, window)
-            row.update({f"hybrid_{k}": v for k, v in timing.items()})
+        # every geometry in bf16 (the tensor-core route), and the float32
+        # ones in float32 too (the FMA route)
+        for dt in dict.fromkeys((dtype, "bfloat16")):
+            ins = ring_inputs(torch, B, C, W, Hq, Hkv, dh, pos, nt, dt,
+                              seed=len(name))
+            out = fn(*ins, window=window, softcap=softcap)
+            torch.cuda.synchronize()
+            calls[dt] += 1
+            want = ref.ring_chunk_attention_ref(*ins, window=window,
+                                                softcap=softcap)
+            # every row, active or not: the kernel's tile skip must leave
+            # even the rows past n_tokens as the plain version has them
+            o, w = out.float(), want.float()
+            err = (o - w).abs()
+            tol = TOL[dt]
+            max_err = float(err.max())
+            bad = bool((err > tol + tol * w.abs()).any())
+            if not torch.isfinite(o).all():
+                raise AssertionError(f"{name} {dt}: kernel output not "
+                                     "finite")
+            # a row with no visible key (stream idle at pos 0) is exactly 0
+            for b in range(B):
+                if pos[b] == 0 and nt[b] == 0 and o[b].abs().max() != 0:
+                    raise AssertionError(f"{name} {dt}: idle row of stream "
+                                         f"{b} not 0")
+            extra = ""
+            if dt == "bfloat16" and name in ("main_path", "hybrid_path"):
+                # the splits merge in a fixed order: a rerun is identical
+                again = fn(*ins, window=window, softcap=softcap)
+                calls[dt] += 1
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{name}: two bf16 runs differ")
+                extra = "; a second run is bit-identical"
+            log(f"[ring] {name}: {dt} B={B} C={C} W={W} Hq={Hq} Hkv={Hkv} "
+                f"dh={dh} max_abs_err={max_err:.3e} (tol {tol})" + extra)
+            if bad:
+                raise AssertionError(f"{name} {dt}: kernel disagrees with the "
+                                     f"plain version beyond {tol}")
+            if name == "main_path":
+                row["max_abs_err"] = max_err
+            elif name == "hybrid_path":
+                row["hybrid_max_abs_err"] = max_err
+    routes = {"wgmma": fn.wgmma_launches - before[1],
+              "fma": fn.launches - before[0] - (fn.wgmma_launches - before[1])}
+    want_routes = {"wgmma": calls["bfloat16"], "fma": calls["float32"]}
+    log(f"[ring] launches by route: {routes} for {calls['bfloat16']} bf16 and "
+        f"{calls['float32']} float32 calls")
+    if routes != want_routes:
+        raise AssertionError(f"ring launches by route {routes}, expected "
+                             f"{want_routes}: a bf16 call did not take the "
+                             "tensor-core kernel")
+    for name, prefix in (("main_path", ""), ("hybrid_path", "hybrid_")):
+        row.update({prefix + k: v
+                    for k, v in ring_timing(torch, name).items()})
     return row
+
+
+def ring_split_sweep(torch):
+    """``--ring-splits``: the bf16 ring kernel at both serving shapes with
+    ring splits of 1, 2, 4, 8 and 16 tiles (``ops.ring_split``, which picks
+    the width from the shapes, is replaced for the sweep): device time of
+    the split kernel and the merge, CUDA-event time, and the error against
+    the plain version."""
+    from repro_torch.kernels.flash_attention import ops
+    chosen = ops.ring_split
+    try:
+        for name in ("main_path", "hybrid_path"):
+            sets, kernel, plain, _, _ = ring_case(torch, name)
+            want = plain(*sets[0]).float()
+            B, C, Hq, _ = sets[0][0].shape
+            W, Hkv = sets[0][3].shape[1], sets[0][3].shape[2]
+            tiles = -(-W // ops.RING_TILE)
+            tol = TOL["bfloat16"]
+            for per in (1, 2, 4, 8, 16):
+                split = (per, -(-tiles // per) + 1)
+                ops.ring_split = lambda *shape, _s=split: _s
+                err = (kernel(*sets[0]).float() - want).abs()
+                if bool((err > tol + tol * want.abs()).any()):
+                    raise AssertionError(f"{name}, splits of {per} tiles: "
+                                         f"kernel disagrees beyond {tol}")
+                parts = device_ms(torch, kernel, sets, ("ring_wgmma_kernel",
+                                                        "ring_combine_kernel"))
+                ms = time_ms(torch, kernel, sets)
+                log(f"[ring-splits] {name}: {split[1]} splits (ring splits "
+                    f"of {per} tiles): split kernel "
+                    f"{parts['ring_wgmma_kernel']:.4f} ms, merge "
+                    f"{parts['ring_combine_kernel']:.4f} ms, events "
+                    f"{ms:.4f} ms, max_abs_err {float(err.max()):.3e}"
+                    + (" (ring_split's choice)"
+                       if split == chosen(B, C, W, Hq, Hkv) else ""))
+    finally:
+        ops.ring_split = chosen
 
 
 def ring_work(torch, ins, mask):
@@ -282,15 +380,17 @@ def ring_work(torch, ins, mask):
     return n_bytes, 4.0 * dh * Hq * float(seen.sum())
 
 
-def ring_timing(torch, F, ops, ref, B, C, W, Hq, Hkv, dh, pos, nt, dtype,
-                window=0):
+def ring_case(torch, name):
+    """The bf16 kernel, its plain version and the SDPA yardstick at the
+    serving shape ``name`` of ``RING_GEOMETRIES``, on four input sets
+    (cycled past the 50 MB L2), and the band mask of the first."""
     import functools
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    geo = next(g for g in RING_GEOMETRIES if g[0] == name)
+    B, C, W, Hq, Hkv, dh, pos, nt, window, _, dtype = geo[1:]
     sets = [ring_inputs(torch, B, C, W, Hq, Hkv, dh, pos, nt, dtype,
                         seed=100 + i) for i in range(4)]
-    kernel_ms = time_ms(torch, functools.partial(ops.ring_chunk_attention,
-                                                 window=window), sets)
-    plain_ms = time_ms(torch, functools.partial(
-        ref.ring_chunk_attention_ref, window=window), sets)
     mask = ref.visible(sets[0][5], sets[0][6], W, C, window)  # (B,C,W+C)
     G = Hq // Hkv
 
@@ -301,18 +401,61 @@ def ring_timing(torch, F, ops, ref, B, C, W, Hq, Hkv, dh, pos, nt, dtype,
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k, v, attn_mask=_mask, enable_gqa=G > 1)
 
-    library_ms = time_ms(torch, sdpa, sets)
+    return (sets, functools.partial(ops.ring_chunk_attention, window=window),
+            functools.partial(ref.ring_chunk_attention_ref, window=window),
+            sdpa, mask)
+
+
+def ring_timing(torch, name):
+    """CUDA-event times of 30 back-to-back calls at one serving shape: the
+    bf16 kernel (``events_ms``, the host's gaps between calls included),
+    its plain version and the yardstick (``library_events_ms``), beside the
+    bound.  ``ring_device_times`` adds the device times last."""
+    from repro_torch.kernels.flash_attention import ops
+    sets, kernel, plain, sdpa, mask = ring_case(torch, name)
+    q = sets[0][0]
+    B, C, Hq, dh = q.shape
+    W, Hkv = sets[0][3].shape[1], sets[0][3].shape[2]
+    events_ms = time_ms(torch, kernel, sets)
+    plain_ms = time_ms(torch, plain, sets)
+    library_events_ms = time_ms(torch, sdpa, sets)
     n_bytes, flops = ring_work(torch, sets[0], mask)
     bound_bytes, bound_flops = n_bytes / PEAK_BYTES, flops / PEAK_FLOPS
     bound_ms = 1e3 * max(bound_bytes, bound_flops)
-    log(f"[ring] B={B} C={C} W={W} Hq={Hq} Hkv={Hkv} dh={dh} {dtype}: "
-        f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.6f} "
-        f"({n_bytes} bytes, {flops:.0f} flops needed); SDPA backend: "
-        + sdpa_backend(torch, sdpa, sets[0]))
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    tiles, splits = ops.ring_split(B, C, W, Hq, Hkv)
+    log(f"[ring] B={B} C={C} W={W} Hq={Hq} Hkv={Hkv} dh={dh} {q.dtype}: "
+        f"events_ms={events_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_events_ms={library_events_ms:.4f} bound_ms={bound_ms:.6f} "
+        f"({n_bytes} bytes, {flops:.0f} flops needed); {splits} splits "
+        f"(ring splits of {tiles} tiles of {ops.RING_TILE} slots, and the "
+        "chunk's); SDPA backend: " + sdpa_backend(torch, sdpa, sets[0]))
+    return {"plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bound_bytes >= bound_flops
-            else "operations", "library_ms": library_ms}
+            else "operations", "splits": splits, "events_ms": events_ms,
+            "library_events_ms": library_events_ms}
+
+
+def ring_device_times(torch, row):
+    """The ring row's ``ms`` and ``library_ms``: device times a call from
+    torch.profiler's kernel events — the split kernel and the merge, and
+    every kernel of the yardstick's call — at both serving shapes.  A call
+    of either is tens of microseconds on the device, less than the host's
+    Python around it, so CUDA events would time the host.  Run after every
+    phase that CUDA events time: a profiler session can slow the launches
+    that follow it."""
+    for name, prefix in (("main_path", ""), ("hybrid_path", "hybrid_")):
+        sets, kernel, _, sdpa, _ = ring_case(torch, name)
+        parts = device_ms(torch, kernel, sets, ("ring_wgmma_kernel",
+                                                "ring_combine_kernel"))
+        library = device_ms(torch, sdpa, sets, ("",))[""]   # "": every one
+        row[prefix + "ms"] = sum(parts.values())
+        row[prefix + "library_ms"] = library
+        log(f"[ring] {name} device time a call (profiler): kernel_ms="
+            f"{row[prefix + 'ms']:.4f} (split kernel "
+            f"{parts['ring_wgmma_kernel']:.4f}, merge "
+            f"{parts['ring_combine_kernel']:.4f}), library_ms={library:.4f} "
+            f"(events: {row[prefix + 'events_ms']:.4f} and "
+            f"{row[prefix + 'library_events_ms']:.4f})")
 
 
 # ---------------------------------------------------------------------------
@@ -869,10 +1012,16 @@ def phase_engine(torch, arch, profile: bool = False):
 
     spent, timed = step_timers(torch, eng) if profile else (None, None)
     ops.ring_chunk_attention.launches = 0
+    ops.ring_chunk_attention.wgmma_launches = 0
     lru_ops.lru_scan.launches = 0
     first, reqs, res, wall = serve(torch, eng, cfg, around=timed)
     launches = ops.ring_chunk_attention.launches
+    wgmma = ops.ring_chunk_attention.wgmma_launches
     lru_launches = lru_ops.lru_scan.launches
+    # bf16 serving: every ring launch took the tensor-core route
+    if wgmma != launches:
+        raise AssertionError(f"ring kernel: {wgmma} of {launches} launches "
+                             "on the tensor-core route")
 
     for r in [first] + reqs:
         if not r.done or len(r.generated) != r.max_new:
@@ -927,7 +1076,8 @@ def phase_engine(torch, arch, profile: bool = False):
         f"{wall:.2f} s: {st['tokens'] / wall:.1f} tokens/s; "
         f"TTFT p50 {st['ttft_p50'] * 1e3:.1f} ms, "
         f"TPOT p50 {st['tpot_p50'] * 1e3:.1f} ms")
-    log(f"{tag} ring kernel launches {launches}, lru_scan launches "
+    log(f"{tag} ring kernel launches {launches} ({wgmma} on the tensor-core "
+        f"route), lru_scan launches "
         f"{lru_launches} over {ticks} chunk ticks ({n_attn} attn, {n_rec} "
         f"rec layers), kv_prefix_hits {int(hits)}, kv_reservations "
         f"{int(c.get('kv_reservations', 0))}, relayouts "
@@ -939,7 +1089,8 @@ def phase_engine(torch, arch, profile: bool = False):
                               "tpot_p99")},
         **{k: c.get(k, 0.0) for k in ("chunk_ticks", "split_ticks",
                                       "decode_steps")},
-        "ring_launches": launches, "lru_launches": lru_launches,
+        "ring_launches": launches, "ring_wgmma_launches": wgmma,
+        "lru_launches": lru_launches,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
     if profile:
         steps = sum(t for t, _ in spent.values())
@@ -1011,11 +1162,18 @@ def step_timers(torch, eng):
     return spent, timed_part()
 
 
+# the device symbols of the serving paths' hand-written kernels
+SERVING_SYMBOLS = ("ring_wgmma_kernel", "ring_combine_kernel",
+                   "lru_chunk_local", "lru_carry", "lru_fixup")
+
+
 def profile_replay(torch, eng, cfg, main_wall):
     """Replay the main path on a fresh engine (same seed, same requests,
     so the same device work) under torch.profiler and cProfile: the card's
     kernels by device time, its busy time against the unprofiled run's
-    wall, and the host functions that take the most time."""
+    wall, the time and launches of the hand-written kernels
+    (``SERVING_SYMBOLS``), and the host functions that take the most
+    time."""
     import contextlib
     import cProfile
     import pstats
@@ -1052,6 +1210,12 @@ def profile_replay(torch, eng, cfg, main_wall):
         log(f"[profile] replay: device busy {busy:.6f} s; wall {wall:.6f} s "
             f"profiled, {main_wall:.6f} s unprofiled (idle share "
             f"{1 - busy / main_wall:.4f} of the unprofiled wall)")
+        mine = {n: (sum(r[0] for r in rows if n in r[2]) / 1e3,
+                    sum(r[1] for r in rows if n in r[2]))
+                for n in SERVING_SYMBOLS}
+        log("[profile] hand-written kernels: " + ", ".join(
+            f"{n} {t:.3f} ms over {c} launches"
+            for n, (t, c) in mine.items() if c))
         for dev, count, key in sorted(rows, reverse=True)[:15]:
             log(f"[profile]   {dev / 1e3:12.3f} ms {count:7d}x  {key[:90]}")
     out = io.StringIO()
@@ -1337,6 +1501,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="phases 1, 2, 2b, 2c and 2d only")
+    ap.add_argument("--ring-splits", action="store_true",
+                    help="phase 1, then time the bf16 ring kernel at both "
+                         "serving shapes over ring split widths of 1-16 "
+                         "tiles, and stop")
     ap.add_argument("--profile", action="store_true",
                     help="time phases 3's, 6's and 8's two step kinds, "
                          "then replay each on a fresh engine under "
@@ -1358,6 +1526,9 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     t0 = time.perf_counter()
     phase_build(torch)
+    if args.ring_splits:
+        ring_split_sweep(torch)
+        return 0
     rows = [phase_ring_kernel(torch)]
     flash = phase_flash_kernels(torch)
     rows += [flash["fwd"], flash["bwd"]]
@@ -1429,6 +1600,7 @@ def main() -> int:
         rows[4]["serving_launches"] = served["lru"]
         phase_engine_reference(torch, HYBRID_ARCH, [
             ("card", "cuda", "blocked"), ("CPU", "cpu", "blocked")])
+    ring_device_times(torch, rows[0])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

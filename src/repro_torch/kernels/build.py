@@ -28,6 +28,8 @@ BUILD_DIR = REPO / "build" / "kernels"
 # kernel name -> source, relative to this package
 SOURCES: Dict[str, str] = {
     "ring_chunk_attention": "flash_attention/csrc/ring_chunk_attention.cu",
+    "ring_chunk_attention_wgmma":
+        "flash_attention/csrc/ring_chunk_attention_wgmma.cu",
     "flash_attention_fwd": "flash_attention/csrc/flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "flash_attention_fwd_wgmma":

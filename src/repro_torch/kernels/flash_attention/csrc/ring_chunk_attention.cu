@@ -11,7 +11,7 @@
 // row with no visible key is written as 0.
 //
 // What bounds it on this card: the K/V bytes.  At the serving shape (C = 16
-// queries per stream, W = 1024, Hkv = 8, dh = 128, bf16) one call reads at
+// queries per stream, W = 1024, Hkv = 8, dh = 128) one call reads at
 // most B*W*Hkv*dh*2*2 bytes of ring K/V (only the slots some query can see
 // are needed) and does about 4*C*G flops per K/V element
 // pair it reads — far below the ~295 flop/byte where the tensor cores would
@@ -36,14 +36,15 @@
 //     loaded nor multiplied.
 // The tiles sit in dynamic shared memory, sized per head dim: at dh 256
 // (recurrentgemma's local attention, Hq 16 over one kv head) they take 68 KB,
-// over the 48 KB a static allocation may hold.  This first version computes
-// with FMA loops in float32; wgmma and TMA are later work.
+// over the 48 KB a static allocation may hold.  It computes with FMA loops
+// in float32 and takes float32 inputs only: the float32 tolerance of the JAX
+// package's tests (5e-5) is out of reach of TF32 tensor cores.  bf16 inputs
+// take ring_chunk_attention_wgmma.cu (TMA, wgmma, the ring split across
+// blocks).
 //
-// Layouts (all contiguous): q, out (B, C, Hq, dh); k_new, v_new
+// Layouts (all contiguous, float32): q, out (B, C, Hq, dh); k_new, v_new
 // (B, C, Hkv, dh); k_cache, v_cache (B, W, Hkv, dh); pos, n_tokens (B,) int32.
-// dtype 0 = float32, 1 = bfloat16 (inputs and output); accumulation float32.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -56,15 +57,6 @@ constexpr int TPR = THREADS / BM;      // threads per query row
 constexpr int CPT = BN / TPR;          // tile columns per thread
 constexpr int NEVER = -(1 << 30);      // position of a masked chunk key
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <int DH>
 constexpr size_t ring_smem() {
@@ -109,7 +101,7 @@ ring_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new
     float x = 0.f;
     if (row < rows) {
       const int g = row / C, t = row % C;
-      x = to_float(q[(((size_t)b * C + t) * Hq + hk * G + g) * DH + d]);
+      x = q[(((size_t)b * C + t) * Hq + hk * G + g) * DH + d];
     }
     Qs[rr * (DH + 1) + d] = x;
   }
@@ -174,8 +166,8 @@ ring_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new
       float kx = 0.f, vx = 0.f;
       if (key < n_keys) {
         const size_t off = (((size_t)b * n_keys + key) * Hkv + hk) * DH + d;
-        kx = to_float(Kg[off]);
-        vx = to_float(Vg[off]);
+        kx = Kg[off];
+        vx = Vg[off];
       }
       Ks[c * (DH + 1) + d] = kx;
       Vs[c * DH + d] = vx;
@@ -249,7 +241,7 @@ ring_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_new
     const float denom = l > 0.f ? l : 1.f;
     T* o = out + (((size_t)b * C + t) * Hq + hk * G + g) * DH;
 #pragma unroll
-    for (int i = 0; i < DH / TPR; ++i) store(o + lane + TPR * i, acc[i] / denom);
+    for (int i = 0; i < DH / TPR; ++i) o[lane + TPR * i] = acc[i] / denom;
   }
 }
 
@@ -300,22 +292,11 @@ extern "C" int ring_chunk_attention(const void* q, const void* k_new,
                                     const void* n_tokens, void* out, int B,
                                     int C, int W, int Hq, int Hkv, int dh,
                                     int window, float softcap, float scale,
-                                    int dtype, void* stream) {
+                                    void* stream) {
   if (B == 0 || C == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || W <= 0) return cudaErrorInvalidValue;
-  const int* p = static_cast<const int*>(pos);
-  const int* n = static_cast<const int*>(n_tokens);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_typed<float>(q, k_new, v_new, k_cache, v_cache, p, n, out, B,
-                              C, W, Hq, Hkv, dh, window, softcap, scale, s);
-  } else if (dtype == 1) {
-    err = launch_typed<__nv_bfloat16>(q, k_new, v_new, k_cache, v_cache, p, n,
-                                      out, B, C, W, Hq, Hkv, dh, window,
-                                      softcap, scale, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_typed<float>(
+      q, k_new, v_new, k_cache, v_cache, static_cast<const int*>(pos),
+      static_cast<const int*>(n_tokens), out, B, C, W, Hq, Hkv, dh, window,
+      softcap, scale, static_cast<cudaStream_t>(stream)));
 }

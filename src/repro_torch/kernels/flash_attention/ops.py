@@ -1,6 +1,9 @@
 """Wrappers of the port's attention kernels.
 
-* ``ring_chunk_attention``: the serving path's fused prefill attention
+* ``ring_chunk_attention``: the serving path's fused prefill attention.
+  Two routes by dtype: bf16 goes to the tensor-core kernel
+  (``csrc/ring_chunk_attention_wgmma.cu``: TMA and wgmma, the ring split
+  across blocks, then a merge of the splits), float32 to the FMA kernel
   (``csrc/ring_chunk_attention.cu``).
 * ``flash_attention``: full-sequence GQA attention with its gradient, the
   training path's, through a ``torch.autograd.Function`` whose forward
@@ -9,17 +12,17 @@
   tensor-core kernels (``csrc/flash_attention_fwd_wgmma.cu``,
   ``csrc/flash_attention_bwd_wgmma.cu``: TMA and wgmma), float32 to the
   FMA kernels (``csrc/flash_attention_fwd.cu``,
-  ``csrc/flash_attention_bwd.cu``), whose float32 sums meet the JAX
-  package's float32 tolerances.
+  ``csrc/flash_attention_bwd.cu``).  The float32 kernels' float32 sums
+  meet the JAX package's float32 tolerances, which TF32 cannot.
 
 For tensors on the card each wrapper launches its hand-written CUDA kernel
 or raises; for tensors on the CPU it computes the plain version of
-``ref.py``.  There is no other fallback.  ``ring_chunk_attention.launches``,
+``ref.py``.  There is no other fallback.  ``ring_chunk_attention.launches``
+(one a call: the split kernel and its merge on the bf16 route),
 ``flash_attention.launches`` (forward kernel) and
 ``flash_attention_bwd.launches`` (one per backward: delta, dq and dk/dv on
-the bf16 route, dq and dk/dv on the float32 one) count launches, and
-``flash_attention.wgmma_launches`` / ``flash_attention_bwd.wgmma_launches``
-those of them that took the tensor-core route.
+the bf16 route, dq and dk/dv on the float32 one) count launches, and each
+wrapper's ``wgmma_launches`` those of them that took the tensor-core route.
 """
 from __future__ import annotations
 
@@ -36,13 +39,38 @@ _HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("ring_chunk_attention").ring_chunk_attention
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 8 + [i32] * 7 + [ctypes.c_float, ctypes.c_float,
-                                           i32, ptr]
+def _ring_kernel(name: str):
+    fn = getattr(build.load(name), name)
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    if name == "ring_chunk_attention":
+        fn.argtypes = [ptr] * 8 + [i32] * 7 + [f32, f32, ptr]
+    else:
+        fn.argtypes = ([ptr] * 10 + [i32] * 6 + [i64] * 15
+                       + [i32, f32, f32, i32, i32, ptr])
     fn.restype = i32
     return fn
+
+
+RING_TILE = 64          # ring slots or chunk keys a tile of the bf16 kernel
+RING_ROWS = 64          # query rows a block of the bf16 kernel
+# The bf16 kernel splits the ring across blocks.  A split walks at least
+# RING_SPLIT_TILES tiles (wide splits keep the float32 partials few) and
+# the splits aim at two blocks for each of the H100's 132 SMs.
+RING_SPLIT_TILES = 4
+RING_TARGET_BLOCKS = 2 * 132
+
+
+def ring_split(B: int, C: int, W: int, Hq: int, Hkv: int):
+    """(tiles a ring split walks, splits) of the bf16 ring kernel: ring
+    splits of that many 64-slot tiles and the chunk's own split.  A
+    function of the shapes alone — never of ``pos`` or ``n_tokens``, which
+    stay on the card (reading them would synchronise every layer)."""
+    tiles = -(-W // RING_TILE)
+    groups = B * Hkv * -(-(Hq // Hkv) * C // RING_ROWS)
+    wanted = max(1, -(-RING_TARGET_BLOCKS // groups) - 1)
+    per = min(tiles, max(RING_SPLIT_TILES, -(-tiles // wanted)))
+    return per, -(-tiles // per) + 1
 
 
 def _check(q, k_new, v_new, k_cache, v_cache, pos, n_tokens):
@@ -53,8 +81,6 @@ def _check(q, k_new, v_new, k_cache, v_cache, pos, n_tokens):
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {q.dtype}: float32 or bfloat16")
     for name in ("k_new", "v_new", "k_cache", "v_cache"):
@@ -63,6 +89,12 @@ def _check(q, k_new, v_new, k_cache, v_cache, pos, n_tokens):
     for name in ("pos", "n_tokens"):
         if tensors[name].dtype != torch.int32 or tensors[name].shape != (B,):
             raise TypeError(f"{name} must be int32 of shape ({B},)")
+    # the bf16 kernel reads q, k and v through strides (TMA's rule,
+    # ``tma_strides``); the float32 kernel reads contiguous tensors
+    need = ("pos", "n_tokens") if q.dtype == torch.bfloat16 else tensors
+    for name in need:
+        if not tensors[name].is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     if dh not in _HEAD_DIMS:
         raise ValueError(f"head_dim {dh} not in {_HEAD_DIMS}")
     if Hkv == 0 or Hq % Hkv:
@@ -70,7 +102,8 @@ def _check(q, k_new, v_new, k_cache, v_cache, pos, n_tokens):
     if tuple(k_new.shape) != (B, C, Hkv, dh) or v_new.shape != k_new.shape:
         raise ValueError(f"chunk k/v {tuple(k_new.shape)}, expected "
                          f"{(B, C, Hkv, dh)}")
-    if tuple(k_cache.shape) != (B, W, Hkv, dh) or v_cache.shape != k_cache.shape:
+    if tuple(k_cache.shape) != (B, W, Hkv, dh) \
+            or v_cache.shape != k_cache.shape:
         raise ValueError(f"ring k/v {tuple(k_cache.shape)}, expected "
                          f"{(B, W, Hkv, dh)}")
 
@@ -83,7 +116,11 @@ def ring_chunk_attention(q, k_new, v_new, k_cache, v_cache, pos, n_tokens, *,
     q/k_new/v_new: (B, C, H*, dh); k_cache/v_cache: (B, W, Hkv, dh) the
     ring before the chunk is written; pos: (B,) int32 absolute position of
     chunk token 0; n_tokens: (B,) int32 in [0, C].  Returns (B, C, Hq, dh)
-    in q.dtype; a row with no visible key comes out 0."""
+    in q.dtype; a row with no visible key comes out 0.  On the card bf16
+    launches ``csrc/ring_chunk_attention_wgmma.cu`` (q, k and v must meet
+    TMA's alignment, see ``tma_strides``; its float32 partials go to a
+    workspace allocated here, ``ring_split`` splits), float32
+    ``csrc/ring_chunk_attention.cu`` (contiguous tensors)."""
     if q.device.type == "cpu":
         return ref.ring_chunk_attention_ref(q, k_new, v_new, k_cache,
                                             v_cache, pos, n_tokens,
@@ -93,24 +130,40 @@ def ring_chunk_attention(q, k_new, v_new, k_cache, v_cache, pos, n_tokens, *,
     _check(q, k_new, v_new, k_cache, v_cache, pos, n_tokens)
     B, C, Hq, dh = q.shape
     W, Hkv = k_cache.shape[1], k_cache.shape[2]
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:                # no stream or no query: no launch
         return out
+    route = "wgmma" if q.dtype == torch.bfloat16 else "fma"
+    head = (q, k_new, v_new, k_cache, v_cache, pos, n_tokens)
+    if route == "wgmma":
+        name = "ring_chunk_attention_wgmma"
+        tiles, n_split = ring_split(B, C, W, Hq, Hkv)
+        # one float32 workspace: each split's partial rows of o, then their
+        # log-sum-exp
+        n_rows = B * Hkv * -(-(Hq // Hkv) * C // RING_ROWS) * n_split \
+            * RING_ROWS
+        part = torch.empty(n_rows * (dh + 1), dtype=torch.float32,
+                           device=q.device)
+        ptrs = head + (part, part[n_rows * dh:], out)
+        strides = ring_tma_strides(*head[:5])
+        tail = (int(window), float(softcap), float(dh ** -0.5), tiles,
+                n_split)
+    else:
+        name, ptrs, strides = "ring_chunk_attention", head + (out,), ()
+        tail = (int(window), float(softcap), float(dh ** -0.5))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-                        k_cache.data_ptr(), v_cache.data_ptr(),
-                        pos.data_ptr(), n_tokens.data_ptr(), out.data_ptr(),
-                        B, C, W, Hq, Hkv, dh, int(window), float(softcap),
-                        float(dh ** -0.5), _DTYPES[q.dtype], stream)
+        err = _ring_kernel(name)(*(t.data_ptr() for t in ptrs), B, C, W, Hq,
+                                 Hkv, dh, *strides, *tail, stream)
     if err:
-        raise RuntimeError(f"ring_chunk_attention launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     ring_chunk_attention.launches += 1
+    ring_chunk_attention.wgmma_launches += route == "wgmma"
     return out
 
 
 ring_chunk_attention.launches = 0
+ring_chunk_attention.wgmma_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +200,8 @@ def tma_strides(name, shape, strides, data_ptr, itemsize=2):
     if sd != 1 and dh > 1:
         raise ValueError(f"{name} must have a unit head_dim stride")
     if data_ptr % 16:
-        raise ValueError(f"{name}: the bf16 flash kernels load by TMA, which "
-                         f"needs a 16-byte-aligned base; {name}'s data "
+        raise ValueError(f"{name}: the bf16 attention kernels load by TMA, "
+                         f"which needs a 16-byte-aligned base; {name}'s data "
                          f"pointer is {data_ptr % 16} bytes past one")
     out = []
     inner = dh
@@ -158,10 +211,10 @@ def tma_strides(name, shape, strides, data_ptr, itemsize=2):
             stride = inner
         elif stride <= 0 or (stride * itemsize) % 16:
             raise ValueError(
-                f"{name}: the bf16 flash kernels load by TMA, which needs "
-                f"every stride a positive multiple of 16 bytes; {name}'s "
-                f"{dim} stride is {stride} elements ({stride * itemsize} "
-                "bytes)")
+                f"{name}: the bf16 attention kernels load by TMA, which "
+                "needs every stride a positive multiple of 16 bytes; "
+                f"{name}'s {dim} stride is {stride} elements "
+                f"({stride * itemsize} bytes)")
         out.append(stride)
         inner = stride * size
     sh, ss, sb = out
@@ -171,6 +224,16 @@ def tma_strides(name, shape, strides, data_ptr, itemsize=2):
 def _tma(name, t):
     return tma_strides(name, tuple(t.shape), t.stride(), t.data_ptr(),
                        t.element_size())
+
+
+def ring_tma_strides(q, k_new, v_new, k_cache, v_cache):
+    """The (batch, sequence, head) element strides of the bf16 ring
+    kernel's five inputs, in that order: TMA loads the K/V tiles, and q's
+    16-byte loads follow the same rule.  Raises ValueError naming the first
+    tensor whose layout breaks it (``tma_strides``)."""
+    names = ("q", "k_new", "v_new", "k_cache", "v_cache")
+    return sum((_tma(n, t) for n, t in zip(
+        names, (q, k_new, v_new, k_cache, v_cache))), ())
 
 
 def _check_flash(q, k, v, extra=()):

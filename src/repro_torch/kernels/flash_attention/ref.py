@@ -5,6 +5,9 @@
   finalisation: one band test on absolute positions (``kp >= 0 & kp <= qp
   & kp > qp - W``, plus the window), softcap before the mask, the re-mask
   after ``exp`` and a row with no visible key written as 0.
+* ``ring_chunk_attention_split_ref``: the same function computed the way
+  the bf16 ring kernel computes it — per split of the keys, then a merge
+  of the splits — in plain PyTorch, for the tests.
 * ``flash_attention_fwd_ref`` / ``flash_attention_bwd_ref``: causal or
   sliding-window GQA self-attention and its gradients, in the math of the
   flash kernels (the JAX package's ``_fwd_kernel``, ``_dq_kernel`` and
@@ -72,6 +75,47 @@ def ring_chunk_attention_ref(q, k_new, v_new, k_cache, v_cache, pos,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p / torch.where(l > 0, l, 1.0), v)
     return out.reshape(B, C, Hq, dh).to(q.dtype)
+
+
+def ring_chunk_attention_split_ref(q, k_new, v_new, k_cache, v_cache, pos,
+                                   n_tokens, *, split_slots, window=0,
+                                   softcap=0.0):
+    """``ring_chunk_attention_ref`` by the bf16 kernel's split and merge.
+    The ring's slots are cut into splits of ``split_slots`` (the last one
+    shorter), and the chunk's keys form the last split.  Each split gives
+    each query row a normalised partial ``o_s`` and ``lse_s``, the log of
+    the sum of exp of its visible scores (``NEG_INF`` where it sees none);
+    the row's output is ``sum_s w_s o_s / sum_s w_s`` with ``w_s =
+    exp(lse_s - max_s lse_s)``, summed over the splits in order, and 0
+    where every split is empty.  Float32 throughout; tests only."""
+    B, C, Hq, dh = q.shape
+    W, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, C, Hkv, G, dh).float()
+    k = torch.cat([k_cache, k_new], dim=1).float()
+    v = torch.cat([v_cache, v_new], dim=1).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * dh ** -0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = visible(pos, n_tokens, W, C, window)[:, None, None]  # (B,1,1,C,L)
+    splits = [(a, min(a + split_slots, W)) for a in range(0, W, split_slots)]
+    lses, outs = [], []
+    for a, e in splits + [(W, W + C)]:
+        seen = mask[..., a:e]
+        ss = torch.where(seen, s[..., a:e], NEG_INF)
+        m = ss.amax(dim=-1, keepdim=True)
+        p = torch.where(seen, torch.exp(ss - m), 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        outs.append(torch.einsum("bhgqk,bkhd->bhgqd", p, v[:, a:e])
+                    / torch.where(l > 0, l, 1.0))
+        lses.append(torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
+                                NEG_INF))
+    lse = torch.stack(lses)                                    # (n,B,H,G,C,1)
+    w = torch.where(lse > 0.5 * NEG_INF, torch.exp(lse - lse.amax(dim=0)),
+                    0.0)
+    den = w.sum(dim=0)
+    out = (w * torch.stack(outs)).sum(dim=0) / torch.where(den > 0, den, 1.0)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, C, Hq, dh).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
