@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # all phases, one card
     python3 chip_smoke.py --profile    # + where phases 3-8 spend their time
     python3 chip_smoke.py --ring-splits  # the bf16 ring kernel by split width
+    python3 chip_smoke.py --ssd-head-sets  # the bf16 SSD kernel by head set
 
 Phases (any error fails the run with a non-zero exit):
 
@@ -57,19 +58,23 @@ Phases (any error fails the run with a non-zero exit):
    6 steps with a checkpoint every 3; a fresh Trainer resumed from step 3
    repeats steps 4-6; the same 6 steps on the CPU (the plain attention)
    give the same losses to 1e-4.
-2c. Hold the SSD chunked-scan kernel against its plain version (y and
+2c. Hold the SSD chunked-scan kernels against their plain version (y and
    h_final, every element) at phase 5's training shape, on the JAX
    ``SSD_SWEEP`` geometries, on two groups and on three groups with
-   ragged tiles, each in float32 and with bf16 B/C (tol 3e-4 and 2e-2,
-   plus the same share of |plain|); time the kernel, its plain version
-   and the port's ``ssd_chunked`` (no single PyTorch call computes an SSD
-   scan: the library column stays empty) beside the least time the card
-   could take.
+   ragged tiles, each in float32 (the FMA kernel) and with bf16 B/C (the
+   tensor-core kernel), every call on its dtype's route (tol 3e-4 and
+   2e-2, plus the same share of |plain|; the bf16 kernel at the training
+   shape within 2e-3 absolute); time both kernels at the training shape
+   (the FMA kernel with float32 B/C), the plain version and the port's
+   ``ssd_chunked`` (no single PyTorch call computes an SSD scan: the
+   library column stays empty) beside the least time the card could take
+   on each route.
 5. Train mamba2-780m at full width and depth (48 layers, d_model 1536, 48
    SSD heads of 64, state 128, vocab 50280; bf16, random weights from a
    seeded generator) for 4 steps at B=4, S=2048, remat "none", as phase 4:
    losses and grad norms finite, parameters changed, and the SSD kernel
-   launched once per layer and step.
+   launched once per layer and step, every launch on the tensor-core
+   route.
 5b. The port's ``Trainer`` on a reduced mamba2-780m, as phase 4b.
 6. Serve phase 3's requests on mamba2-780m at full width and depth: every
    request completes with its budget, each stream takes a state slot
@@ -755,7 +760,11 @@ SSD_GEOMETRIES = [
     ("groups_2", 2, 512, 8, 64, 2, 128, 256),
     ("ragged_tiles_groups_3", 2, 300, 6, 80, 3, 20, 100),
 ]
-SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/"
+# the bf16 (tensor-core) route at the training shape: its float32 operands
+# in two bf16 parts keep it within 2e-3 of the plain version, absolute
+SSD_SPLIT_TOL = 2e-3
+SSD_SYMBOLS = ("ssd_state_wgmma", "ssd_pass", "ssd_scan_wgmma")
 
 
 def ssd_main_geometry():
@@ -790,43 +799,86 @@ def ssd_work(BH, S, P, N, BG, Q, itemsize):
     Q(Q+1)/2 visible (query, key) pairs of C B^T (N products each, in
     B/C's type: the heads of a group share them), and per (head, chunk)
     those pairs of the intra product (P each, the decay differs by head)
-    and the inter-chunk and state products (Q N P each), in float32."""
+    and the inter-chunk and state products (Q N P each), whose other
+    operand is float32.  Returns (bytes, C B^T flops, intra flops,
+    inter-chunk and state flops)."""
     nc = S // Q
     tri = nc * Q * (Q + 1) / 2
     n_bytes = (2 * BH * S * P * 4 + BH * S * 4 + 2 * BG * S * N * itemsize
                + BH * N * P * 4)
-    flops_bc = 2.0 * BG * tri * N
-    flops_f32 = 2.0 * BH * tri * P + 2 * 2.0 * BH * nc * Q * N * P
-    return n_bytes, flops_bc, flops_f32
+    return (n_bytes, 2.0 * BG * tri * N, 2.0 * BH * tri * P,
+            2 * 2.0 * BH * nc * Q * N * P)
+
+
+def ssd_bounds(BH, S, P, N, BG, Q):
+    """The least time of each route on its own input, (ms, "bytes" or
+    "operations") each.  Tensor cores (bf16 B/C): C B^T in bf16, the intra
+    product in three bf16 products (two float32 operands in two parts
+    each, lo*lo dropped), the inter-chunk and state products in two (one
+    float32 operand), all at the bf16 rate.  FMA (float32 B/C): every
+    product at the float32 rate outside the tensor cores."""
+    out = {}
+    for route, itemsize in (("wgmma", 2), ("fma", 4)):
+        n_bytes, bc, intra, state = ssd_work(BH, S, P, N, BG, Q, itemsize)
+        t_ops = ((bc + 3 * intra + 2 * state) / PEAK_FLOPS
+                 if route == "wgmma" else (bc + intra + state) / PEAK_FLOPS_F32)
+        t_bytes = n_bytes / PEAK_BYTES
+        out[route] = (1e3 * max(t_bytes, t_ops),
+                      "bytes" if t_bytes >= t_ops else "operations",
+                      n_bytes, bc + intra + state)
+    return out
 
 
 def phase_ssd_kernel(torch):
-    """The SSD kernel against its plain version on every element of y and
-    h_final, in float32 and with bf16 B/C, at the training shape, on the
-    ``SSD_SWEEP`` geometries and on G > 1 with ragged tiles; times at the
-    training shape."""
+    """The SSD kernels against their plain version on every element of y
+    and h_final, in float32 (the FMA kernel) and with bf16 B/C (the
+    tensor-core kernel), at the training shape, on the ``SSD_SWEEP``
+    geometries and on G > 1 with ragged tiles; every call on its dtype's
+    route; times at the training shape."""
     from repro_torch.kernels.ssd_scan import ops, ref
 
-    row = {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
-           "replaces": "src/repro/kernels/ssd_scan/kernel.py:72"}
+    # the main path is bf16: its source is the tensor-core kernel; float32
+    # B/C take the FMA kernel of ``f32_source``
+    row = {"name": "ssd_scan", "route": "cuda",
+           "source": SSD_SOURCE + "ssd_scan_wgmma.cu",
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:72",
+           "f32_source": SSD_SOURCE + "ssd_scan.cu",
+           "design": "wgmma+tma, C B^T once for a set of a group's heads, "
+                     "float32 operands in two bf16 parts"}
+    fn = ops.ssd_scan
     for geo in [ssd_main_geometry()] + SSD_GEOMETRIES:
         name, Bb, S, H, P, G, N, chunk = geo
         for dtype in ("float32", "bfloat16"):
             _, (xdt, a, Bh, Ch) = ssd_inputs(torch, Bb, S, H, P, G, N,
                                              dtype, seed=S + P + N)
             kw = dict(chunk=chunk, hq_per_group=H // G)
-            y, h = ops.ssd_scan(xdt, a, Bh, Ch, **kw)
+            n0, w0 = fn.launches, fn.wgmma_launches
+            y, h = fn(xdt, a, Bh, Ch, **kw)
             torch.cuda.synchronize()
-            want_y, want_h = ref.ssd_scan_plain(xdt, a, Bh, Ch, **kw)
-            tol = SSD_TOL[dtype]
+            route = "wgmma" if fn.wgmma_launches == w0 + 1 else "fma"
+            want_route = "wgmma" if dtype == "bfloat16" else "fma"
             what = (f"{name} B/C {dtype} B={Bb} S={S} H={H} P={P} G={G} "
                     f"N={N} chunk={chunk}")
+            if fn.launches != n0 + 1 or route != want_route:
+                raise AssertionError(f"{what}: {fn.launches - n0} launches, "
+                                     f"route {route}, expected one on "
+                                     f"{want_route}")
+            want_y, want_h = ref.ssd_scan_plain(xdt, a, Bh, Ch, **kw)
+            tol = SSD_TOL[dtype]
             err = max_err(torch, [("y", y, want_y), ("h_final", h, want_h)],
                           tol, what)
-            log(f"[ssd] {what}: max_abs_err={err:.3e} (tol {tol} + {tol} "
-                f"* |plain|)")
+            log(f"[ssd] {what}: route {route}, max_abs_err={err:.3e} (tol "
+                f"{tol} + {tol} * |plain|)")
             if name == "main_path" and dtype == "bfloat16":
+                if err > SSD_SPLIT_TOL:
+                    raise AssertionError(
+                        f"{what}: max abs err {err:.3e} above the split "
+                        f"bound {SSD_SPLIT_TOL}")
+                log(f"[ssd] {name} bf16: max_abs_err {err:.3e} within the "
+                    f"split bound {SSD_SPLIT_TOL} (absolute)")
                 row["max_abs_err"] = err
+            elif name == "main_path":
+                row["f32_max_abs_err"] = err
             del xdt, a, Bh, Ch, y, h, want_y, want_h
     row.update(ssd_timing(torch, ops, ref, *ssd_main_geometry()[1:]))
     return row
@@ -836,30 +888,86 @@ def ssd_timing(torch, ops, ref, B, S, H, P, G, N, chunk):
     from repro_torch.models.ssd import ssd_chunked
     sets = [ssd_inputs(torch, B, S, H, P, G, N, "bfloat16", seed=300 + i)
             for i in range(4)]
+    f32_sets = [ssd_inputs(torch, B, S, H, P, G, N, "float32", seed=300 + i)
+                for i in range(4)]
     kw = dict(chunk=chunk, hq_per_group=H // G)
     kernel_ms = time_ms(torch, lambda m, k: ops.ssd_scan(*k, **kw), sets)
+    fma_ms = time_ms(torch, lambda m, k: ops.ssd_scan(*k, **kw), f32_sets,
+                     iters=10)
+    del f32_sets
     plain_ms = time_ms(torch, lambda m, k: ref.ssd_scan_plain(*k, **kw),
                        sets, iters=10)
     # yardstick: the port's chunked form on cuBLAS einsums, model layout
     Q = min(chunk, S)
     chunked_ms = time_ms(torch, lambda m, k: ssd_chunked(*m, chunk=Q), sets,
                          iters=10)
-    n_bytes, flops_bc, flops_f32 = ssd_work(B * H, S, P, N, B * G, Q, 2)
-    b_bytes = n_bytes / PEAK_BYTES
-    b_ops = flops_bc / PEAK_FLOPS + flops_f32 / PEAK_FLOPS_F32
-    bound_ms = 1e3 * max(b_bytes, b_ops)
-    log(f"[ssd] kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"ssd_chunked_ms={chunked_ms:.4f} bound_ms={bound_ms:.6f} "
-        f"({n_bytes} bytes, {flops_bc:.0f} bf16 flops of C B^T at "
-        f"{PEAK_FLOPS:.3g}/s + {flops_f32:.0f} float32 flops at "
-        f"{PEAK_FLOPS_F32:.3g}/s)")
+    bounds = ssd_bounds(B * H, S, P, N, B * G, Q)
+    (bound_ms, bound_by, n_bytes, flops), fma = bounds["wgmma"], bounds["fma"]
+    state_heads, scan_heads = ops.ssd_head_sets(B * G, S, Q, P, H // G)
+    log(f"[ssd] kernel_ms={kernel_ms:.4f} (tensor cores, bf16 B/C, "
+        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s of needed work) "
+        f"fma_ms={fma_ms:.4f} (FMA kernel, float32 B/C) "
+        f"plain_ms={plain_ms:.4f} ssd_chunked_ms={chunked_ms:.4f}; "
+        f"bound_ms={bound_ms:.6f} ({bound_by}: {n_bytes} bytes, the split "
+        f"products on the tensor cores) fma_bound_ms={fma[0]:.6f} "
+        f"({fma[1]}: {fma[2]} bytes, {fma[3]:.0f} float32 flops at "
+        f"{PEAK_FLOPS_F32:.3g}/s); heads a block: state kernel "
+        f"{state_heads}, scan kernel {scan_heads}")
     log("[ssd] library_ms is null: no single PyTorch call computes an SSD "
         "scan; ssd_chunked_ms (the port's models/ssd.ssd_chunked forward "
         "on cuBLAS einsums, which the kernel's backward recomputes "
         "through) is the yardstick")
+    # bound_ms is the bound of ``source``'s route, the one ``ms`` times
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "library_ms": None, "ssd_chunked_ms": chunked_ms}
+            "bound_by": bound_by, "library_ms": None, "bound_route": "wgmma",
+            "tflops": flops / kernel_ms / 1e9, "fma_ms": fma_ms,
+            "fma_bound_ms": fma[0], "fma_bound_by": fma[1],
+            "head_sets": [state_heads, scan_heads],
+            "ssd_chunked_ms": chunked_ms}
+
+
+def ssd_head_set_sweep(torch):
+    """``--ssd-head-sets``: the bf16 SSD kernel at the training shape with
+    the scan kernel's heads a block from 48 (one set, C B^T made once) down
+    to 1, then the state kernel's (``ops.ssd_head_sets``, which picks both
+    from the shapes, is replaced for the sweep): CUDA-event time, device
+    time of the three kernels from torch.profiler, and the error against
+    the plain version; every choice must give the same bits."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    _, B, S, H, P, G, N, chunk = ssd_main_geometry()
+    kw = dict(chunk=chunk, hq_per_group=H // G)
+    sets = [ssd_inputs(torch, B, S, H, P, G, N, "bfloat16", seed=300 + i)
+            for i in range(4)]
+    ins = sets[0][1]
+    want_y, want_h = ref.ssd_scan_plain(*ins, **kw)
+    chosen = ops.ssd_head_sets
+    default = chosen(B * G, S, min(chunk, S), P, H // G)
+    first = ops.ssd_scan(*ins, **kw)
+    kernel = lambda m, k: ops.ssd_scan(*k, **kw)
+    try:
+        for which, choices in ((1, (48, 24, 16, 12, 8, 6, 4, 2, 1)),
+                               (0, (48, 12, 6, 4, 3, 2, 1))):
+            for heads in choices:
+                pair = list(default)
+                pair[which] = heads
+                ops.ssd_head_sets = lambda *a, _p=tuple(pair): _p
+                y, h = ops.ssd_scan(*ins, **kw)
+                err = max(float((y - want_y).abs().max()),
+                          float((h - want_h).abs().max()))
+                if err > SSD_SPLIT_TOL or not (torch.equal(y, first[0])
+                                               and torch.equal(h, first[1])):
+                    raise AssertionError(f"heads a block {pair}: max abs err "
+                                         f"{err:.3e}, or bits differ")
+                ms = time_ms(torch, kernel, sets)
+                parts = device_ms(torch, kernel, sets, SSD_SYMBOLS)
+                log(f"[ssd-head-sets] heads a block (state, scan) {pair}: "
+                    f"events {ms:.4f} ms; device "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+                    + f" ms; max_abs_err {err:.3e}"
+                    + (" (ssd_head_sets' choice)"
+                       if tuple(pair) == tuple(default) else ""))
+    finally:
+        ops.ssd_head_sets = chosen
 
 
 # ---------------------------------------------------------------------------
@@ -1366,7 +1474,8 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
     log(f"{tag} launches {launches} ("
         + ", ".join(f"{per} a step" for _, per in kernels.values())
         + "); parameters changed"
-        + ("; every flash launch took the tensor-core route"
+        + ("; every launch of a two-route kernel took the tensor-core "
+           "route"
            if any(hasattr(fn, "wgmma_launches") for fn, _ in kernels.values())
            else ""))
     log(f"{tag} " + json.dumps({
@@ -1385,7 +1494,7 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
 KERNEL_SYMBOLS = {
     TRAIN_ARCH: ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
                  "flash_dkv_wgmma_kernel", "flash_delta_kernel"),
-    "mamba2-780m": ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"),
+    "mamba2-780m": SSD_SYMBOLS,
     HYBRID_ARCH: ("lru_chunk_local", "lru_carry", "lru_fixup",
                   "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
                   "flash_dkv_wgmma_kernel", "flash_delta_kernel"),
@@ -1505,6 +1614,10 @@ def main() -> int:
                     help="phase 1, then time the bf16 ring kernel at both "
                          "serving shapes over ring split widths of 1-16 "
                          "tiles, and stop")
+    ap.add_argument("--ssd-head-sets", action="store_true",
+                    help="phase 1, then time the bf16 SSD kernel at the "
+                         "training shape over the heads a block of its "
+                         "scan and state kernels, and stop")
     ap.add_argument("--profile", action="store_true",
                     help="time phases 3's, 6's and 8's two step kinds, "
                          "then replay each on a fresh engine under "
@@ -1528,6 +1641,9 @@ def main() -> int:
     phase_build(torch)
     if args.ring_splits:
         ring_split_sweep(torch)
+        return 0
+    if args.ssd_head_sets:
+        ssd_head_set_sweep(torch)
         return 0
     rows = [phase_ring_kernel(torch)]
     flash = phase_flash_kernels(torch)

@@ -3,9 +3,11 @@
 Each kernel is one ``.cu`` source with a plain C interface, compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/kernels/`` at the repository root (no PyTorch headers, no
-``ninja``: a build takes seconds).  A library is named after the content
-hash of its source and of the headers (``*.cuh``) beside it, so an edited
-source or header rebuilds and an unchanged one is reused.
+``ninja``: a build takes seconds).  Headers shared by several kernels
+live in ``include/``, which every build gets with ``-I``.  A library is
+named after the content hash of its source, of the headers (``*.cuh``)
+beside it and of those in ``include/``, so an edited source or header
+rebuilds and an unchanged one is reused.
 ``build()`` starts one ``nvcc`` per missing library, all together, and
 waits for them.  Nothing is built when a module is imported: the first
 launch of a kernel builds it.
@@ -24,6 +26,7 @@ from typing import Dict, Iterable, Optional
 PACKAGE = Path(__file__).resolve().parent
 REPO = PACKAGE.parents[2]
 BUILD_DIR = REPO / "build" / "kernels"
+INCLUDE = PACKAGE / "include"
 
 # kernel name -> source, relative to this package
 SOURCES: Dict[str, str] = {
@@ -37,6 +40,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention_bwd_wgmma":
         "flash_attention/csrc/flash_attention_bwd_wgmma.cu",
     "ssd_scan": "ssd_scan/csrc/ssd_scan.cu",
+    "ssd_scan_wgmma": "ssd_scan/csrc/ssd_scan_wgmma.cu",
     "lru_scan": "rglru_scan/csrc/lru_scan.cu",
 }
 
@@ -63,7 +67,8 @@ def source_path(name: str) -> Path:
 def library_path(name: str) -> Path:
     src = source_path(name)
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(src.parent.glob("*.cuh")):
+    for header in sorted(src.parent.glob("*.cuh")) \
+            + sorted(INCLUDE.glob("*.cuh")):
         h.update(header.read_bytes())
     digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
@@ -85,7 +90,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         log = open(lib.with_suffix(".log"), "w")
         procs[name] = (subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))],
+            [nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE), "-o", str(tmp),
+             str(source_path(name))],
             stdout=log, stderr=subprocess.STDOUT), tmp, lib, log)
     failed = []
     for name, (proc, tmp, lib, log) in procs.items():

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash-attention kernels
-// (flash_attention_fwd_wgmma.cu, flash_attention_bwd_wgmma.cu): TMA tensor
-// maps and loads, mbarriers, warpgroup matrix products (wgmma) and their
-// shared-memory descriptors.
+// Hopper (sm_90a) building blocks of the port's tensor-core kernels (the
+// flash and ring attention kernels in flash_attention/csrc/*_wgmma.cu, the
+// SSD scan in ssd_scan/csrc/ssd_scan_wgmma.cu): TMA tensor maps and loads,
+// mbarriers, warpgroup matrix products (wgmma) and their shared-memory
+// descriptors.  kernels/build.py passes this directory to nvcc with -I and
+// hashes its headers into every library's name.
 //
 // Tile layout in shared memory.  A tile of R rows by D bf16 columns (one row
 // per sequence position, D the head dim) is loaded by TMA as D / CW column
@@ -244,6 +246,28 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       " %16, %17, %18, %19, %20, %21, %22, %23, "
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) (+)= A (64 x 16, smem, K-major) * B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_ss_t_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),

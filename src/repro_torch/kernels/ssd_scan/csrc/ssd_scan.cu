@@ -1,9 +1,12 @@
-// Mamba2 SSD chunked scan for Hopper (sm_90a), plain C interface.
+// Mamba2 SSD chunked scan for Hopper (sm_90a), float32 B and C, plain C
+// interface.
 //
 // Replaces the TPU kernel ssd_scan (src/repro/kernels/ssd_scan/kernel.py:72,
-// body _ssd_kernel).  In the kernel's head-major layout
+// body _ssd_kernel) for float32 B and C; bf16 B and C (the model path) take
+// the tensor-core kernel ssd_scan_wgmma.cu.  In the kernel's head-major
+// layout
 //   xdt (BH, S, P) float32 dt-weighted inputs, a (BH, S) float32 log-decays,
-//   B and C (BG, S, N) float32 or bf16, head b reading group b / G,
+//   B and C (BG, S, N) float32, head b reading group b / G,
 // it returns y (BH, S, P) float32 and the final state h (BH, N, P) float32,
 // where per chunk of Q steps (a_cum the inclusive cumulative sum of a over
 // the chunk)
@@ -18,8 +21,8 @@
 // training shape (mamba2-780m, B = 4, S = 2048: BH = 192, P = 64, N = 128,
 // Q = 256) the three products of a chunk cost about 21 MFLOP with the
 // causal half of C B^T skipped, 32 GFLOP in all, against about 0.2 GB of
-// inputs and outputs.  The tensor cores would take this to the memory
-// bound; this first version multiplies in float32 with FMA loops.
+// inputs and outputs.  It multiplies in float32 with FMA loops: the float32
+// tolerance of the JAX package's test (3e-4) is out of reach of TF32.
 //
 // What the design does:
 //   * The TPU grid walks the chunks of a head in order and carries the
@@ -45,14 +48,13 @@
 //     the diagonal the difference is positive and exp of it could be inf,
 //     and inf * 0 is NaN.
 //   * B and C of a group are read by every head of the group through
-//     b / G; bf16 B and C are widened to float32 on load.
+//     b / G.
 //
 // 256 threads form a 16 x 16 grid: thread (ty, tx) owns rows ty*4 .. ty*4+3
 // and columns tx, tx+16, tx+32, tx+48 of a 64 x 64 tile.  Shared-memory
 // tiles have odd row strides (64 + 1, N + 1) so that the transposed stores
 // and the column reads fall in distinct banks.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -62,11 +64,6 @@ constexpr int T = 64;            // rows, keys and columns of a tile
 constexpr int LT = T + 1;        // row stride of a T-wide tile
 constexpr int THREADS = 256;     // 16 x 16
 constexpr int MAX_N = 256;       // state size the kernels are built for
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // Inclusive cumulative sum of a chunk's Q log-decays into acum[0 .. Q-1]:
 // warp 0 does it, each lane a run of consecutive steps, the runs joined by
@@ -101,10 +98,10 @@ struct Geo {
 // 1. per (column tile, chunk, head): contrib[n][p] = sum_k B[k][n]
 //    exp(a_tot - a_cum[k]) xdt[k][p] into states (BH, nc, N, P); a_tot
 //    into atot (BH, nc).  Thread (ty, tx) owns state rows ty + 16 i.
-template <typename TB, int NI>
+template <int NI>
 __global__ void __launch_bounds__(THREADS)
 ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ a,
-                const TB* __restrict__ Bm, float* __restrict__ states,
+                const float* __restrict__ Bm, float* __restrict__ states,
                 float* __restrict__ atot, Geo g) {
   extern __shared__ float smem[];
   const int N = g.N, LN = N + 1;
@@ -116,7 +113,7 @@ ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ a,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const long long s0 = (long long)c * g.Q;
   const float* xb = x + ((long long)bh * g.S + s0) * g.P + p0;
-  const TB* Bb = Bm + ((long long)(bh / g.G) * g.S + s0) * N;
+  const float* Bb = Bm + ((long long)(bh / g.G) * g.S + s0) * N;
 
   chunk_cumsum(a + (long long)bh * g.S + s0, g.Q, acum);
   const float a_tot = acum[g.Q - 1];
@@ -132,7 +129,7 @@ ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ a,
     const int nk = min(T, g.Q - k0);
     for (int e = threadIdx.x; e < T * N; e += THREADS) {
       const int k = e / N, n = e % N;
-      Bs[k * LN + n] = k < nk ? to_float(Bb[(long long)(k0 + k) * N + n]) : 0.f;
+      Bs[k * LN + n] = k < nk ? (Bb[(long long)(k0 + k) * N + n]) : 0.f;
     }
     for (int e = threadIdx.x; e < T * T; e += THREADS) {
       const int k = e / T, p = e % T;
@@ -189,10 +186,9 @@ ssd_state_pass(float* __restrict__ states, const float* __restrict__ atot,
 
 // 3. per (row tile x column tile, chunk, head): y for 64 rows and 64
 //    columns of the chunk.
-template <typename TB>
 __global__ void __launch_bounds__(THREADS)
 ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ a,
-               const TB* __restrict__ Bm, const TB* __restrict__ Cm,
+               const float* __restrict__ Bm, const float* __restrict__ Cm,
                const float* __restrict__ states, float* __restrict__ y,
                Geo g) {
   extern __shared__ float smem[];
@@ -211,12 +207,12 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ a,
   const long long s0 = (long long)c * g.Q;
   const float* xb = x + ((long long)bh * g.S + s0) * g.P + p0;
   const long long gb = ((long long)(bh / g.G) * g.S + s0) * N;
-  const TB* Bb = Bm + gb;
-  const TB* Cb = Cm + gb;
+  const float* Bb = Bm + gb;
+  const float* Cb = Cm + gb;
 
   for (int e = threadIdx.x; e < T * N; e += THREADS) {
     const int r = e / N, n = e % N;
-    Cs[r * LN + n] = r < nq ? to_float(Cb[(long long)(q0 + r) * N + n]) : 0.f;
+    Cs[r * LN + n] = r < nq ? (Cb[(long long)(q0 + r) * N + n]) : 0.f;
   }
   chunk_cumsum(a + (long long)bh * g.S + s0, g.Q, acum);
 
@@ -230,7 +226,7 @@ ssd_chunk_scan(const float* __restrict__ x, const float* __restrict__ a,
     const int nk = min(T, g.Q - k0);
     for (int e = threadIdx.x; e < T * N; e += THREADS) {
       const int k = e / N, n = e % N;
-      Bt[n * LT + k] = k < nk ? to_float(Bb[(long long)(k0 + k) * N + n]) : 0.f;
+      Bt[n * LT + k] = k < nk ? (Bb[(long long)(k0 + k) * N + n]) : 0.f;
     }
     for (int e = threadIdx.x; e < T * T; e += THREADS) {
       const int k = e / T, p = e % T;
@@ -326,38 +322,35 @@ size_t scan_smem(const Geo& g) {
   return sizeof(float) * (g.Q + T * (g.N + 1) + g.N * LT + 2 * T * LT);
 }
 
-template <typename TB, int NI>
-cudaError_t launch_state(const float* x, const float* a, const TB* Bm,
+template <int NI>
+cudaError_t launch_state(const float* x, const float* a, const float* Bm,
                          float* states, float* atot, const Geo& g,
                          cudaStream_t stream) {
   const size_t smem = state_smem(g);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_state<TB, NI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_chunk_state<NI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.P + T - 1) / T, g.nc, g.BH);
-  ssd_chunk_state<TB, NI><<<grid, THREADS, smem, stream>>>(x, a, Bm, states,
+  ssd_chunk_state<NI><<<grid, THREADS, smem, stream>>>(x, a, Bm, states,
                                                             atot, g);
   return cudaGetLastError();
 }
 
-template <typename TB>
-cudaError_t launch(const float* x, const float* a, const void* Bv,
-                   const void* Cv, float* y, float* h_final, float* states,
+cudaError_t launch(const float* x, const float* a, const float* Bm,
+                   const float* Cm, float* y, float* h_final, float* states,
                    float* atot, const Geo& g, cudaStream_t stream) {
-  const TB* Bm = static_cast<const TB*>(Bv);
-  const TB* Cm = static_cast<const TB*>(Cv);
   cudaError_t err;
   if (g.N <= 16) {
-    err = launch_state<TB, 1>(x, a, Bm, states, atot, g, stream);
+    err = launch_state<1>(x, a, Bm, states, atot, g, stream);
   } else if (g.N <= 32) {
-    err = launch_state<TB, 2>(x, a, Bm, states, atot, g, stream);
+    err = launch_state<2>(x, a, Bm, states, atot, g, stream);
   } else if (g.N <= 64) {
-    err = launch_state<TB, 4>(x, a, Bm, states, atot, g, stream);
+    err = launch_state<4>(x, a, Bm, states, atot, g, stream);
   } else if (g.N <= 128) {
-    err = launch_state<TB, 8>(x, a, Bm, states, atot, g, stream);
+    err = launch_state<8>(x, a, Bm, states, atot, g, stream);
   } else {
-    err = launch_state<TB, 16>(x, a, Bm, states, atot, g, stream);
+    err = launch_state<16>(x, a, Bm, states, atot, g, stream);
   }
   if (err != cudaSuccess) return err;
   const dim3 pass_grid((g.N * g.P + THREADS - 1) / THREADS, g.BH);
@@ -365,48 +358,38 @@ cudaError_t launch(const float* x, const float* a, const void* Bv,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = scan_smem(g);
-  err = cudaFuncSetAttribute(ssd_chunk_scan<TB>,
+  err = cudaFuncSetAttribute(ssd_chunk_scan,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   const int row_tiles = (g.Q + T - 1) / T, col_tiles = (g.P + T - 1) / T;
   const dim3 grid(row_tiles * col_tiles, g.nc, g.BH);
-  ssd_chunk_scan<TB><<<grid, THREADS, smem, stream>>>(x, a, Bm, Cm, states,
+  ssd_chunk_scan<<<grid, THREADS, smem, stream>>>(x, a, Bm, Cm, states,
                                                        y, g);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// xdt (BH, S, P) and a (BH, S) float32; B and C (BG, S, N), BH = BG * G,
-// in float32 (dtype 0) or bf16 (dtype 1); y (BH, S, P) and h_final
-// (BH, N, P) float32; scratch: states (BH, S / Q, N, P) and atot
-// (BH, S / Q) float32.  All contiguous.  S must be a multiple of the chunk
-// Q, and N at most 256.  Returns the launches' CUDA error code (0 =
-// launched).
+// xdt (BH, S, P) and a (BH, S) float32; B and C (BG, S, N) float32,
+// BH = BG * G; y (BH, S, P) and h_final (BH, N, P) float32; scratch: states
+// (BH, S / Q, N, P) and atot (BH, S / Q) float32.  All contiguous.  S must
+// be a multiple of the chunk Q, and N at most 256.  Returns the launches'
+// CUDA error code (0 = launched).
 extern "C" int ssd_scan(const void* xdt, const void* a, const void* B,
                         const void* C, void* y, void* h_final, void* states,
                         void* atot, int BH, int S, int P, int N, int G, int Q,
-                        int dtype, void* stream) {
+                        void* stream) {
   if (BH == 0 || S == 0 || P == 0) return 0;
   if (Q <= 0 || S % Q != 0 || N <= 0 || N > MAX_N || G <= 0 || BH % G != 0)
     return cudaErrorInvalidValue;
   const Geo g{BH, S, P, N, Q, S / Q, G};
   if (g.nc > 65535 || BH > 65535) return cudaErrorInvalidValue;
-  const float* x = static_cast<const float*>(xdt);
-  const float* av = static_cast<const float*>(a);
-  float* yo = static_cast<float*>(y);
-  float* h = static_cast<float*>(h_final);
-  float* st = static_cast<float*>(states);
-  float* at = static_cast<float*>(atot);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch<float>(x, av, B, C, yo, h, st, at, g, s);
-  } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(x, av, B, C, yo, h, st, at, g, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err = launch(
+      static_cast<const float*>(xdt), static_cast<const float*>(a),
+      static_cast<const float*>(B), static_cast<const float*>(C),
+      static_cast<float*>(y), static_cast<float*>(h_final),
+      static_cast<float*>(states), static_cast<float*>(atot), g,
+      static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }

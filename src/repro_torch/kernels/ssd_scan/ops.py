@@ -1,10 +1,15 @@
-"""Wrappers of the SSD chunked-scan kernel (``csrc/ssd_scan.cu``).
+"""Wrappers of the SSD chunked-scan kernels.
 
 * ``ssd_scan``: the kernel's contract in its head-major layout (the JAX
-  package's ``kernels/ssd_scan/kernel.py:72``).  For tensors on the card
-  it launches the CUDA kernel or raises; for tensors on the CPU it
-  computes the plain version of ``ref.py``.  There is no other fallback.
-  ``ssd_scan.launches`` counts launches.
+  package's ``kernels/ssd_scan/kernel.py:72``).  Two routes by B/C's
+  dtype: bf16 (the model path) goes to the tensor-core kernel
+  (``csrc/ssd_scan_wgmma.cu``: C Bᵀ once for a set of a group's heads,
+  float32 operands split in two bf16 parts), float32 to the FMA kernel
+  (``csrc/ssd_scan.cu``).  For tensors on the card it launches its
+  route's kernel or raises; for tensors on the CPU it computes the plain
+  version of ``ref.py``.  There is no other fallback.
+  ``ssd_scan.launches`` counts launches and ``ssd_scan.wgmma_launches``
+  those of them on the tensor-core route; reset both together.
 * ``ssd_with_state``: the model-layout wrapper with its gradient, a
   ``torch.autograd.Function`` — the custom VJP of the JAX package's
   ``kernels/ssd_scan/ops.py:41-67``.  The forward forms the dt-weighted
@@ -23,17 +28,64 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd_scan import ref
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 MAX_STATE = 256
+MAX_WGMMA_CHUNK = 256   # S_r (64 x Q float32) must fit a block's smem
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("ssd_scan").ssd_scan
+def _kernel(name: str):
+    fn = getattr(build.load(name), name)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
+    n_int = 9 if name == "ssd_scan_wgmma" else 6
+    fn.argtypes = [ptr] * 8 + [i32] * n_int + [ptr]
     fn.restype = i32
     return fn
+
+
+def ssd_route(B_) -> str:
+    """The kernel a card call takes: "wgmma" for bf16 B/C, "fma" for
+    float32."""
+    return "wgmma" if B_.dtype == torch.bfloat16 else "fma"
+
+
+SCAN_TILE = 64          # rows, keys and P columns of a tile of the bf16 kernel
+# The bf16 kernel's two block kinds aim at four blocks for each of the
+# H100's 132 SMs (chip_smoke.py --ssd-head-sets times the choice).
+SSD_TARGET_BLOCKS = 4 * 132
+
+
+def ssd_head_sets(BG: int, S: int, Q: int, P: int, G: int):
+    """(heads a block of the state kernel takes, heads a block of the scan
+    kernel takes) of the bf16 kernel, for BG groups of G heads, sequence
+    S, chunk Q and head size P.  The scan kernel's block computes C_r Bᵀ
+    once for its heads: fewer, larger sets redo less of it, more sets fill
+    the card in more, shorter waves.  A function of the shapes alone."""
+    nc = S // Q
+    rows = -(-Q // SCAN_TILE)
+    cols = -(-P // SCAN_TILE)
+
+    def heads(units):
+        sets = -(-G // min(G, max(1, -(-G * units // SSD_TARGET_BLOCKS))))
+        return -(-G // sets)          # sets of equal size, but the last
+
+    return heads(BG * nc * cols), heads(BG * nc * rows)
+
+
+TMA_STATE_SIZES = (16, 32, 64, 128, 256)
+
+
+def ssd_bc_loads(N: int, ptrs) -> int:
+    """How the bf16 kernel brings B's and C's rows (N bf16 values each)
+    into shared memory: 0 for TMA, which needs N one of
+    ``TMA_STATE_SIZES`` (the kernel's padded state sizes) and
+    16-byte-aligned bases; else the width in elements of its plain loads,
+    the widest of 8, 4, 2, 1 that divides N and both bases' alignment
+    (N = 20: 4, 8-byte loads)."""
+    if N in TMA_STATE_SIZES and all(p % 16 == 0 for p in ptrs):
+        return 0
+    return next(v for v in (8, 4, 2, 1)
+                if N % v == 0 and all(p % (2 * v) == 0 for p in ptrs))
 
 
 def _check(xdt, a, B_, C_, Q, hq_per_group):
@@ -61,6 +113,9 @@ def _check(xdt, a, B_, C_, Q, hq_per_group):
         raise ValueError(f"state size {N} not in 1..{MAX_STATE}")
     if S % Q:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {Q}")
+    if ssd_route(B_) == "wgmma" and Q > MAX_WGMMA_CHUNK:
+        raise ValueError(f"chunk {Q}: the bf16 kernel takes chunks of at "
+                         f"most {MAX_WGMMA_CHUNK}")
 
 
 def ssd_scan(xdt, a, B_, C_, *, chunk=128, hq_per_group=1):
@@ -68,7 +123,7 @@ def ssd_scan(xdt, a, B_, C_, *, chunk=128, hq_per_group=1):
     log-decays; B_/C_: (BG, S, N) with BH = BG * hq_per_group, head b
     reading group b // hq_per_group.  Returns (y (BH, S, P) float32,
     h_final (BH, N, P) float32).  The chunk Q = min(chunk, S) must divide
-    S."""
+    S (and be at most ``MAX_WGMMA_CHUNK`` for bf16 B/C on the card)."""
     BH, S, P = xdt.shape
     Q = min(chunk, S)
     if xdt.device.type == "cpu":
@@ -83,21 +138,32 @@ def ssd_scan(xdt, a, B_, C_, *, chunk=128, hq_per_group=1):
     h = torch.empty((BH, N, P), dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y, h.zero_()
+    route = ssd_route(B_)
     states = torch.empty((BH, S // Q, N, P), dtype=torch.float32, device=dev)
-    atot = torch.empty((BH, S // Q), dtype=torch.float32, device=dev)
+    if route == "wgmma":
+        name = "ssd_scan_wgmma"
+        # a_cum of every chunk, written by the first of the three kernels
+        scratch = torch.empty((BH, S), dtype=torch.float32, device=dev)
+        tail = (*ssd_head_sets(BH // hq_per_group, S, Q, P, hq_per_group),
+                ssd_bc_loads(N, (B_.data_ptr(), C_.data_ptr())))
+    else:
+        name, tail = "ssd_scan", ()
+        scratch = torch.empty((BH, S // Q), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(xdt.data_ptr(), a.data_ptr(), B_.data_ptr(),
-                        C_.data_ptr(), y.data_ptr(), h.data_ptr(),
-                        states.data_ptr(), atot.data_ptr(), BH, S, P, N,
-                        hq_per_group, Q, _DTYPES[B_.dtype], stream)
+        err = _kernel(name)(xdt.data_ptr(), a.data_ptr(), B_.data_ptr(),
+                            C_.data_ptr(), y.data_ptr(), h.data_ptr(),
+                            states.data_ptr(), scratch.data_ptr(), BH, S, P,
+                            N, hq_per_group, Q, *tail, stream)
     if err:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     ssd_scan.launches += 1
+    ssd_scan.wgmma_launches += route == "wgmma"
     return y, h
 
 
 ssd_scan.launches = 0
+ssd_scan.wgmma_launches = 0
 
 
 def _head_major(t):

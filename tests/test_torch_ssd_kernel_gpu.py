@@ -1,10 +1,14 @@
-"""The SSD chunked-scan CUDA kernel against its plain PyTorch version, on
-the card: the ``SSD_SWEEP`` geometries of ``tests/test_kernels.py``, more
-than one group, ragged row and column tiles, and the training path's shape
-(mamba2-780m: B=4, S=2048, 48 heads of 64, state 128, chunk 256), with
-float32 and with bf16 B/C; the wrapper's autograd against the plain route;
-and the card route of the float32-output projection that the output head
-and the SSD block's dt use, against a float32 upcast.
+"""The SSD chunked-scan CUDA kernels against their plain PyTorch version,
+on the card: the ``SSD_SWEEP`` geometries of ``tests/test_kernels.py``,
+more than one group, ragged row and column tiles, and the training path's
+shape (mamba2-780m: B=4, S=2048, 48 heads of 64, state 128, chunk 256),
+with float32 B/C (the FMA kernel ``ssd_scan.cu``) and with bf16 B/C (the
+tensor-core kernel ``ssd_scan_wgmma.cu``, each call counted on its route);
+the bf16 kernel within 2e-3 of the plain version at the training shape,
+bit-identical on a rerun and under every head-set choice, and on B/C
+views that TMA cannot load; the wrapper's autograd against the plain
+route; and the card route of the float32-output projection that the
+output head and the SSD block's dt use, against a float32 upcast.
 
 The kernel has no CPU mode, so the tests are marked ``gpu`` and skip where
 no CUDA device is visible.  This file imports neither JAX nor the JAX
@@ -37,6 +41,10 @@ GEOS = SSD_SWEEP + EXTRA
 IDS = [f"B{b}_S{s}_H{h}_P{p}_G{g}_N{n}_Q{q}" for b, s, h, p, g, n, q in GEOS]
 # the JAX package's ssd_scan test: 3e-4 in float32; 2e-2 with bf16 B/C
 TOL = {"float32": 3e-4, "bfloat16": 2e-2}
+# the bf16 kernel's bound at the training shape: float32 operands in two
+# bf16 parts (test_torch_ssd_split.py checks that one part misses it)
+SPLIT_TOL = 2e-3
+TRAIN_GEO = (4, 2048, 48, 64, 1, 128, 256)
 
 
 @pytest.fixture
@@ -88,15 +96,91 @@ def test_kernel_matches_plain(cuda, geo, dtype):
     ins = head_major(*model_inputs(B, S, H, P, G, N, dtype, cuda,
                                    seed=S + N))
     kw = dict(chunk=chunk, hq_per_group=H // G)
-    n0 = ops.ssd_scan.launches
-    y, h = ops.ssd_scan(*ins, **kw)
+    fn = ops.ssd_scan
+    n0, w0 = fn.launches, fn.wgmma_launches
+    y, h = fn(*ins, **kw)
     torch.cuda.synchronize()
-    assert ops.ssd_scan.launches == n0 + 1
+    assert fn.launches == n0 + 1
+    # bf16 B/C on the tensor-core kernel, float32 on the FMA kernel
+    assert fn.wgmma_launches == w0 + (dtype == "bfloat16")
     want_y, want_h = ref.ssd_scan_plain(*ins, **kw)
     assert y.shape == (B * H, S, P) and h.shape == (B * H, N, P)
     assert y.dtype == h.dtype == torch.float32
     assert_close(y, want_y, TOL[dtype], "y")
     assert_close(h, want_h, TOL[dtype], "h_final")
+
+
+def train_inputs(device, seed=23):
+    B, S, H, P, G, N, chunk = TRAIN_GEO
+    ins = head_major(*model_inputs(B, S, H, P, G, N, "bfloat16", device,
+                                   seed=seed))
+    return ins, dict(chunk=chunk, hq_per_group=H // G)
+
+
+@pytest.mark.gpu
+def test_bf16_training_shape_within_the_split_bound(cuda):
+    """The tensor-core kernel at mamba2-780m's training shape: y and
+    h_final within 2e-3 of the plain version (absolute), every element."""
+    ins, kw = train_inputs(cuda)
+    w0 = ops.ssd_scan.wgmma_launches
+    y, h = ops.ssd_scan(*ins, **kw)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.wgmma_launches == w0 + 1
+    want_y, want_h = ref.ssd_scan_plain(*ins, **kw)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert float((y - want_y).abs().max()) <= SPLIT_TOL
+    assert float((h - want_h).abs().max()) <= SPLIT_TOL
+
+
+@pytest.mark.gpu
+def test_bf16_reruns_are_bit_identical(cuda):
+    ins, kw = train_inputs(cuda, seed=29)
+    first = ops.ssd_scan(*ins, **kw)
+    again = ops.ssd_scan(*ins, **kw)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geo", [(2, 512, 8, 64, 1, 128, 256),
+                                 (2, 300, 6, 80, 1, 20, 100)],
+                         ids=["tma", "plain_loads_ragged"])
+def test_bf16_head_sets_give_the_same_bits(cuda, geo, monkeypatch):
+    """C Bᵀ is the same product for every head of a set, whatever the
+    sets: each head-set choice of either kernel gives the same bits."""
+    B, S, H, P, G, N, chunk = geo
+    ins = head_major(*model_inputs(B, S, H, P, G, N, "bfloat16", cuda,
+                                   seed=31))
+    kw = dict(chunk=chunk, hq_per_group=H // G)
+    want = ops.ssd_scan(*ins, **kw)
+    assert_close(want[0], ref.ssd_scan_plain(*ins, **kw)[0], TOL["bfloat16"],
+                 "y")
+    for heads in [(1, 1), (2, 3), (H, H), (3, 2), (H, 1)]:
+        monkeypatch.setattr(ops, "ssd_head_sets", lambda *a, _h=heads: _h)
+        got = ops.ssd_scan(*ins, **kw)
+        assert torch.equal(got[0], want[0]), heads
+        assert torch.equal(got[1], want[1]), heads
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_bf16_views_tma_cannot_load(cuda, offset):
+    """B and C as views ``offset`` elements into their buffers (2, 4 and
+    8 bytes): plain loads of 1, 2 and 4 elements, the same bits as
+    aligned copies loaded by TMA."""
+    B, S, H, P, G, N, chunk = 1, 512, 4, 64, 1, 128, 256
+    xdt, a, Bh, Ch = head_major(*model_inputs(B, S, H, P, G, N, "bfloat16",
+                                              cuda, seed=37))
+    views = []
+    for m in (Bh, Ch):
+        buf = torch.zeros(m.numel() + offset, dtype=m.dtype, device=cuda)
+        buf[offset:] = m.flatten()
+        views.append(buf[offset:].view(m.shape))
+    assert ops.ssd_bc_loads(N, [v.data_ptr() for v in views]) == \
+        offset
+    kw = dict(chunk=chunk, hq_per_group=H // G)
+    want = ops.ssd_scan(xdt, a, Bh, Ch, **kw)
+    got = ops.ssd_scan(xdt, a, *views, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu
@@ -149,6 +233,9 @@ def test_wrapper_checks_its_inputs(cuda):
         ops.ssd_scan(xdt.transpose(0, 1), a, Bh, Ch, **kw)
     with pytest.raises(ValueError, match="do not fit"):
         ops.ssd_scan(xdt, a, Bh, Ch, chunk=32, hq_per_group=1)
+    x, dt, A, B_, C_ = model_inputs(1, 512, 2, 16, 1, 16, "bfloat16", cuda, 1)
+    with pytest.raises(ValueError, match="chunks of at most"):
+        ops.ssd_scan(*head_major(x, dt, A, B_, C_), chunk=512, hq_per_group=2)
 
 
 @pytest.mark.gpu
