@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile    # + where phases 3-8 spend their time
     python3 chip_smoke.py --ring-splits  # the bf16 ring kernel by split width
     python3 chip_smoke.py --ssd-head-sets  # the bf16 SSD kernel by head set
+    python3 chip_smoke.py --lru-tiles  # the RG-LRU scan kernel by tile
 
 Phases (any error fails the run with a non-zero exit):
 
@@ -81,16 +82,21 @@ Phases (any error fails the run with a non-zero exit):
    (no ring pages, so no prefix sharing, as in the JAX engine), the
    pool's audit passes.  Then, on a reduced mamba2-780m in float32, the
    card's tokens equal the CPU's.
-2d. Hold the RG-LRU scan kernel against its plain version (h and h_final,
-   every element, tol 1e-5 plus the same share of |plain|) forward and in
-   reverse, from zero and from a carried state, at phase 7's shape (B=1,
-   S=4096, W=4096), on the JAX ``LRU_SWEEP`` geometries, ragged S and W,
-   and the serving chunk's shape; the autograd wrapper's gradients (its
-   backward is the reverse scan on the kernel) against the CPU route to
-   1e-4; time the kernel and its plain version beside the byte bound
-   (no single PyTorch call computes a linear recurrence: the library
-   column stays empty, ``torch.mul`` over the same bytes is printed as a
-   yardstick).
+2d. Hold the RG-LRU scan kernel (one pass, one launch) against its plain
+   version (h and h_final, every element, tol 1e-5 plus the same share of
+   |plain|) forward and in reverse, from zero and from a carried state, at
+   phase 7's shape (B=1, S=4096, W=4096), on the JAX ``LRU_SWEEP``
+   geometries, ragged S and W, and the serving chunk's shape; the fused
+   VJP (one reverse call writing db and da) against its plain version at
+   the training shape (tol 1e-4); two runs forward and backward, and each
+   of the three carry folds, bit-identical at the training shape and at a
+   many-chunk shape; the autograd wrapper's gradients against the CPU
+   route to 1e-4; time the forward, the fused VJP beside the parent's
+   backward sequence (a shifted copy of a, the reverse scan, a multiply)
+   and the serving chunk call, by CUDA events and profiler device time,
+   beside their byte bounds, and the plain version (no single PyTorch
+   call computes a linear recurrence: the library column stays empty,
+   ``torch.mul`` over the same bytes is printed as a yardstick).
 7. Train recurrentgemma-9b at full width and 14 layers (four (rec, rec,
    attn) groups and the two-layer tail; bf16, random weights from a
    seeded generator) for 4 steps at B=1, S=4096, remat "none", as phase 4:
@@ -231,6 +237,34 @@ def time_ms(torch, fn, sets, iters=30, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, sets, iters=30, replays=3):
+    """Mean time of a call of ``fn(*inputs)`` when ``iters`` calls
+    (cycling the input sets) are captured in one CUDA graph and replayed:
+    the card's time for the calls without the host's between them.  A
+    call that cannot be captured (a host synchronisation in it) raises."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(*sets[i % len(sets)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def device_ms(torch, fn, sets, symbols, iters=30):
@@ -1007,15 +1041,57 @@ def lru_inputs(torch, B, S, W, seed):
     return torch.sigmoid(rnd(B, S, W)), rnd(B, S, W), rnd(B, W)
 
 
+LRU_SYMBOLS = ("lru_single_pass", "Memset")
+# a many-chunk shape for the rerun check: one tile, 1024 chunks of 32
+LRU_MANY_CHUNKS = (1, 32768, 64)
+
+
+def lru_vjp_inputs(torch, B, S, W, seed):
+    """a, the cotangent g and the forward's h (the kernel's scan of a, b)."""
+    from repro_torch.kernels.rglru_scan import ops
+    a, b, _ = lru_inputs(torch, B, S, W, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return (a, torch.randn(a.shape, generator=g, device="cuda"),
+            ops.lru_scan(a, b)[0])
+
+
+def lru_parent_bwd(torch, ops):
+    """The parent tree's backward rebuilt from plain tensor ops around the
+    forward kernel: a shifted copy of a, the reverse scan, a multiply."""
+    def bwd(a, g, h):
+        a_next = torch.zeros_like(a)
+        a_next[:, :-1] = a[:, 1:]
+        db, _ = ops.lru_scan(a_next, g, reverse=True)
+        da = torch.empty_like(db)
+        da[:, 0] = 0.0
+        torch.mul(db[:, 1:], h[:, :-1], out=da[:, 1:])
+        return da, db
+    return bwd
+
+
+def lru_reruns(torch, ops, a, b, h0, g, h):
+    """Two forward and two VJP calls give the same bits; returns the
+    outputs, to compare across folds."""
+    runs = [ops.lru_scan(a, b, h0) + ops._lru_vjp(a, g, h) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        raise AssertionError(f"lru {tuple(a.shape)}: two runs differ")
+    return runs[0]
+
+
 def phase_lru_kernel(torch):
     """The RG-LRU scan kernel against its plain version on every element
     of h and h_final, forward and reverse, from zero and from a carried
-    state, at the training shape and on the sweep; the autograd wrapper's
-    gradients against the CPU route; times at the training shape."""
+    state, at the training shape and on the sweep; the fused VJP against
+    its plain version; bit-identical reruns; the autograd wrapper's
+    gradients against the CPU route; times at the training and serving
+    shapes."""
     from repro_torch.kernels.rglru_scan import ops, ref
 
     row = {"name": "lru_scan", "route": "cuda", "source": LRU_SOURCE,
-           "replaces": "src/repro/kernels/rglru_scan/kernel.py:57"}
+           "replaces": "src/repro/kernels/rglru_scan/kernel.py:57",
+           "design": "one pass, look-back carry fold, fused VJP",
+           "tile": list(ops.LRU_TILE), "fold": ops.LRU_FOLD}
     worst = 0.0
     for name, B, S, W in [lru_main_geometry()] + LRU_GEOMETRIES:
         for reverse in (False, True):
@@ -1036,6 +1112,48 @@ def phase_lru_kernel(torch):
                 if name == "main_path":
                     worst = max(worst, err)
     row["max_abs_err"] = worst
+    # the fused VJP against its plain version, and the kernel's arithmetic
+    # in plain PyTorch against the kernel, at the training shape
+    _, B, S, W = lru_main_geometry()
+    a, g, h = lru_vjp_inputs(torch, B, S, W, seed=5)
+    da, db = ops._lru_vjp(a, g, h)
+    torch.cuda.synchronize()
+    want_da, want_db = ref.lru_vjp_plain(a, g, h)
+    row["bwd_max_abs_err"] = max_err(torch, [("da", da, want_da),
+                                             ("db", db, want_db)],
+                                     LRU_GRAD_TOL, "lru fused VJP")
+    log(f"[lru] fused VJP B={B} S={S} W={W}: max_abs_err="
+        f"{row['bwd_max_abs_err']:.3e} (tol {LRU_GRAD_TOL} + {LRU_GRAD_TOL}"
+        " * |plain|)")
+    pa, pb = lru_parent_bwd(torch, ops)(a, g, h)
+    log(f"[lru] fused VJP against the parent's sequence on the same kernel: "
+        f"db bit-identical {torch.equal(db, pb)}, da bit-identical "
+        f"{torch.equal(da, pa)}")
+    a, b, h0 = lru_inputs(torch, B, S, W, seed=6)
+    T = ops.lru_tiles(B, S, W)[0]
+    got = ops.lru_scan(a, b, h0)[0]
+    want = ref.lru_scan_single_pass_ref(a, b, h0, T=T)[0]
+    log(f"[lru] kernel against lru_scan_single_pass_ref (T {T}): max abs "
+        f"diff {float((got - want).abs().max()):.3e}, equal elements "
+        f"{float((got == want).float().mean()):.6f}")
+    # bit-identical reruns, and the same bits from every fold
+    for shape in ((B, S, W), LRU_MANY_CHUNKS):
+        ins = (lru_inputs(torch, *shape, seed=11)
+               + lru_vjp_inputs(torch, *shape, seed=12)[1:])
+        base = lru_reruns(torch, ops, *ins)
+        chosen = ops.LRU_FOLD
+        try:
+            for fold in ops.LRU_FOLDS:
+                ops.LRU_FOLD = fold
+                other = lru_reruns(torch, ops, *ins)
+                if not all(torch.equal(x, y) for x, y in zip(base, other)):
+                    raise AssertionError(f"lru {shape}: fold {fold} gives "
+                                         f"other bits than {chosen}")
+        finally:
+            ops.LRU_FOLD = chosen
+        log(f"[lru] B={shape[0]} S={shape[1]} W={shape[2]}: reruns forward "
+            f"and VJP bit-identical, the same bits from every fold "
+            f"{ops.LRU_FOLDS}")
     a, b, _ = lru_inputs(torch, 2, 130, 64, seed=7)
     g = torch.randn(2, 130, 64, device="cuda")
     grads = []
@@ -1047,31 +1165,181 @@ def phase_lru_kernel(torch):
     err = max_err(torch, [("da", grads[0][0].cpu(), grads[1][0]),
                           ("db", grads[0][1].cpu(), grads[1][1])],
                   LRU_GRAD_TOL, "lru gradients, card vs CPU")
-    log(f"[lru] ops.lru gradients (the backward's reverse scan on the "
-        f"kernel) against the CPU route: max_abs_err={err:.3e} (tol "
-        f"{LRU_GRAD_TOL})")
+    log(f"[lru] ops.lru gradients (the fused VJP on the kernel) against the "
+        f"CPU route: max_abs_err={err:.3e} (tol {LRU_GRAD_TOL})")
     row.update(lru_timing(torch, ops, ref, *lru_main_geometry()[1:]))
     return row
 
 
+def lru_bytes(B, S, W, vjp=False, h0=False):
+    """Bytes the call must move: a and b (or a, g and h) read, h (or db and
+    da) written, and the (B, W) state read (h0) and written (h_final)."""
+    if vjp:
+        return 5 * B * S * W * 4
+    return 3 * B * S * W * 4 + (2 if h0 else 1) * B * W * 4
+
+
 def lru_timing(torch, ops, ref, B, S, W):
+    """CUDA-event and profiler device times of the forward, the fused VJP
+    (beside the parent's backward sequence on the same kernel) and the
+    serving chunk step's call, beside their byte bounds."""
     sets = [lru_inputs(torch, B, S, W, seed=400 + i)[:2] for i in range(4)]
     kernel_ms = time_ms(torch, ops.lru_scan, sets)
+    device = sum(device_ms(torch, ops.lru_scan, sets, LRU_SYMBOLS).values())
+    graph = graph_ms(torch, ops.lru_scan, sets)
     plain_ms = time_ms(torch, ref.lru_scan_plain, sets, iters=3, warmup=1)
     # yardstick: one elementwise pass that moves the same bytes
     outs = [torch.empty_like(a) for a, _ in sets]
     mul_ms = time_ms(torch, lambda a, b, h: torch.mul(a, b, out=h),
                      [s + (h,) for s, h in zip(sets, outs)])
-    n_bytes = 3 * B * S * W * 4 + B * W * 4   # a, b in; h, h_final out
-    bound_ms = 1e3 * n_bytes / PEAK_BYTES
-    log(f"[lru] B={B} S={S} W={W}: kernel_ms={kernel_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({n_bytes} bytes "
-        f"at {PEAK_BYTES:.3g} B/s; one multiply-add an element); "
-        f"yardstick torch.mul(a, b, out=h) {mul_ms:.4f} ms")
+    del sets, outs
+    bound_ms = 1e3 * lru_bytes(B, S, W) / PEAK_BYTES
+    vjp_sets = [lru_vjp_inputs(torch, B, S, W, seed=500 + i)
+                for i in range(4)]
+    parent = lru_parent_bwd(torch, ops)
+    # in turns: parent, fused, fused, parent
+    bwd = [time_ms(torch, fn, vjp_sets)
+           for fn in (parent, ops._lru_vjp, ops._lru_vjp, parent)]
+    bwd_device = sum(device_ms(torch, ops._lru_vjp, vjp_sets,
+                               LRU_SYMBOLS).values())
+    bwd_graph = [graph_ms(torch, fn, vjp_sets) for fn in (parent,
+                                                          ops._lru_vjp)]
+    del vjp_sets
+    bwd_bound_ms = 1e3 * lru_bytes(B, S, W, vjp=True) / PEAK_BYTES
+    _, sB, sS, sW = next(g for g in LRU_GEOMETRIES if g[0] == "serving_chunk")
+    serve_sets = [lru_inputs(torch, sB, sS, sW, seed=600 + i)
+                  for i in range(4)]
+    serving_ms = time_ms(torch, ops.lru_scan, serve_sets)
+    serving_device = sum(device_ms(torch, ops.lru_scan, serve_sets,
+                                   LRU_SYMBOLS).values())
+    serving_graph = graph_ms(torch, ops.lru_scan, serve_sets)
+    serving_bound_ms = 1e3 * lru_bytes(sB, sS, sW, h0=True) / PEAK_BYTES
+    log(f"[lru] B={B} S={S} W={W}: kernel_ms={kernel_ms:.4f} (device "
+        f"{device:.4f}, kernel and memset; in a CUDA graph {graph:.4f}) "
+        f"plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.6f} ({lru_bytes(B, S, W)} bytes at "
+        f"{PEAK_BYTES:.3g} B/s; one multiply-add an element); yardstick "
+        f"torch.mul(a, b, out=h) {mul_ms:.4f} ms")
+    log(f"[lru] backward B={B} S={S} W={W}: fused VJP {bwd[1]:.4f} / "
+        f"{bwd[2]:.4f} ms (device {bwd_device:.4f}; in a CUDA graph "
+        f"{bwd_graph[1]:.4f}), the parent's sequence (shifted copy, reverse "
+        f"scan, multiply) {bwd[0]:.4f} / {bwd[3]:.4f} ms (in a CUDA graph "
+        f"{bwd_graph[0]:.4f}); bound_ms={bwd_bound_ms:.6f} "
+        f"({lru_bytes(B, S, W, vjp=True)} bytes)")
+    log(f"[lru] serving chunk B={sB} S={sS} W={sW} from h0: "
+        f"{serving_ms:.4f} ms (device {serving_device:.4f}; in a CUDA graph "
+        f"{serving_graph:.4f}), bound_ms={serving_bound_ms:.6f}")
     log("[lru] library_ms is null: no single PyTorch call computes a linear "
         "recurrence; torch.mul over the same bytes is the yardstick")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None, "mul_ms": mul_ms}
+            "bound_by": "bytes", "library_ms": None, "device_ms": device,
+            "graph_ms": graph, "mul_ms": mul_ms,
+            "bwd_ms": (bwd[1] + bwd[2]) / 2, "bwd_device_ms": bwd_device,
+            "bwd_graph_ms": bwd_graph[1], "bwd_bound_ms": bwd_bound_ms,
+            "bwd_parent_ms": (bwd[0] + bwd[3]) / 2,
+            "bwd_parent_graph_ms": bwd_graph[0], "serving_ms": serving_ms,
+            "serving_device_ms": serving_device,
+            "serving_graph_ms": serving_graph,
+            "serving_bound_ms": serving_bound_ms}
+
+
+def lru_parent_kernel(torch, parent):
+    """``--lru-parent DIR``: the parent tree's ``lru_scan`` wrapper
+    (``DIR/ops.py``) around its kernel (``DIR/csrc/lru_scan.cu``, three
+    launches, its own C interface), built here, for the A/B timing."""
+    import ctypes
+    import importlib.util
+    from repro_torch.kernels import build
+    parent = Path(parent)
+    out = ROOT / "build" / "lru_parent" / "liblru_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
+                    str(parent / "csrc" / "lru_scan.cu")], check=True,
+                   capture_output=True, timeout=600)
+    spec = importlib.util.spec_from_file_location("lru_parent_ops",
+                                                  parent / "ops.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    fn = ctypes.CDLL(str(out)).lru_scan
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    mod._kernel = lambda: fn
+    return mod.lru_scan
+
+
+def lru_tile_sweep(torch, parent_source=None):
+    """``--lru-tiles``: the kernel at the training shape over the chunk
+    steps and tile widths of ``ops.LRU_TILE_SWEEP`` (forward and fused VJP,
+    CUDA events and device time), over the three folds, and at the serving
+    chunk shape over tile widths (``ops.LRU_TILE``, ``LRU_FOLD`` and
+    ``ONE_CHUNK_WT`` are replaced for the sweep); every choice must agree
+    with the plain version.  With ``--lru-parent DIR``, the parent tree's
+    wrapper and kernel against this one at both shapes, in turns."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+    chosen, fold, one_wt = ops.LRU_TILE, ops.LRU_FOLD, ops.ONE_CHUNK_WT
+    _, B, S, W = lru_main_geometry()
+    sets = [lru_inputs(torch, B, S, W, seed=400 + i)[:2] for i in range(4)]
+    vjp_sets = [lru_vjp_inputs(torch, B, S, W, seed=500 + i)
+                for i in range(4)]
+    want = ref.lru_scan_plain(*sets[0])[0]
+    want_da, want_db = ref.lru_vjp_plain(*vjp_sets[0])
+
+    def run(what):
+        got = ops.lru_scan(*sets[0])[0]
+        da, db = ops._lru_vjp(*vjp_sets[0])
+        err = max_err(torch, [("h", got, want)], LRU_TOL, what)
+        err_b = max_err(torch, [("da", da, want_da), ("db", db, want_db)],
+                        LRU_GRAD_TOL, what)
+        fwd = time_ms(torch, ops.lru_scan, sets)
+        bwd = time_ms(torch, ops._lru_vjp, vjp_sets)
+        dev = sum(device_ms(torch, ops.lru_scan, sets, LRU_SYMBOLS).values())
+        dev_b = sum(device_ms(torch, ops._lru_vjp, vjp_sets,
+                              LRU_SYMBOLS).values())
+        log(f"[lru-tiles] {what}: forward {fwd:.4f} ms (device {dev:.4f}), "
+            f"VJP {bwd:.4f} ms (device {dev_b:.4f}); max_abs_err {err:.3e} "
+            f"/ {err_b:.3e}")
+
+    try:
+        for tile in ops.LRU_TILE_SWEEP:
+            ops.LRU_TILE = tile
+            run(f"T {tile[0]} Wt {tile[1]}" + (" (LRU_TILE)" if tile == chosen
+                                               else ""))
+        ops.LRU_TILE = chosen
+        for f in ops.LRU_FOLDS:
+            ops.LRU_FOLD = f
+            run(f"fold {f}" + (" (LRU_FOLD)" if f == fold else ""))
+        ops.LRU_FOLD = fold
+        _, sB, sS, sW = next(g for g in LRU_GEOMETRIES
+                             if g[0] == "serving_chunk")
+        serve = [lru_inputs(torch, sB, sS, sW, seed=600 + i)
+                 for i in range(4)]
+        for wt in (64, 128, 256, 512):
+            ops.ONE_CHUNK_WT = wt
+            max_err(torch, [("h", ops.lru_scan(*serve[0])[0],
+                             ref.lru_scan_plain(*serve[0])[0])], LRU_TOL,
+                    f"serving Wt {wt}")
+            log(f"[lru-tiles] serving chunk B={sB} S={sS} W={sW}, Wt {wt}: "
+                f"{time_ms(torch, ops.lru_scan, serve):.4f} ms (device "
+                f"{sum(device_ms(torch, ops.lru_scan, serve, LRU_SYMBOLS).values()):.4f})"
+                + (" (ONE_CHUNK_WT)" if wt == one_wt else ""))
+        ops.ONE_CHUNK_WT = one_wt
+        if parent_source:
+            old = lru_parent_kernel(torch, parent_source)
+            for what, ins in (("training forward", sets),
+                              ("serving chunk", serve)):
+                max_err(torch, [("h", old(*ins[0])[0],
+                                 ref.lru_scan_plain(*ins[0])[0])], LRU_TOL,
+                        f"parent kernel, {what}")
+                order = (old, ops.lru_scan, ops.lru_scan, old)
+                ms = [time_ms(torch, fn, ins) for fn in order]
+                gr = [graph_ms(torch, fn, ins) for fn in order]
+                log(f"[lru-tiles] {what}, in turns: parent {ms[0]:.4f} / "
+                    f"{ms[3]:.4f} ms (in a CUDA graph {gr[0]:.4f} / "
+                    f"{gr[3]:.4f}), this tree {ms[1]:.4f} / {ms[2]:.4f} ms "
+                    f"(in a CUDA graph {gr[1]:.4f} / {gr[2]:.4f})")
+    finally:
+        ops.LRU_TILE, ops.LRU_FOLD, ops.ONE_CHUNK_WT = chosen, fold, one_wt
 
 
 # ---------------------------------------------------------------------------
@@ -1272,7 +1540,7 @@ def step_timers(torch, eng):
 
 # the device symbols of the serving paths' hand-written kernels
 SERVING_SYMBOLS = ("ring_wgmma_kernel", "ring_combine_kernel",
-                   "lru_chunk_local", "lru_carry", "lru_fixup")
+                   "lru_single_pass")
 
 
 def profile_replay(torch, eng, cfg, main_wall):
@@ -1495,9 +1763,9 @@ KERNEL_SYMBOLS = {
     TRAIN_ARCH: ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
                  "flash_dkv_wgmma_kernel", "flash_delta_kernel"),
     "mamba2-780m": SSD_SYMBOLS,
-    HYBRID_ARCH: ("lru_chunk_local", "lru_carry", "lru_fixup",
-                  "flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
-                  "flash_dkv_wgmma_kernel", "flash_delta_kernel"),
+    HYBRID_ARCH: ("lru_single_pass", "flash_fwd_wgmma_kernel",
+                  "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
+                  "flash_delta_kernel"),
 }
 
 
@@ -1618,6 +1886,16 @@ def main() -> int:
                     help="phase 1, then time the bf16 SSD kernel at the "
                          "training shape over the heads a block of its "
                          "scan and state kernels, and stop")
+    ap.add_argument("--lru-tiles", action="store_true",
+                    help="phase 1, then time the RG-LRU scan kernel at the "
+                         "training shape over chunk steps, tile widths and "
+                         "folds, and at the serving chunk shape over tile "
+                         "widths, and stop")
+    ap.add_argument("--lru-parent", metavar="DIR",
+                    help="with --lru-tiles: also time the parent tree's "
+                         "kernels/rglru_scan package at DIR (its ops.py "
+                         "around its three-launch csrc/lru_scan.cu) "
+                         "against this one, in turns")
     ap.add_argument("--profile", action="store_true",
                     help="time phases 3's, 6's and 8's two step kinds, "
                          "then replay each on a fresh engine under "
@@ -1644,6 +1922,9 @@ def main() -> int:
         return 0
     if args.ssd_head_sets:
         ssd_head_set_sweep(torch)
+        return 0
+    if args.lru_tiles:
+        lru_tile_sweep(torch, args.lru_parent)
         return 0
     rows = [phase_ring_kernel(torch)]
     flash = phase_flash_kernels(torch)

@@ -2,8 +2,10 @@
 card: the ``LRU_SWEEP`` geometries of ``tests/test_kernels.py``, ragged
 sequence lengths and widths, one chunk and many, forward and reverse, with
 and without a carried state, and the hybrid training path's shape
-(recurrentgemma-9b: B=1, S=4096, W=4096); the autograd wrapper against
-the plain route; and the serving chunk step's launch.
+(recurrentgemma-9b: B=1, S=4096, W=4096); the fused VJP against
+``lru_vjp_plain``; bit-identical reruns and the same bits from every carry
+fold; a misaligned view on the 4-byte copy path; the autograd wrapper
+against the plain route; and the serving chunk step's launch.
 
 The kernel has no CPU mode, so the tests are marked ``gpu`` and skip where
 no CUDA device is visible.  This file imports neither JAX nor the JAX
@@ -79,8 +81,8 @@ def test_lru_kernel_vs_plain(cuda, B, S, W, carried, reverse):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,W", [(2, 130, 64), (1, 64, 128)])
 def test_autograd_through_the_kernel(cuda, B, S, W):
-    """``ops.lru`` on the card: forward and backward (the reverse scan)
-    both launch the kernel; the gradients equal the CPU route's."""
+    """``ops.lru`` on the card: forward and backward (the fused VJP) each
+    launch the kernel once; the gradients equal the CPU route's."""
     a, b, _ = inputs(B, S, W, cuda, seed=7)
     g = torch.randn(B, S, W, device=cuda)
     ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
@@ -135,3 +137,73 @@ def test_chunk_step_launches_the_kernel(cuda):
     close(got.cpu(), want, 1e-4, "out")
     for k in want_st:
         close(got_st[k].cpu(), want_st[k], 1e-4, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,W", GEOS, ids=IDS)
+def test_fused_vjp_vs_plain(cuda, B, S, W):
+    """One launch reads a, g and h and writes db and da, as
+    ``lru_vjp_plain`` computes them step by step."""
+    a, b, _ = inputs(B, S, W, cuda, seed=S * W)
+    g = torch.randn(B, S, W, device=cuda)
+    h = ref.lru_scan_plain(a, b)[0]
+    before = ops.lru_scan.launches
+    da, db = ops._lru_vjp(a, g, h)
+    torch.cuda.synchronize()
+    assert ops.lru_scan.launches == before + 1
+    want_da, want_db = ref.lru_vjp_plain(a, g, h)
+    close(da, want_da, GRAD_TOL, "da")
+    close(db, want_db, GRAD_TOL, "db")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,W", [(1, 4096, 4096), (1, 32768, 64)],
+                         ids=["training", "many_chunks"])
+def test_reruns_and_folds_are_bit_identical(cuda, B, S, W):
+    """Two runs forward and backward give the same bits, and so does each
+    way of folding the carry (look-back, chained, every aggregate): the
+    carry is always the fold from h0 in chunk order."""
+    a, b, h0 = inputs(B, S, W, cuda, seed=3)
+    g = torch.randn(B, S, W, device=cuda)
+    h = ops.lru_scan(a, b)[0]
+    chosen = ops.LRU_FOLD
+    outs = []
+    try:
+        for fold in (chosen,) + ops.LRU_FOLDS:
+            ops.LRU_FOLD = fold
+            outs.append(ops.lru_scan(a, b, h0) + ops._lru_vjp(a, g, h))
+    finally:
+        ops.LRU_FOLD = chosen
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for x, y in zip(outs[0], other):
+            assert torch.equal(x, y)
+    want = ref.lru_scan_plain(a, b, h0)
+    close(outs[0][0], want[0], TOL, "h")
+    close(outs[0][1], want[1], TOL, "h_final")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+def test_misaligned_view_takes_the_scalar_path(cuda, reverse):
+    """A contiguous view whose base is 4 bytes past a 16-byte boundary
+    cannot take 16-byte copies: ``lru_vec_loads`` says so and the kernel
+    copies 4 bytes at a time, with the same results."""
+    B, S, W = 2, 300, 256
+    a, b, h0 = inputs(B, S, W, cuda, seed=9)
+    buf = torch.empty(2 * B * S * W + 1, device=cuda)
+    va = buf[1:1 + B * S * W].view(B, S, W)
+    vb = buf[1 + B * S * W:].view(B, S, W)
+    va.copy_(a)
+    vb.copy_(b)
+    assert va.is_contiguous() and va.data_ptr() % 16 == 4
+    assert not ops.lru_vec_loads(W, [va.data_ptr(), vb.data_ptr()])
+    h, fin = ops.lru_scan(va, vb, h0, reverse=reverse)
+    want_h, want_fin = ref.lru_scan_plain(a, b, h0, reverse=reverse)
+    close(h, want_h, TOL, "h")
+    close(fin, want_fin, TOL, "h_final")
+    g = torch.randn(B, S, W, device=cuda)
+    da, db = ops._lru_vjp(va, g, want_h)
+    want_da, want_db = ref.lru_vjp_plain(a, g, want_h)
+    close(da, want_da, GRAD_TOL, "da")
+    close(db, want_db, GRAD_TOL, "db")
