@@ -88,13 +88,14 @@ Phases (any error fails the run with a non-zero exit):
    phase 7's shape (B=1, S=4096, W=4096), on the JAX ``LRU_SWEEP``
    geometries, ragged S and W, and the serving chunk's shape; the fused
    VJP (one reverse call writing db and da) against its plain version at
-   the training shape (tol 1e-4); two runs forward and backward, and each
-   of the three carry folds, bit-identical at the training shape and at a
-   many-chunk shape; the autograd wrapper's gradients against the CPU
-   route to 1e-4; time the forward, the fused VJP beside the parent's
-   backward sequence (a shifted copy of a, the reverse scan, a multiply)
-   and the serving chunk call, by CUDA events and profiler device time,
-   beside their byte bounds, and the plain version (no single PyTorch
+   the training shape (tol 1e-4); two runs forward and backward, and every
+   tile of ``LRU_TILE_SWEEP``, bit-identical at the training shape and at
+   a long narrow shape; the autograd wrapper's gradients against the CPU
+   route to 1e-4; time the forward, the fused VJP beside the unfused
+   backward (a shifted copy of a, the reverse scan, a multiply) and the
+   serving chunk call, by CUDA events, profiler device time and replays
+   of a CUDA graph, beside their byte bounds, and the plain version (no
+   single PyTorch
    call computes a linear recurrence: the library column stays empty,
    ``torch.mul`` over the same bytes is printed as a yardstick).
 7. Train recurrentgemma-9b at full width and 14 layers (four (rec, rec,
@@ -1041,9 +1042,9 @@ def lru_inputs(torch, B, S, W, seed):
     return torch.sigmoid(rnd(B, S, W)), rnd(B, S, W), rnd(B, W)
 
 
-LRU_SYMBOLS = ("lru_single_pass", "Memset")
-# a many-chunk shape for the rerun check: one tile, 1024 chunks of 32
-LRU_MANY_CHUNKS = (1, 32768, 64)
+LRU_SYMBOLS = ("lru_walk",)
+# a long, narrow shape for the rerun check: 512 tiles of 64 steps in a walk
+LRU_MANY_TILES = (1, 32768, 64)
 
 
 def lru_vjp_inputs(torch, B, S, W, seed):
@@ -1055,9 +1056,9 @@ def lru_vjp_inputs(torch, B, S, W, seed):
             ops.lru_scan(a, b)[0])
 
 
-def lru_parent_bwd(torch, ops):
-    """The parent tree's backward rebuilt from plain tensor ops around the
-    forward kernel: a shifted copy of a, the reverse scan, a multiply."""
+def lru_unfused_bwd(torch, ops):
+    """The backward before the fused VJP, from plain tensor ops around the
+    scan kernel: a shifted copy of a, the reverse scan, a multiply."""
     def bwd(a, g, h):
         a_next = torch.zeros_like(a)
         a_next[:, :-1] = a[:, 1:]
@@ -1071,7 +1072,7 @@ def lru_parent_bwd(torch, ops):
 
 def lru_reruns(torch, ops, a, b, h0, g, h):
     """Two forward and two VJP calls give the same bits; returns the
-    outputs, to compare across folds."""
+    outputs, to compare across tiles."""
     runs = [ops.lru_scan(a, b, h0) + ops._lru_vjp(a, g, h) for _ in range(2)]
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(*runs)):
@@ -1090,8 +1091,10 @@ def phase_lru_kernel(torch):
 
     row = {"name": "lru_scan", "route": "cuda", "source": LRU_SOURCE,
            "replaces": "src/repro/kernels/rglru_scan/kernel.py:57",
-           "design": "one pass, look-back carry fold, fused VJP",
-           "tile": list(ops.LRU_TILE), "fold": ops.LRU_FOLD}
+           "design": "one pass: a block walks a channel tile's whole "
+                     "sequence through a cp.async ring, carry in registers; "
+                     "fused VJP",
+           "tile": list(ops.lru_tiles(*lru_main_geometry()[1:]))}
     worst = 0.0
     for name, B, S, W in [lru_main_geometry()] + LRU_GEOMETRIES:
         for reverse in (False, True):
@@ -1125,35 +1128,34 @@ def phase_lru_kernel(torch):
     log(f"[lru] fused VJP B={B} S={S} W={W}: max_abs_err="
         f"{row['bwd_max_abs_err']:.3e} (tol {LRU_GRAD_TOL} + {LRU_GRAD_TOL}"
         " * |plain|)")
-    pa, pb = lru_parent_bwd(torch, ops)(a, g, h)
-    log(f"[lru] fused VJP against the parent's sequence on the same kernel: "
+    pa, pb = lru_unfused_bwd(torch, ops)(a, g, h)
+    log(f"[lru] fused VJP against the unfused backward on the same kernel: "
         f"db bit-identical {torch.equal(db, pb)}, da bit-identical "
         f"{torch.equal(da, pa)}")
     a, b, h0 = lru_inputs(torch, B, S, W, seed=6)
-    T = ops.lru_tiles(B, S, W)[0]
     got = ops.lru_scan(a, b, h0)[0]
-    want = ref.lru_scan_single_pass_ref(a, b, h0, T=T)[0]
-    log(f"[lru] kernel against lru_scan_single_pass_ref (T {T}): max abs "
-        f"diff {float((got - want).abs().max()):.3e}, equal elements "
-        f"{float((got == want).float().mean()):.6f}")
-    # bit-identical reruns, and the same bits from every fold
-    for shape in ((B, S, W), LRU_MANY_CHUNKS):
+    want = ref.lru_scan_single_pass_ref(a, b, h0)[0]
+    log(f"[lru] kernel against lru_scan_single_pass_ref (its arithmetic): "
+        f"max abs diff {float((got - want).abs().max()):.3e}, equal "
+        f"elements {float((got == want).float().mean()):.6f}")
+    # bit-identical reruns, and the same bits from every swept tile
+    for shape in ((B, S, W), LRU_MANY_TILES):
         ins = (lru_inputs(torch, *shape, seed=11)
                + lru_vjp_inputs(torch, *shape, seed=12)[1:])
         base = lru_reruns(torch, ops, *ins)
-        chosen = ops.LRU_FOLD
+        chosen = ops.LRU_TILE
         try:
-            for fold in ops.LRU_FOLDS:
-                ops.LRU_FOLD = fold
+            for tile in ops.LRU_TILE_SWEEP:
+                ops.LRU_TILE = tile
                 other = lru_reruns(torch, ops, *ins)
                 if not all(torch.equal(x, y) for x, y in zip(base, other)):
-                    raise AssertionError(f"lru {shape}: fold {fold} gives "
+                    raise AssertionError(f"lru {shape}: tile {tile} gives "
                                          f"other bits than {chosen}")
         finally:
-            ops.LRU_FOLD = chosen
+            ops.LRU_TILE = chosen
         log(f"[lru] B={shape[0]} S={shape[1]} W={shape[2]}: reruns forward "
-            f"and VJP bit-identical, the same bits from every fold "
-            f"{ops.LRU_FOLDS}")
+            f"and VJP bit-identical, the same bits from every tile of "
+            f"ops.LRU_TILE_SWEEP")
     a, b, _ = lru_inputs(torch, 2, 130, 64, seed=7)
     g = torch.randn(2, 130, 64, device="cuda")
     grads = []
@@ -1181,7 +1183,7 @@ def lru_bytes(B, S, W, vjp=False, h0=False):
 
 def lru_timing(torch, ops, ref, B, S, W):
     """CUDA-event and profiler device times of the forward, the fused VJP
-    (beside the parent's backward sequence on the same kernel) and the
+    (beside the unfused backward on the same kernel) and the
     serving chunk step's call, beside their byte bounds."""
     sets = [lru_inputs(torch, B, S, W, seed=400 + i)[:2] for i in range(4)]
     kernel_ms = time_ms(torch, ops.lru_scan, sets)
@@ -1196,13 +1198,13 @@ def lru_timing(torch, ops, ref, B, S, W):
     bound_ms = 1e3 * lru_bytes(B, S, W) / PEAK_BYTES
     vjp_sets = [lru_vjp_inputs(torch, B, S, W, seed=500 + i)
                 for i in range(4)]
-    parent = lru_parent_bwd(torch, ops)
-    # in turns: parent, fused, fused, parent
+    unfused = lru_unfused_bwd(torch, ops)
+    # in turns: unfused, fused, fused, unfused
     bwd = [time_ms(torch, fn, vjp_sets)
-           for fn in (parent, ops._lru_vjp, ops._lru_vjp, parent)]
+           for fn in (unfused, ops._lru_vjp, ops._lru_vjp, unfused)]
     bwd_device = sum(device_ms(torch, ops._lru_vjp, vjp_sets,
                                LRU_SYMBOLS).values())
-    bwd_graph = [graph_ms(torch, fn, vjp_sets) for fn in (parent,
+    bwd_graph = [graph_ms(torch, fn, vjp_sets) for fn in (unfused,
                                                           ops._lru_vjp)]
     del vjp_sets
     bwd_bound_ms = 1e3 * lru_bytes(B, S, W, vjp=True) / PEAK_BYTES
@@ -1222,7 +1224,7 @@ def lru_timing(torch, ops, ref, B, S, W):
         f"torch.mul(a, b, out=h) {mul_ms:.4f} ms")
     log(f"[lru] backward B={B} S={S} W={W}: fused VJP {bwd[1]:.4f} / "
         f"{bwd[2]:.4f} ms (device {bwd_device:.4f}; in a CUDA graph "
-        f"{bwd_graph[1]:.4f}), the parent's sequence (shifted copy, reverse "
+        f"{bwd_graph[1]:.4f}), the unfused backward (shifted copy, reverse "
         f"scan, multiply) {bwd[0]:.4f} / {bwd[3]:.4f} ms (in a CUDA graph "
         f"{bwd_graph[0]:.4f}); bound_ms={bwd_bound_ms:.6f} "
         f"({lru_bytes(B, S, W, vjp=True)} bytes)")
@@ -1236,48 +1238,50 @@ def lru_timing(torch, ops, ref, B, S, W):
             "graph_ms": graph, "mul_ms": mul_ms,
             "bwd_ms": (bwd[1] + bwd[2]) / 2, "bwd_device_ms": bwd_device,
             "bwd_graph_ms": bwd_graph[1], "bwd_bound_ms": bwd_bound_ms,
-            "bwd_parent_ms": (bwd[0] + bwd[3]) / 2,
-            "bwd_parent_graph_ms": bwd_graph[0], "serving_ms": serving_ms,
+            "bwd_unfused_ms": (bwd[0] + bwd[3]) / 2,
+            "bwd_unfused_graph_ms": bwd_graph[0], "serving_ms": serving_ms,
             "serving_device_ms": serving_device,
             "serving_graph_ms": serving_graph,
             "serving_bound_ms": serving_bound_ms}
 
 
-def lru_parent_kernel(torch, parent):
-    """``--lru-parent DIR``: the parent tree's ``lru_scan`` wrapper
-    (``DIR/ops.py``) around its kernel (``DIR/csrc/lru_scan.cu``, three
-    launches, its own C interface), built here, for the A/B timing."""
+def lru_other_tree(torch, tree):
+    """``--lru-against DIR``: another tree's ``lru_scan`` wrapper
+    (``DIR/ops.py``) around its own kernel (``DIR/csrc/lru_scan.cu``, with
+    its own C interface), built here, for an A/B timing in one run."""
     import ctypes
     import importlib.util
     from repro_torch.kernels import build
-    parent = Path(parent)
-    out = ROOT / "build" / "lru_parent" / "liblru_parent.so"
+    tree = Path(tree).resolve()
+    name = "lru_" + tree.parent.parent.parent.parent.name
+    out = ROOT / "build" / "lru_against" / f"lib{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                    str(parent / "csrc" / "lru_scan.cu")], check=True,
+                    str(tree / "csrc" / "lru_scan.cu")], check=True,
                    capture_output=True, timeout=600)
-    spec = importlib.util.spec_from_file_location("lru_parent_ops",
-                                                  parent / "ops.py")
+    spec = importlib.util.spec_from_file_location(name, tree / "ops.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    fn = ctypes.CDLL(str(out)).lru_scan
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    mod._kernel = lambda: fn
-    return mod.lru_scan
+
+    class Built:            # the tree's _kernel() loads this library
+        @staticmethod
+        def load(_name):
+            return ctypes.CDLL(str(out))
+
+    mod.build = Built
+    return name, mod
 
 
-def lru_tile_sweep(torch, parent_source=None):
-    """``--lru-tiles``: the kernel at the training shape over the chunk
-    steps and tile widths of ``ops.LRU_TILE_SWEEP`` (forward and fused VJP,
-    CUDA events and device time), over the three folds, and at the serving
-    chunk shape over tile widths (``ops.LRU_TILE``, ``LRU_FOLD`` and
-    ``ONE_CHUNK_WT`` are replaced for the sweep); every choice must agree
-    with the plain version.  With ``--lru-parent DIR``, the parent tree's
-    wrapper and kernel against this one at both shapes, in turns."""
+def lru_tile_sweep(torch, others=()):
+    """``--lru-tiles``: the kernel at the training shape over the tiles of
+    ``ops.LRU_TILE_SWEEP`` and over ring depths (forward and fused VJP,
+    CUDA events and device time; ``ops.LRU_TILE`` and ``lru_tiles`` are
+    replaced for the sweep); every choice must agree with the plain
+    version.  With ``--lru-against DIR ...``, each other tree's wrapper and
+    kernel against this one at the training shape (forward and VJP) and at
+    the serving chunk shape, in turns."""
     from repro_torch.kernels.rglru_scan import ops, ref
-    chosen, fold, one_wt = ops.LRU_TILE, ops.LRU_FOLD, ops.ONE_CHUNK_WT
+    chosen, tiles = ops.LRU_TILE, ops.lru_tiles
     _, B, S, W = lru_main_geometry()
     sets = [lru_inputs(torch, B, S, W, seed=400 + i)[:2] for i in range(4)]
     vjp_sets = [lru_vjp_inputs(torch, B, S, W, seed=500 + i)
@@ -1303,43 +1307,43 @@ def lru_tile_sweep(torch, parent_source=None):
     try:
         for tile in ops.LRU_TILE_SWEEP:
             ops.LRU_TILE = tile
-            run(f"T {tile[0]} Wt {tile[1]}" + (" (LRU_TILE)" if tile == chosen
-                                               else ""))
+            T, Wt, fwd_stages = ops.lru_tiles(B, S, W)
+            run(f"T {T} Wt {Wt}, rings of {fwd_stages} / "
+                f"{ops.lru_tiles(B, S, W, True)[2]} tiles"
+                + (" (LRU_TILE)" if tile == chosen else ""))
         ops.LRU_TILE = chosen
-        for f in ops.LRU_FOLDS:
-            ops.LRU_FOLD = f
-            run(f"fold {f}" + (" (LRU_FOLD)" if f == fold else ""))
-        ops.LRU_FOLD = fold
+        for depth in ops.STAGES:
+            ops.lru_tiles = lambda *shape, _d=depth: tiles(*shape)[:2] + (_d,)
+            if all(ops.tile_fits(*chosen, S, depth, vjp) for vjp in (0, 1)):
+                run(f"T {chosen[0]} Wt {chosen[1]}, rings of {depth} tiles")
+        ops.lru_tiles = tiles
         _, sB, sS, sW = next(g for g in LRU_GEOMETRIES
                              if g[0] == "serving_chunk")
         serve = [lru_inputs(torch, sB, sS, sW, seed=600 + i)
                  for i in range(4)]
-        for wt in (64, 128, 256, 512):
-            ops.ONE_CHUNK_WT = wt
-            max_err(torch, [("h", ops.lru_scan(*serve[0])[0],
-                             ref.lru_scan_plain(*serve[0])[0])], LRU_TOL,
-                    f"serving Wt {wt}")
-            log(f"[lru-tiles] serving chunk B={sB} S={sS} W={sW}, Wt {wt}: "
-                f"{time_ms(torch, ops.lru_scan, serve):.4f} ms (device "
-                f"{sum(device_ms(torch, ops.lru_scan, serve, LRU_SYMBOLS).values()):.4f})"
-                + (" (ONE_CHUNK_WT)" if wt == one_wt else ""))
-        ops.ONE_CHUNK_WT = one_wt
-        if parent_source:
-            old = lru_parent_kernel(torch, parent_source)
-            for what, ins in (("training forward", sets),
-                              ("serving chunk", serve)):
-                max_err(torch, [("h", old(*ins[0])[0],
-                                 ref.lru_scan_plain(*ins[0])[0])], LRU_TOL,
-                        f"parent kernel, {what}")
-                order = (old, ops.lru_scan, ops.lru_scan, old)
+        for tree in others:
+            name, mod = lru_other_tree(torch, tree)
+            cases = [("training forward", mod.lru_scan, ops.lru_scan, sets,
+                      want),
+                     ("serving chunk", mod.lru_scan, ops.lru_scan, serve,
+                      ref.lru_scan_plain(*serve[0])[0])]
+            if hasattr(mod, "_lru_vjp"):
+                cases.append(("training VJP", mod._lru_vjp, ops._lru_vjp,
+                              vjp_sets, want_db))
+            for what, old, new, ins, good in cases:
+                out = old(*ins[0])
+                out = out[1] if what.endswith("VJP") else out[0]
+                max_err(torch, [("out", out, good)], LRU_GRAD_TOL,
+                        f"{name}, {what}")
+                order = (old, new, new, old)
                 ms = [time_ms(torch, fn, ins) for fn in order]
                 gr = [graph_ms(torch, fn, ins) for fn in order]
-                log(f"[lru-tiles] {what}, in turns: parent {ms[0]:.4f} / "
+                log(f"[lru-tiles] {what}, in turns: {name} {ms[0]:.4f} / "
                     f"{ms[3]:.4f} ms (in a CUDA graph {gr[0]:.4f} / "
                     f"{gr[3]:.4f}), this tree {ms[1]:.4f} / {ms[2]:.4f} ms "
                     f"(in a CUDA graph {gr[1]:.4f} / {gr[2]:.4f})")
     finally:
-        ops.LRU_TILE, ops.LRU_FOLD, ops.ONE_CHUNK_WT = chosen, fold, one_wt
+        ops.LRU_TILE, ops.lru_tiles = chosen, tiles
 
 
 # ---------------------------------------------------------------------------
@@ -1539,8 +1543,7 @@ def step_timers(torch, eng):
 
 
 # the device symbols of the serving paths' hand-written kernels
-SERVING_SYMBOLS = ("ring_wgmma_kernel", "ring_combine_kernel",
-                   "lru_single_pass")
+SERVING_SYMBOLS = ("ring_wgmma_kernel", "ring_combine_kernel", "lru_walk")
 
 
 def profile_replay(torch, eng, cfg, main_wall):
@@ -1763,7 +1766,7 @@ KERNEL_SYMBOLS = {
     TRAIN_ARCH: ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
                  "flash_dkv_wgmma_kernel", "flash_delta_kernel"),
     "mamba2-780m": SSD_SYMBOLS,
-    HYBRID_ARCH: ("lru_single_pass", "flash_fwd_wgmma_kernel",
+    HYBRID_ARCH: ("lru_walk", "flash_fwd_wgmma_kernel",
                   "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
                   "flash_delta_kernel"),
 }
@@ -1888,14 +1891,13 @@ def main() -> int:
                          "scan and state kernels, and stop")
     ap.add_argument("--lru-tiles", action="store_true",
                     help="phase 1, then time the RG-LRU scan kernel at the "
-                         "training shape over chunk steps, tile widths and "
-                         "folds, and at the serving chunk shape over tile "
-                         "widths, and stop")
-    ap.add_argument("--lru-parent", metavar="DIR",
-                    help="with --lru-tiles: also time the parent tree's "
-                         "kernels/rglru_scan package at DIR (its ops.py "
-                         "around its three-launch csrc/lru_scan.cu) "
-                         "against this one, in turns")
+                         "training shape over tiles and ring depths, and "
+                         "stop")
+    ap.add_argument("--lru-against", metavar="DIR", nargs="+", default=(),
+                    help="with --lru-tiles: also time another tree's "
+                         "kernels/rglru_scan package at each DIR (its "
+                         "ops.py around its csrc/lru_scan.cu) against this "
+                         "one, in turns")
     ap.add_argument("--profile", action="store_true",
                     help="time phases 3's, 6's and 8's two step kinds, "
                          "then replay each on a fresh engine under "
@@ -1924,7 +1926,7 @@ def main() -> int:
         ssd_head_set_sweep(torch)
         return 0
     if args.lru_tiles:
-        lru_tile_sweep(torch, args.lru_parent)
+        lru_tile_sweep(torch, args.lru_against)
         return 0
     rows = [phase_ring_kernel(torch)]
     flash = phase_flash_kernels(torch)
