@@ -88,16 +88,16 @@ Phases (any error fails the run with a non-zero exit):
    phase 7's shape (B=1, S=4096, W=4096), on the JAX ``LRU_SWEEP``
    geometries, ragged S and W, and the serving chunk's shape; the fused
    VJP (one reverse call writing db and da) against its plain version at
-   the training shape (tol 1e-4); two runs forward and backward, and every
-   tile of ``LRU_TILE_SWEEP``, bit-identical at the training shape and at
-   a long narrow shape; the autograd wrapper's gradients against the CPU
+   the training shape (tol 1e-4); two runs forward and backward, and each
+   of the three carry folds, bit-identical at the training shape and at a
+   many-chunk shape; the autograd wrapper's gradients against the CPU
    route to 1e-4; time the forward, the fused VJP beside the unfused
    backward (a shifted copy of a, the reverse scan, a multiply) and the
    serving chunk call, by CUDA events, profiler device time and replays
    of a CUDA graph, beside their byte bounds, and the plain version (no
-   single PyTorch
-   call computes a linear recurrence: the library column stays empty,
-   ``torch.mul`` over the same bytes is printed as a yardstick).
+   single PyTorch call computes a linear recurrence: the library column
+   stays empty, ``torch.mul`` over the same bytes is printed as a
+   yardstick).
 7. Train recurrentgemma-9b at full width and 14 layers (four (rec, rec,
    attn) groups and the two-layer tail; bf16, random weights from a
    seeded generator) for 4 steps at B=1, S=4096, remat "none", as phase 4:
@@ -1042,9 +1042,9 @@ def lru_inputs(torch, B, S, W, seed):
     return torch.sigmoid(rnd(B, S, W)), rnd(B, S, W), rnd(B, W)
 
 
-LRU_SYMBOLS = ("lru_walk",)
-# a long, narrow shape for the rerun check: 512 tiles of 64 steps in a walk
-LRU_MANY_TILES = (1, 32768, 64)
+LRU_SYMBOLS = ("lru_single_pass", "lru_direct", "Memset")
+# a many-chunk shape for the rerun check: one channel tile, 512 chunks
+LRU_MANY_CHUNKS = (1, 32768, 64)
 
 
 def lru_vjp_inputs(torch, B, S, W, seed):
@@ -1072,7 +1072,7 @@ def lru_unfused_bwd(torch, ops):
 
 def lru_reruns(torch, ops, a, b, h0, g, h):
     """Two forward and two VJP calls give the same bits; returns the
-    outputs, to compare across tiles."""
+    outputs, to compare across folds."""
     runs = [ops.lru_scan(a, b, h0) + ops._lru_vjp(a, g, h) for _ in range(2)]
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(*runs)):
@@ -1091,10 +1091,9 @@ def phase_lru_kernel(torch):
 
     row = {"name": "lru_scan", "route": "cuda", "source": LRU_SOURCE,
            "replaces": "src/repro/kernels/rglru_scan/kernel.py:57",
-           "design": "one pass: a block walks a channel tile's whole "
-                     "sequence through a cp.async ring, carry in registers; "
+           "design": "one pass, carry folded by a look-back in chunk order; "
                      "fused VJP",
-           "tile": list(ops.lru_tiles(*lru_main_geometry()[1:]))}
+           "tile": list(ops.LRU_TILE), "fold": ops.LRU_FOLD}
     worst = 0.0
     for name, B, S, W in [lru_main_geometry()] + LRU_GEOMETRIES:
         for reverse in (False, True):
@@ -1133,29 +1132,30 @@ def phase_lru_kernel(torch):
         f"db bit-identical {torch.equal(db, pb)}, da bit-identical "
         f"{torch.equal(da, pa)}")
     a, b, h0 = lru_inputs(torch, B, S, W, seed=6)
+    T = ops.lru_tiles(B, S, W)[0]
     got = ops.lru_scan(a, b, h0)[0]
-    want = ref.lru_scan_single_pass_ref(a, b, h0)[0]
-    log(f"[lru] kernel against lru_scan_single_pass_ref (its arithmetic): "
-        f"max abs diff {float((got - want).abs().max()):.3e}, equal "
+    want = ref.lru_scan_single_pass_ref(a, b, h0, T=T)[0]
+    log(f"[lru] kernel against lru_scan_single_pass_ref (its arithmetic, T "
+        f"{T}): max abs diff {float((got - want).abs().max()):.3e}, equal "
         f"elements {float((got == want).float().mean()):.6f}")
-    # bit-identical reruns, and the same bits from every swept tile
-    for shape in ((B, S, W), LRU_MANY_TILES):
+    # bit-identical reruns, and the same bits from every fold
+    for shape in ((B, S, W), LRU_MANY_CHUNKS):
         ins = (lru_inputs(torch, *shape, seed=11)
                + lru_vjp_inputs(torch, *shape, seed=12)[1:])
         base = lru_reruns(torch, ops, *ins)
-        chosen = ops.LRU_TILE
+        chosen = ops.LRU_FOLD
         try:
-            for tile in ops.LRU_TILE_SWEEP:
-                ops.LRU_TILE = tile
+            for fold in ops.LRU_FOLDS:
+                ops.LRU_FOLD = fold
                 other = lru_reruns(torch, ops, *ins)
                 if not all(torch.equal(x, y) for x, y in zip(base, other)):
-                    raise AssertionError(f"lru {shape}: tile {tile} gives "
+                    raise AssertionError(f"lru {shape}: fold {fold} gives "
                                          f"other bits than {chosen}")
         finally:
-            ops.LRU_TILE = chosen
+            ops.LRU_FOLD = chosen
         log(f"[lru] B={shape[0]} S={shape[1]} W={shape[2]}: reruns forward "
-            f"and VJP bit-identical, the same bits from every tile of "
-            f"ops.LRU_TILE_SWEEP")
+            f"and VJP bit-identical, the same bits from every fold "
+            f"{ops.LRU_FOLDS}")
     a, b, _ = lru_inputs(torch, 2, 130, 64, seed=7)
     g = torch.randn(2, 130, 64, device="cuda")
     grads = []
@@ -1274,14 +1274,14 @@ def lru_other_tree(torch, tree):
 
 def lru_tile_sweep(torch, others=()):
     """``--lru-tiles``: the kernel at the training shape over the tiles of
-    ``ops.LRU_TILE_SWEEP`` and over ring depths (forward and fused VJP,
-    CUDA events and device time; ``ops.LRU_TILE`` and ``lru_tiles`` are
-    replaced for the sweep); every choice must agree with the plain
-    version.  With ``--lru-against DIR ...``, each other tree's wrapper and
-    kernel against this one at the training shape (forward and VJP) and at
-    the serving chunk shape, in turns."""
+    ``ops.LRU_TILE_SWEEP`` and over the three carry folds (forward and
+    fused VJP, CUDA events and device time; ``ops.LRU_TILE`` and
+    ``LRU_FOLD`` are replaced for the sweep); every choice must agree with
+    the plain version.  With ``--lru-against DIR ...``, each other tree's
+    wrapper and kernel against this one at the training shape (forward and
+    VJP) and at the serving chunk shape, in turns."""
     from repro_torch.kernels.rglru_scan import ops, ref
-    chosen, tiles = ops.LRU_TILE, ops.lru_tiles
+    chosen, fold = ops.LRU_TILE, ops.LRU_FOLD
     _, B, S, W = lru_main_geometry()
     sets = [lru_inputs(torch, B, S, W, seed=400 + i)[:2] for i in range(4)]
     vjp_sets = [lru_vjp_inputs(torch, B, S, W, seed=500 + i)
@@ -1307,16 +1307,13 @@ def lru_tile_sweep(torch, others=()):
     try:
         for tile in ops.LRU_TILE_SWEEP:
             ops.LRU_TILE = tile
-            T, Wt, fwd_stages = ops.lru_tiles(B, S, W)
-            run(f"T {T} Wt {Wt}, rings of {fwd_stages} / "
-                f"{ops.lru_tiles(B, S, W, True)[2]} tiles"
+            run(f"T {tile[0]} Wt {tile[1]}"
                 + (" (LRU_TILE)" if tile == chosen else ""))
         ops.LRU_TILE = chosen
-        for depth in ops.STAGES:
-            ops.lru_tiles = lambda *shape, _d=depth: tiles(*shape)[:2] + (_d,)
-            if all(ops.tile_fits(*chosen, S, depth, vjp) for vjp in (0, 1)):
-                run(f"T {chosen[0]} Wt {chosen[1]}, rings of {depth} tiles")
-        ops.lru_tiles = tiles
+        for f in ops.LRU_FOLDS:
+            ops.LRU_FOLD = f
+            run(f"fold {f}" + (" (LRU_FOLD)" if f == fold else ""))
+        ops.LRU_FOLD = fold
         _, sB, sS, sW = next(g for g in LRU_GEOMETRIES
                              if g[0] == "serving_chunk")
         serve = [lru_inputs(torch, sB, sS, sW, seed=600 + i)
@@ -1343,7 +1340,7 @@ def lru_tile_sweep(torch, others=()):
                     f"{gr[3]:.4f}), this tree {ms[1]:.4f} / {ms[2]:.4f} ms "
                     f"(in a CUDA graph {gr[1]:.4f} / {gr[2]:.4f})")
     finally:
-        ops.LRU_TILE, ops.lru_tiles = chosen, tiles
+        ops.LRU_TILE, ops.LRU_FOLD = chosen, fold
 
 
 # ---------------------------------------------------------------------------
@@ -1543,7 +1540,8 @@ def step_timers(torch, eng):
 
 
 # the device symbols of the serving paths' hand-written kernels
-SERVING_SYMBOLS = ("ring_wgmma_kernel", "ring_combine_kernel", "lru_walk")
+SERVING_SYMBOLS = ("ring_wgmma_kernel", "ring_combine_kernel",
+                   "lru_direct")
 
 
 def profile_replay(torch, eng, cfg, main_wall):
@@ -1766,7 +1764,7 @@ KERNEL_SYMBOLS = {
     TRAIN_ARCH: ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
                  "flash_dkv_wgmma_kernel", "flash_delta_kernel"),
     "mamba2-780m": SSD_SYMBOLS,
-    HYBRID_ARCH: ("lru_walk", "flash_fwd_wgmma_kernel",
+    HYBRID_ARCH: ("lru_single_pass", "flash_fwd_wgmma_kernel",
                   "flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel",
                   "flash_delta_kernel"),
 }
@@ -1891,7 +1889,7 @@ def main() -> int:
                          "scan and state kernels, and stop")
     ap.add_argument("--lru-tiles", action="store_true",
                     help="phase 1, then time the RG-LRU scan kernel at the "
-                         "training shape over tiles and ring depths, and "
+                         "training shape over tiles and carry folds, and "
                          "stop")
     ap.add_argument("--lru-against", metavar="DIR", nargs="+", default=(),
                     help="with --lru-tiles: also time another tree's "

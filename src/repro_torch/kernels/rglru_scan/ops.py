@@ -15,15 +15,19 @@
 
 What bounds the kernel is bytes: 12 an element forward (a and b read once,
 h written once), 20 in the VJP (a, g and h read; db and da written).  It
-makes one pass, the TPU kernel's: a block per (batch, tile of ``Wt``
-channels) walks the sequence in scan order with the carry in registers,
-its tiles of ``T`` steps coming through a ring of shared memory filled
-``stages - 1`` tiles ahead; no block depends on another, so reruns give
-the same bits (the source note of ``csrc/lru_scan.cu``;
-``ref.lru_scan_single_pass_ref`` is its arithmetic in plain PyTorch).
-The tile and the ring are functions of the shapes alone (``lru_tiles``),
-and the call allocates nothing, so it needs no host synchronisation and a
-CUDA graph can hold it.
+makes one pass: a block per (batch, tile of ``Wt`` channels, chunk of
+``T`` steps) holds its tile in shared memory, publishes the chunk's
+aggregate (prod a, end state from zero), folds the carry into its chunk
+from its predecessors' published values and re-runs the chunk from it.
+The carry is always the fold from ``h0`` in chunk order, one fma a chunk,
+whichever published values a block finds, so reruns give the same bits
+(the source note of ``csrc/lru_scan.cu``; ``ref.lru_scan_single_pass_ref``
+is its arithmetic in plain PyTorch).  The tile, the workspace and the
+order in which blocks take their work are functions of the shapes alone
+(``lru_tiles``, ``lru_workspace``, ``lru_ticket_order``), so the call
+needs no host synchronisation and a CUDA graph can hold it.  A sequence of
+one chunk (the serving chunk step) takes a direct kernel: a thread walks
+one channel from ``h0`` with its loads unrolled ahead.
 """
 from __future__ import annotations
 
@@ -35,59 +39,70 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.rglru_scan import ref
 
-# (T steps, Wt channels) of a tile: one of LRU_TILE_SWEEP, the tiles
-# ``chip_smoke.py --lru-tiles`` times at the training shape (PERF.md).
-# Wt 16 gives 256 blocks at the training shape (B 1, W 4096).
-LRU_TILE_SWEEP = ((32, 16), (64, 16), (128, 16), (64, 8), (64, 32),
-                  (32, 32), (32, 64))
-LRU_TILE = (64, 16)
-# a sequence of one tile (the serving chunk step) takes the direct path:
-# a block of 64 threads, a channel a thread, no ring
-DIRECT_WT = 64
-# tiles in a block's ring: the most of STAGES whose ring fits half an
-# SM's shared memory, so two blocks share an SM (the kernel takes 1-16)
-STAGES = (2, 4, 8, 12, 16)
-SMEM_BYTES = 232448         # an SM's shared memory for blocks on sm_90
-RING_BYTES = SMEM_BYTES // 2 - 2048
-MAX_WT = 256                # 64 threads of four channels
+# (T steps a chunk, Wt channels a tile) for more than one chunk: one of
+# LRU_TILE_SWEEP, the tiles ``chip_smoke.py --lru-tiles`` times at the
+# training shape (PERF.md)
+LRU_TILE_SWEEP = ((16, 256), (16, 512), (32, 128), (32, 256), (32, 512),
+                  (64, 64), (64, 128), (64, 256), (128, 64), (128, 128))
+LRU_TILE = (64, 128)
+# one chunk (S <= ONE_CHUNK, the serving chunk step) takes the kernel's
+# direct path: blocks of 128 threads, a channel a thread, no tile
+ONE_CHUNK, DIRECT_WT = 64, 128
+# how far a block looks back for its carry: the nearest published carry
+# out, then the aggregates after it ("lookback"); the previous chunk's
+# carry out only ("chain"); every aggregate from h0 ("all").  The same bits
+# from each; "lookback" was the fastest (PERF.md).
+LRU_FOLDS = ("lookback", "chain", "all")
+LRU_FOLD = "lookback"
+SMEM_BYTES = 232448         # a block's shared memory on sm_90
+MAX_WT = 512                # 128 threads of four channels
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = build.load("lru_scan").lru_scan
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+    fn.argtypes = [ptr] * 8 + [ctypes.c_longlong] + [i32] * 8 + [ptr]
     fn.restype = i32
     return fn
 
 
-def ring_bytes(T: int, Wt: int, S: int, stages: int, vjp: bool) -> int:
-    """Shared memory of a block's ring: as many tiles as there are chunks,
-    at most ``stages``, of a and b (and the forward's h in the VJP); none
-    on the direct path (S <= T)."""
-    if S <= T:
-        return 0
-    return min(stages, -(-S // T)) * (3 if vjp else 2) * T * Wt * 4
+def lru_tiles(B: int, S: int, W: int):
+    """(T, Wt) of a call, from the shapes alone: ``LRU_TILE``, or for a
+    sequence of at most ``ONE_CHUNK`` steps one chunk of S steps on the
+    direct path (``DIRECT_WT`` channels a block)."""
+    if S <= ONE_CHUNK:
+        return max(S, 1), DIRECT_WT
+    return LRU_TILE
 
 
-def lru_tiles(B: int, S: int, W: int, vjp: bool = False):
-    """(T, Wt, stages) of a call, from the shapes alone: ``LRU_TILE`` with
-    the ring as deep as ``STAGES`` allows within ``RING_BYTES``; a
-    sequence of at most T steps takes the direct path (``DIRECT_WT``
-    channels a block, no ring)."""
-    T, Wt = LRU_TILE
-    if S <= T:
-        return T, DIRECT_WT, 1
-    fit = [n for n in STAGES if ring_bytes(T, Wt, S, n, vjp) <= RING_BYTES]
-    return T, Wt, max(fit, default=1)
-
-
-def tile_fits(T: int, Wt: int, S: int, stages: int, vjp: bool) -> bool:
-    """Whether the kernel takes the tile: Wt a multiple of 4 up to 256, a
-    ring of 1-16 tiles, and the ring in a block's shared memory."""
+def tile_fits(T: int, Wt: int, S: int, vjp: bool) -> bool:
+    """Whether the kernel takes (T, Wt): Wt a multiple of 4 up to 512, and
+    the tiles (a and b, and the forward's h in the VJP) in shared memory."""
     return (T > 0 and 0 < Wt <= MAX_WT and Wt % 4 == 0
-            and 1 <= stages <= max(STAGES)
-            and ring_bytes(T, Wt, S, stages, vjp) <= SMEM_BYTES)
+            and (3 if vjp else 2) * min(T, S) * Wt * 4 <= SMEM_BYTES)
+
+
+def lru_workspace(B: int, S: int, W: int, T: int, Wt: int) -> int:
+    """4-byte words of the kernel's workspace: none with one chunk; else
+    P, E and the carry out (B, nc, Wp) float32 (Wp = the channels rounded
+    up to whole tiles), a flag per (batch, tile, chunk) and the ticket."""
+    nc, ntiles = -(-S // T), -(-W // Wt)
+    if nc <= 1:
+        return 0
+    return 3 * B * nc * ntiles * Wt + B * ntiles * nc + 1
+
+
+def lru_ticket_order(B: int, S: int, W: int, T: int, Wt: int):
+    """The (batch, tile, chunk) each ticket of the kernel maps to, in
+    ticket order: chunk-major in scan order, so a block waits only on
+    blocks that took a lower ticket."""
+    nc, ntiles = -(-S // T), -(-W // Wt)
+    order = []
+    for ticket in range(B * ntiles * nc):
+        c, rest = divmod(ticket, B * ntiles)
+        order.append((rest // ntiles, rest % ntiles, c))
+    return order
 
 
 def lru_vec_loads(W: int, ptrs) -> bool:
@@ -120,14 +135,17 @@ def _ptr(t):
 
 def _launch(a, b, h0, hin, h, da, h_final, reverse):
     B, S, W = a.shape
-    T, Wt, stages = lru_tiles(B, S, W, hin is not None)
-    if not tile_fits(T, Wt, S, stages, hin is not None):
-        raise ValueError(f"lru_scan: tile (T {T}, Wt {Wt}, {stages} stages) "
-                         "does not fit")
+    T, Wt = lru_tiles(B, S, W)
+    if not tile_fits(T, Wt, S, hin is not None):
+        raise ValueError(f"lru_scan: tile (T {T}, Wt {Wt}) does not fit")
+    words = lru_workspace(B, S, W, T, Wt)
+    ws = (torch.empty((words,), dtype=torch.int32, device=a.device)
+          if words else None)
     ptrs = (a.data_ptr(), b.data_ptr(), _ptr(h0), _ptr(hin), h.data_ptr(),
             _ptr(da), _ptr(h_final))
     dev = a.device.index
-    args = ptrs + (B, S, W, T, Wt, stages, int(bool(reverse)),
+    args = ptrs + (_ptr(ws), words, B, S, W, T, Wt, int(bool(reverse)),
+                   LRU_FOLDS.index(LRU_FOLD),
                    int(lru_vec_loads(W, ptrs)),
                    torch.cuda.current_stream(dev).cuda_stream)
     if dev == torch.cuda.current_device():
@@ -182,24 +200,10 @@ def _lru_vjp(a, g, h):
     return da, db
 
 
-def _lru_forward(a, b):
-    """h of ``lru_scan(a, b)`` alone: on the card the kernel's build that
-    reads no h0 and writes no h_final, whose loop schedules better."""
-    if a.device.type == "cpu":
-        return ref.lru_scan_plain(a, b)[0]
-    if a.device.type != "cuda":
-        raise ValueError(f"no lru_scan kernel for {a.device}")
-    _check([("a", a, a.shape), ("b", b, a.shape)], a.shape, "a / b")
-    h = torch.empty_like(a)
-    if a.numel():
-        _launch(a, b, None, None, h, None, None, reverse=False)
-    return h
-
-
 class _LRU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
-        h = _lru_forward(a.contiguous(), b.contiguous())
+        h, _ = lru_scan(a.contiguous(), b.contiguous())
         ctx.save_for_backward(a, h)
         return h
 

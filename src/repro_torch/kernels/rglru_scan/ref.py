@@ -7,9 +7,9 @@
   holds the CUDA kernel against it.
 * ``lru_vjp_plain``: the custom VJP's (da, db), one step at a time: the
   CPU route of ``ops._lru_vjp``.
-* ``lru_scan_single_pass_ref``: the kernel's arithmetic — one fma a step
-  in scan order from ``h0`` — for the CPU tests and the card's bit-for-bit
-  comparison.  Nothing on the main path calls it.
+* ``lru_scan_single_pass_ref``: the kernel's arithmetic — chunk-local
+  aggregates, the carry folded from ``h0`` in chunk order, the re-run from
+  it — for the CPU tests.  Nothing on the main path calls it.
 """
 from __future__ import annotations
 
@@ -53,16 +53,40 @@ def _fma(x, y, z):
     return (x.double() * y.double() + z.double()).float()
 
 
-def lru_scan_single_pass_ref(a, b, h0=None, reverse=False):
-    """The kernel's arithmetic (``csrc/lru_scan.cu``): one pass in scan
-    order from h0, h = fma(a, h, b) a step, whatever the tile and ring.
-    Same arguments and results as ``lru_scan_plain``."""
+def lru_scan_single_pass_ref(a, b, h0=None, reverse=False, T=32):
+    """The kernel's arithmetic for chunks of T steps (``csrc/lru_scan.cu``):
+    each chunk's aggregate P = prod a, E = its end state from zero; the
+    carry into chunk c folded from h0 in chunk order, carry_{k+1} =
+    fma(P_k, carry_k, E_k); the chunk re-run from its carry, h = fma(a, h,
+    b).  Same arguments and results as ``lru_scan_plain``."""
     B, S, W = a.shape
     af, bf = a.float(), b.float()
-    h = (torch.zeros((B, W), dtype=torch.float32, device=a.device)
-         if h0 is None else h0.float())
-    out = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
-    for t in (range(S - 1, -1, -1) if reverse else range(S)):
-        h = _fma(af[:, t], h, bf[:, t])
-        out[:, t] = h
-    return out, h
+    if reverse:
+        af, bf = af.flip(1), bf.flip(1)
+    carry = (torch.zeros((B, W), dtype=torch.float32, device=a.device)
+             if h0 is None else h0.float())
+    if S == 0:
+        return torch.empty((B, 0, W), dtype=torch.float32,
+                           device=a.device), carry.clone()
+    nc = -(-S // T)
+    # pad the last chunk with identity steps (a 1, b 0): P and E unchanged
+    pad = nc * T - S
+    ac = torch.cat([af, af.new_ones((B, pad, W))], 1).view(B, nc, T, W)
+    bc = torch.cat([bf, bf.new_zeros((B, pad, W))], 1).view(B, nc, T, W)
+    P = torch.ones((B, nc, W), dtype=torch.float32, device=a.device)
+    E = torch.zeros_like(P)
+    for j in range(T):
+        E = _fma(ac[:, :, j], E, bc[:, :, j])
+        P = P * ac[:, :, j]
+    carries = torch.empty_like(P)
+    for k in range(nc):
+        carries[:, k] = carry
+        carry = _fma(P[:, k], carry, E[:, k])
+    h = carries
+    out = torch.empty((B, nc, T, W), dtype=torch.float32, device=a.device)
+    for j in range(T):
+        h = _fma(ac[:, :, j], h, bc[:, :, j])
+        out[:, :, j] = h
+    out = out.view(B, nc * T, W)[:, :S]
+    h_final = out[:, -1].clone()
+    return (out.flip(1) if reverse else out.contiguous()), h_final

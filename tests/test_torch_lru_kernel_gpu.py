@@ -3,9 +3,9 @@ card: the ``LRU_SWEEP`` geometries of ``tests/test_kernels.py``, ragged
 sequence lengths and widths, one chunk and many, forward and reverse, with
 and without a carried state, and the hybrid training path's shape
 (recurrentgemma-9b: B=1, S=4096, W=4096); the fused VJP against
-``lru_vjp_plain``; bit-identical reruns and the same bits from every tile
-and ring depth; a misaligned view on the 4-byte copy path; the autograd
-wrapper against the plain route; and the serving chunk step's launch.
+``lru_vjp_plain``; bit-identical reruns and the same bits from every carry
+fold; a misaligned view on the 4-byte copy path; the autograd wrapper
+against the plain route; and the serving chunk step's launch.
 
 The kernel has no CPU mode, so the tests are marked ``gpu`` and skip where
 no CUDA device is visible.  This file imports neither JAX nor the JAX
@@ -158,24 +158,22 @@ def test_fused_vjp_vs_plain(cuda, B, S, W):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,W", [(1, 4096, 4096), (1, 32768, 64)],
-                         ids=["training", "many_tiles"])
-def test_reruns_and_tiles_give_the_same_bits(cuda, B, S, W):
-    """Two runs forward and backward give the same bits, and so does every
-    tile the ``--lru-tiles`` sweep can pick and every ring depth: each
-    step is one fma in scan order, whatever the tiling."""
+                         ids=["training", "many_chunks"])
+def test_reruns_and_folds_are_bit_identical(cuda, B, S, W):
+    """Two runs forward and backward give the same bits, and so does each
+    way of folding the carry (look-back, chained, every aggregate): the
+    carry is always the fold from h0 in chunk order."""
     a, b, h0 = inputs(B, S, W, cuda, seed=3)
     g = torch.randn(B, S, W, device=cuda)
     h = ops.lru_scan(a, b)[0]
-    tile, tiles = ops.LRU_TILE, ops.lru_tiles
+    chosen = ops.LRU_FOLD
     outs = []
     try:
-        for ops.LRU_TILE in (tile,) + ops.LRU_TILE_SWEEP:
+        for fold in (chosen,) + ops.LRU_FOLDS:
+            ops.LRU_FOLD = fold
             outs.append(ops.lru_scan(a, b, h0) + ops._lru_vjp(a, g, h))
-        ops.LRU_TILE = tile
-        ops.lru_tiles = lambda *shape: tiles(*shape)[:2] + (2,)
-        outs.append(ops.lru_scan(a, b, h0) + ops._lru_vjp(a, g, h))
     finally:
-        ops.LRU_TILE, ops.lru_tiles = tile, tiles
+        ops.LRU_FOLD = chosen
     torch.cuda.synchronize()
     for other in outs[1:]:
         for x, y in zip(outs[0], other):

@@ -1,17 +1,18 @@
 """The host side of the one-pass RG-LRU scan kernel, on the CPU.
 
 * ``ref.lru_scan_single_pass_ref`` computes the scan in the kernel's
-  arithmetic — one fma a step in scan order from ``h0`` — and must agree
-  with the JAX Pallas kernel ``lru_scan`` in interpret mode (tolerance
-  1e-5, the JAX package's ``test_lru_scan``) on ``LRU_SWEEP``, ragged S
-  and W and one tile, forward and reverse, from zero and from ``h0``.  The
-  Pallas kernel takes neither ``h0`` nor ``reverse``: ``h0`` enters as a
-  leading step (a 0, b h0) and reverse as flipped inputs.
+  arithmetic — chunk-local aggregates, the carry folded from ``h0`` in
+  chunk order, the re-run from the carry — and must agree with the JAX
+  Pallas kernel ``lru_scan`` in interpret mode (tolerance 1e-5, the JAX
+  package's ``test_lru_scan``) on ``LRU_SWEEP``, ragged S and W and one
+  chunk, forward and reverse, from zero and from ``h0``, for every chunk
+  length of the tiles ``ops.LRU_TILE_SWEEP`` holds.  The Pallas kernel
+  takes neither ``h0`` nor ``reverse``: ``h0`` enters as a leading step
+  (a 0, b h0) and reverse as flipped inputs.
 * ``ref.lru_vjp_plain`` and ``ops.lru``'s CPU gradients against
   ``jax.vjp`` of the JAX ``lru`` (interpret mode), tolerance 1e-4.
-* ``ops.lru_tiles`` (the tile and the ring's depth) and
-  ``ops.lru_vec_loads`` are functions of shapes and addresses alone, and
-  every tile the ``--lru-tiles`` sweep can pick fits the kernel.
+* ``ops.lru_tiles``, ``ops.lru_workspace``, ``ops.lru_ticket_order`` and
+  ``ops.lru_vec_loads`` are functions of shapes and addresses alone.
 * A CPU call counts no launch.
 
 The kernel itself runs only on a card: ``test_torch_lru_kernel_gpu.py``."""
@@ -31,11 +32,11 @@ GEOS = [
     # B, S, W: tests/test_kernels.py's LRU_SWEEP
     (2, 128, 64), (1, 64, 128), (3, 32, 16), (1, 256, 32),
     (2, 100, 300), (3, 65, 33),       # ragged S and W
-    (8, 16, 512),                     # one tile: the serving chunk step
+    (8, 16, 512),                     # one chunk: the serving chunk step
 ]
 IDS = [f"B{b}_S{s}_W{w}" for b, s, w in GEOS]
+CHUNKS = sorted({T for T, _ in ops.LRU_TILE_SWEEP})
 TOL, GRAD_TOL = 1e-5, 1e-4
-SMS = 132                             # an H100's SMs
 
 
 def inputs(B, S, W, seed):
@@ -66,15 +67,16 @@ def pallas(geo, reverse, carried):
     return (h[:, ::-1] if reverse else h), fin
 
 
+@pytest.mark.parametrize("T", CHUNKS, ids=[f"T{t}" for t in CHUNKS])
 @pytest.mark.parametrize("geo", GEOS, ids=IDS)
-def test_single_pass_ref_matches_the_pallas_kernel(geo):
+def test_single_pass_ref_matches_the_pallas_kernel(geo, T):
     B, S, W = geo
     a, b, h0 = (torch.from_numpy(x) for x in inputs(B, S, W, seed=S + W))
     for reverse in (False, True):
         for carried in (False, True):
             want_h, want_fin = pallas(geo, reverse, carried)
             h, fin = ref.lru_scan_single_pass_ref(
-                a, b, h0 if carried else None, reverse=reverse)
+                a, b, h0 if carried else None, reverse=reverse, T=T)
             what = f"reverse={reverse} h0={carried}"
             np.testing.assert_allclose(h.numpy(), want_h, rtol=TOL,
                                        atol=TOL, err_msg="h, " + what)
@@ -82,14 +84,17 @@ def test_single_pass_ref_matches_the_pallas_kernel(geo):
                                        atol=TOL, err_msg="h_final, " + what)
 
 
-@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
-def test_single_pass_ref_over_a_long_sequence(reverse):
-    """4096 steps from h0 against the step-by-step plain version."""
-    a, b, h0 = (torch.from_numpy(x) for x in inputs(1, 4096, 8, seed=3))
-    got = ref.lru_scan_single_pass_ref(a, b, h0, reverse=reverse)
-    want = ref.lru_scan_plain(a, b, h0, reverse=reverse)
-    for x, y in zip(got, want):
-        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=TOL, atol=TOL)
+@pytest.mark.parametrize("T", CHUNKS, ids=[f"T{t}" for t in CHUNKS])
+def test_single_pass_ref_over_many_chunks(T):
+    """Many chunks (S 4096: 32 to 256 of them) against the step-by-step
+    plain version, from h0, both ways."""
+    a, b, h0 = (torch.from_numpy(x) for x in inputs(1, 4096, 8, seed=T))
+    for reverse in (False, True):
+        got = ref.lru_scan_single_pass_ref(a, b, h0, reverse=reverse, T=T)
+        want = ref.lru_scan_plain(a, b, h0, reverse=reverse)
+        for x, y in zip(got, want):
+            np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=TOL,
+                                       atol=TOL)
 
 
 @pytest.mark.parametrize("geo", [(2, 64, 32), (2, 128, 64), (3, 65, 33)],
@@ -121,54 +126,55 @@ def test_vjp_matches_jax(geo):
                                    (8, 1, 4096), (1, 32768, 64),
                                    (3, 65, 33), (2, 100, 300)],
                          ids=["training", "serving_chunk", "decode",
-                              "many_tiles", "ragged", "ragged_wide"])
-def test_tiles_from_shapes(shape):
-    """``LRU_TILE`` with the ring within ``RING_BYTES`` and as deep as it
-    allows, forward and VJP; a sequence of one tile takes the direct path
-    (``DIRECT_WT`` channels a block, no ring); the kernel takes it."""
+                              "many_chunks", "ragged", "ragged_wide"])
+def test_tiles_and_workspace_from_shapes(shape):
+    """The tile fits the kernel (for the VJP too); one chunk up to
+    ``ONE_CHUNK`` steps with no workspace; else ``LRU_TILE``, with a
+    workspace of P, E and carry per (batch, chunk, padded channel), a flag
+    per block and the ticket."""
     B, S, W = shape
-    for vjp in (False, True):
-        T, Wt, stages = ops.lru_tiles(B, S, W, vjp)
-        assert (T, Wt, stages) == ops.lru_tiles(B, S, W, vjp)  # shapes alone
-        assert ops.tile_fits(T, Wt, S, stages, vjp)
-        assert ops.ring_bytes(T, Wt, S, stages, vjp) <= ops.RING_BYTES
-        if S <= ops.LRU_TILE[0]:
-            assert (Wt, stages) == (ops.DIRECT_WT, 1)
-            assert ops.ring_bytes(T, Wt, S, stages, vjp) == 0
-        else:
-            assert (T, Wt) == ops.LRU_TILE
-            deeper = [n for n in ops.STAGES if n > stages]
-            assert not deeper or (
-                ops.ring_bytes(T, Wt, S, deeper[0], vjp) > ops.RING_BYTES)
+    T, Wt = ops.lru_tiles(B, S, W)
+    assert ops.tile_fits(T, Wt, S, vjp=True)
+    assert (T, Wt) == ops.lru_tiles(B, S, W)          # shapes alone
+    nc, ntiles = -(-S // T), -(-W // Wt)
+    words = ops.lru_workspace(B, S, W, T, Wt)
+    if S <= ops.ONE_CHUNK:
+        assert nc == 1 and words == 0
+    else:
+        assert (T, Wt) == ops.LRU_TILE
+        assert words == 3 * B * nc * ntiles * Wt + B * ntiles * nc + 1
+    if shape == (1, 4096, 4096):
+        # P, E and the carry: 6 MiB of floats; a flag per item and the
+        # ticket, which the call's memset zeroes
+        assert words * 4 == 3 * nc * 4096 * 4 + (nc * ntiles + 1) * 4
 
 
-def test_training_shape_fills_the_card():
-    """At the training shape (B 1, S 4096, W 4096) the walk has two blocks
-    an SM: 256 channel tiles, each ring within half an SM's shared memory,
-    12 tiles deep forward and 8 in the VJP."""
-    B, S, W = 1, 4096, 4096
-    T, Wt, stages = ops.lru_tiles(B, S, W)
-    assert B * -(-W // Wt) >= 2 * (SMS - 4)
-    assert 2 * ops.ring_bytes(T, Wt, S, stages, False) <= ops.SMEM_BYTES
-    assert (stages, ops.lru_tiles(B, S, W, vjp=True)[2]) == (12, 8)
-
-
-@pytest.mark.parametrize("tile", ops.LRU_TILE_SWEEP,
-                         ids=[f"T{t}_Wt{w}" for t, w in ops.LRU_TILE_SWEEP])
-def test_every_swept_tile_fits(tile, monkeypatch):
+def test_every_swept_tile_fits():
     assert ops.LRU_TILE in ops.LRU_TILE_SWEEP
-    monkeypatch.setattr(ops, "LRU_TILE", tile)
-    for vjp in (False, True):
-        T, Wt, stages = ops.lru_tiles(1, 4096, 4096, vjp)
-        assert (T, Wt) == tile and stages >= 4
-        assert ops.tile_fits(T, Wt, 4096, stages, vjp)
+    for T, Wt in ops.LRU_TILE_SWEEP:
+        assert ops.tile_fits(T, Wt, 4096, vjp=True), (T, Wt)
+    assert not ops.tile_fits(128, 512, 4096, vjp=False)   # 512 KiB
+    assert not ops.tile_fits(32, 1024, 4096, vjp=False)   # > 128 threads
+    assert not ops.tile_fits(32, 130, 4096, vjp=False)    # not 4-wide
 
 
-def test_tile_fits_rejects_what_the_kernel_does_not_take():
-    assert not ops.tile_fits(64, 1024, 4096, 1, False)    # > 128 threads
-    assert not ops.tile_fits(64, 18, 4096, 1, False)      # not 4-wide
-    assert not ops.tile_fits(64, 16, 4096, 17, False)     # ring > 16
-    assert not ops.tile_fits(128, 512, 4096, 2, True)     # 768 KiB
+@pytest.mark.parametrize("shape,tile", [
+    ((1, 4096, 4096), (64, 128)), ((3, 100, 300), (16, 128)),
+    ((2, 65, 33), (64, 64)), ((1, 32768, 64), (128, 128))])
+def test_ticket_order(shape, tile):
+    """Every (batch, tile, chunk) takes exactly one ticket, and each chunk
+    comes after every earlier chunk of its (batch, tile): a block waits
+    only on blocks that took a lower ticket."""
+    B, S, W = shape
+    T, Wt = tile
+    order = ops.lru_ticket_order(B, S, W, T, Wt)
+    nc, ntiles = -(-S // T), -(-W // Wt)
+    assert sorted(order) == [(b, t, c) for b in range(B)
+                             for t in range(ntiles) for c in range(nc)]
+    seen = {}
+    for ticket, (b, t, c) in enumerate(order):
+        assert seen.get((b, t), -1) == c - 1, (ticket, b, t, c)
+        seen[(b, t)] = c
 
 
 def test_vec_loads_from_addresses():
