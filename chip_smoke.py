@@ -88,13 +88,16 @@ Phases (any error fails the run with a non-zero exit):
    phase 7's shape (B=1, S=4096, W=4096), on the JAX ``LRU_SWEEP``
    geometries, ragged S and W, and the serving chunk's shape; the fused
    VJP (one reverse call writing db and da) against its plain version at
-   the training shape (tol 1e-4); two runs forward and backward, and each
-   of the three carry folds, bit-identical at the training shape and at a
-   many-chunk shape; the autograd wrapper's gradients against the CPU
+   the training shape (tol 1e-4) and, bit for bit, against the unfused
+   backward on the same kernel; two runs forward and backward
+   bit-identical, and the forward equal bit for bit to the kernel's
+   arithmetic in plain PyTorch (``lru_scan_single_pass_ref``), at the
+   training shape and at a many-chunk shape (more blocks than the card
+   holds at once); the autograd wrapper's gradients against the CPU
    route to 1e-4; time the forward, the fused VJP beside the unfused
    backward (a shifted copy of a, the reverse scan, a multiply) and the
-   serving chunk call, by CUDA events, profiler device time and replays
-   of a CUDA graph, beside their byte bounds, and the plain version (no
+   serving chunk call, by CUDA events and replays of a CUDA graph,
+   beside their byte bounds, and the plain version (no
    single PyTorch call computes a linear recurrence: the library column
    stays empty, ``torch.mul`` over the same bytes is printed as a
    yardstick).
@@ -1042,8 +1045,8 @@ def lru_inputs(torch, B, S, W, seed):
     return torch.sigmoid(rnd(B, S, W)), rnd(B, S, W), rnd(B, W)
 
 
-LRU_SYMBOLS = ("lru_single_pass", "lru_direct", "Memset")
-# a many-chunk shape for the rerun check: one channel tile, 512 chunks
+# a many-chunk shape for the rerun check: one channel tile, 512 chunks,
+# more blocks than the card holds at once
 LRU_MANY_CHUNKS = (1, 32768, 64)
 
 
@@ -1070,16 +1073,6 @@ def lru_unfused_bwd(torch, ops):
     return bwd
 
 
-def lru_reruns(torch, ops, a, b, h0, g, h):
-    """Two forward and two VJP calls give the same bits; returns the
-    outputs, to compare across folds."""
-    runs = [ops.lru_scan(a, b, h0) + ops._lru_vjp(a, g, h) for _ in range(2)]
-    torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip(*runs)):
-        raise AssertionError(f"lru {tuple(a.shape)}: two runs differ")
-    return runs[0]
-
-
 def phase_lru_kernel(torch):
     """The RG-LRU scan kernel against its plain version on every element
     of h and h_final, forward and reverse, from zero and from a carried
@@ -1093,7 +1086,7 @@ def phase_lru_kernel(torch):
            "replaces": "src/repro/kernels/rglru_scan/kernel.py:57",
            "design": "one pass, carry folded by a look-back in chunk order; "
                      "fused VJP",
-           "tile": list(ops.LRU_TILE), "fold": ops.LRU_FOLD}
+           "tile": list(ops.LRU_TILE)}
     worst = 0.0
     for name, B, S, W in [lru_main_geometry()] + LRU_GEOMETRIES:
         for reverse in (False, True):
@@ -1128,34 +1121,29 @@ def phase_lru_kernel(torch):
         f"{row['bwd_max_abs_err']:.3e} (tol {LRU_GRAD_TOL} + {LRU_GRAD_TOL}"
         " * |plain|)")
     pa, pb = lru_unfused_bwd(torch, ops)(a, g, h)
-    log(f"[lru] fused VJP against the unfused backward on the same kernel: "
-        f"db bit-identical {torch.equal(db, pb)}, da bit-identical "
-        f"{torch.equal(da, pa)}")
-    a, b, h0 = lru_inputs(torch, B, S, W, seed=6)
-    T = ops.lru_tiles(B, S, W)[0]
-    got = ops.lru_scan(a, b, h0)[0]
-    want = ref.lru_scan_single_pass_ref(a, b, h0, T=T)[0]
-    log(f"[lru] kernel against lru_scan_single_pass_ref (its arithmetic, T "
-        f"{T}): max abs diff {float((got - want).abs().max()):.3e}, equal "
-        f"elements {float((got == want).float().mean()):.6f}")
-    # bit-identical reruns, and the same bits from every fold
+    if not (torch.equal(db, pb) and torch.equal(da, pa)):
+        raise AssertionError("lru: the fused VJP differs from the unfused "
+                             "backward on the same kernel")
+    log("[lru] fused VJP against the unfused backward on the same kernel: "
+        "da and db bit-identical")
+    # two runs give the same bits, and the forward is the kernel's
+    # arithmetic (the carry folded from h0 in chunk order) bit for bit
+    T = ops.LRU_TILE[0]
     for shape in ((B, S, W), LRU_MANY_CHUNKS):
-        ins = (lru_inputs(torch, *shape, seed=11)
-               + lru_vjp_inputs(torch, *shape, seed=12)[1:])
-        base = lru_reruns(torch, ops, *ins)
-        chosen = ops.LRU_FOLD
-        try:
-            for fold in ops.LRU_FOLDS:
-                ops.LRU_FOLD = fold
-                other = lru_reruns(torch, ops, *ins)
-                if not all(torch.equal(x, y) for x, y in zip(base, other)):
-                    raise AssertionError(f"lru {shape}: fold {fold} gives "
-                                         f"other bits than {chosen}")
-        finally:
-            ops.LRU_FOLD = chosen
+        a, b, h0 = lru_inputs(torch, *shape, seed=11)
+        _, g, h = lru_vjp_inputs(torch, *shape, seed=12)
+        runs = [ops.lru_scan(a, b, h0) + ops._lru_vjp(a, g, h)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            raise AssertionError(f"lru {shape}: two runs differ")
+        want = ref.lru_scan_single_pass_ref(a, b, h0, T=T)
+        if not all(torch.equal(x, y) for x, y in zip(runs[0][:2], want)):
+            raise AssertionError(f"lru {shape}: the kernel differs from "
+                                 f"lru_scan_single_pass_ref (T {T})")
         log(f"[lru] B={shape[0]} S={shape[1]} W={shape[2]}: reruns forward "
-            f"and VJP bit-identical, the same bits from every fold "
-            f"{ops.LRU_FOLDS}")
+            f"and VJP bit-identical; h and h_final equal "
+            f"lru_scan_single_pass_ref (T {T}) bit for bit")
     a, b, _ = lru_inputs(torch, 2, 130, 64, seed=7)
     g = torch.randn(2, 130, 64, device="cuda")
     grads = []
@@ -1182,12 +1170,11 @@ def lru_bytes(B, S, W, vjp=False, h0=False):
 
 
 def lru_timing(torch, ops, ref, B, S, W):
-    """CUDA-event and profiler device times of the forward, the fused VJP
-    (beside the unfused backward on the same kernel) and the
-    serving chunk step's call, beside their byte bounds."""
+    """CUDA-event times and CUDA-graph replays of the forward, the fused
+    VJP (beside the unfused backward on the same kernel) and the serving
+    chunk step's call, beside their byte bounds."""
     sets = [lru_inputs(torch, B, S, W, seed=400 + i)[:2] for i in range(4)]
     kernel_ms = time_ms(torch, ops.lru_scan, sets)
-    device = sum(device_ms(torch, ops.lru_scan, sets, LRU_SYMBOLS).values())
     graph = graph_ms(torch, ops.lru_scan, sets)
     plain_ms = time_ms(torch, ref.lru_scan_plain, sets, iters=3, warmup=1)
     # yardstick: one elementwise pass that moves the same bytes
@@ -1202,8 +1189,6 @@ def lru_timing(torch, ops, ref, B, S, W):
     # in turns: unfused, fused, fused, unfused
     bwd = [time_ms(torch, fn, vjp_sets)
            for fn in (unfused, ops._lru_vjp, ops._lru_vjp, unfused)]
-    bwd_device = sum(device_ms(torch, ops._lru_vjp, vjp_sets,
-                               LRU_SYMBOLS).values())
     bwd_graph = [graph_ms(torch, fn, vjp_sets) for fn in (unfused,
                                                           ops._lru_vjp)]
     del vjp_sets
@@ -1212,135 +1197,64 @@ def lru_timing(torch, ops, ref, B, S, W):
     serve_sets = [lru_inputs(torch, sB, sS, sW, seed=600 + i)
                   for i in range(4)]
     serving_ms = time_ms(torch, ops.lru_scan, serve_sets)
-    serving_device = sum(device_ms(torch, ops.lru_scan, serve_sets,
-                                   LRU_SYMBOLS).values())
     serving_graph = graph_ms(torch, ops.lru_scan, serve_sets)
     serving_bound_ms = 1e3 * lru_bytes(sB, sS, sW, h0=True) / PEAK_BYTES
-    log(f"[lru] B={B} S={S} W={W}: kernel_ms={kernel_ms:.4f} (device "
-        f"{device:.4f}, kernel and memset; in a CUDA graph {graph:.4f}) "
+    log(f"[lru] B={B} S={S} W={W}: kernel_ms={kernel_ms:.4f} (in a CUDA "
+        f"graph {graph:.4f}) "
         f"plain_ms={plain_ms:.4f} "
         f"bound_ms={bound_ms:.6f} ({lru_bytes(B, S, W)} bytes at "
         f"{PEAK_BYTES:.3g} B/s; one multiply-add an element); yardstick "
         f"torch.mul(a, b, out=h) {mul_ms:.4f} ms")
     log(f"[lru] backward B={B} S={S} W={W}: fused VJP {bwd[1]:.4f} / "
-        f"{bwd[2]:.4f} ms (device {bwd_device:.4f}; in a CUDA graph "
-        f"{bwd_graph[1]:.4f}), the unfused backward (shifted copy, reverse "
-        f"scan, multiply) {bwd[0]:.4f} / {bwd[3]:.4f} ms (in a CUDA graph "
-        f"{bwd_graph[0]:.4f}); bound_ms={bwd_bound_ms:.6f} "
+        f"{bwd[2]:.4f} ms (in a CUDA graph {bwd_graph[1]:.4f}), the unfused "
+        f"backward (shifted copy, reverse scan, multiply) {bwd[0]:.4f} / "
+        f"{bwd[3]:.4f} ms (in a CUDA graph {bwd_graph[0]:.4f}); "
+        f"bound_ms={bwd_bound_ms:.6f} "
         f"({lru_bytes(B, S, W, vjp=True)} bytes)")
     log(f"[lru] serving chunk B={sB} S={sS} W={sW} from h0: "
-        f"{serving_ms:.4f} ms (device {serving_device:.4f}; in a CUDA graph "
-        f"{serving_graph:.4f}), bound_ms={serving_bound_ms:.6f}")
+        f"{serving_ms:.4f} ms (in a CUDA graph {serving_graph:.4f}), "
+        f"bound_ms={serving_bound_ms:.6f}")
     log("[lru] library_ms is null: no single PyTorch call computes a linear "
         "recurrence; torch.mul over the same bytes is the yardstick")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None, "device_ms": device,
-            "graph_ms": graph, "mul_ms": mul_ms,
-            "bwd_ms": (bwd[1] + bwd[2]) / 2, "bwd_device_ms": bwd_device,
+            "bound_by": "bytes", "library_ms": None, "graph_ms": graph,
+            "mul_ms": mul_ms, "bwd_ms": (bwd[1] + bwd[2]) / 2,
             "bwd_graph_ms": bwd_graph[1], "bwd_bound_ms": bwd_bound_ms,
             "bwd_unfused_ms": (bwd[0] + bwd[3]) / 2,
             "bwd_unfused_graph_ms": bwd_graph[0], "serving_ms": serving_ms,
-            "serving_device_ms": serving_device,
             "serving_graph_ms": serving_graph,
             "serving_bound_ms": serving_bound_ms}
 
 
-def lru_other_tree(torch, tree):
-    """``--lru-against DIR``: another tree's ``lru_scan`` wrapper
-    (``DIR/ops.py``) around its own kernel (``DIR/csrc/lru_scan.cu``, with
-    its own C interface), built here, for an A/B timing in one run."""
-    import ctypes
-    import importlib.util
-    from repro_torch.kernels import build
-    tree = Path(tree).resolve()
-    name = "lru_" + tree.parent.parent.parent.parent.name
-    out = ROOT / "build" / "lru_against" / f"lib{name}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                    str(tree / "csrc" / "lru_scan.cu")], check=True,
-                   capture_output=True, timeout=600)
-    spec = importlib.util.spec_from_file_location(name, tree / "ops.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-
-    class Built:            # the tree's _kernel() loads this library
-        @staticmethod
-        def load(_name):
-            return ctypes.CDLL(str(out))
-
-    mod.build = Built
-    return name, mod
-
-
-def lru_tile_sweep(torch, others=()):
+def lru_tile_sweep(torch):
     """``--lru-tiles``: the kernel at the training shape over the tiles of
-    ``ops.LRU_TILE_SWEEP`` and over the three carry folds (forward and
-    fused VJP, CUDA events and device time; ``ops.LRU_TILE`` and
-    ``LRU_FOLD`` are replaced for the sweep); every choice must agree with
-    the plain version.  With ``--lru-against DIR ...``, each other tree's
-    wrapper and kernel against this one at the training shape (forward and
-    VJP) and at the serving chunk shape, in turns."""
+    ``ops.LRU_TILE_SWEEP`` (forward and fused VJP, CUDA events;
+    ``ops.LRU_TILE`` is replaced for the sweep); every tile must agree with
+    the plain version."""
     from repro_torch.kernels.rglru_scan import ops, ref
-    chosen, fold = ops.LRU_TILE, ops.LRU_FOLD
+    chosen = ops.LRU_TILE
     _, B, S, W = lru_main_geometry()
     sets = [lru_inputs(torch, B, S, W, seed=400 + i)[:2] for i in range(4)]
     vjp_sets = [lru_vjp_inputs(torch, B, S, W, seed=500 + i)
                 for i in range(4)]
     want = ref.lru_scan_plain(*sets[0])[0]
     want_da, want_db = ref.lru_vjp_plain(*vjp_sets[0])
-
-    def run(what):
-        got = ops.lru_scan(*sets[0])[0]
-        da, db = ops._lru_vjp(*vjp_sets[0])
-        err = max_err(torch, [("h", got, want)], LRU_TOL, what)
-        err_b = max_err(torch, [("da", da, want_da), ("db", db, want_db)],
-                        LRU_GRAD_TOL, what)
-        fwd = time_ms(torch, ops.lru_scan, sets)
-        bwd = time_ms(torch, ops._lru_vjp, vjp_sets)
-        dev = sum(device_ms(torch, ops.lru_scan, sets, LRU_SYMBOLS).values())
-        dev_b = sum(device_ms(torch, ops._lru_vjp, vjp_sets,
-                              LRU_SYMBOLS).values())
-        log(f"[lru-tiles] {what}: forward {fwd:.4f} ms (device {dev:.4f}), "
-            f"VJP {bwd:.4f} ms (device {dev_b:.4f}); max_abs_err {err:.3e} "
-            f"/ {err_b:.3e}")
-
     try:
         for tile in ops.LRU_TILE_SWEEP:
             ops.LRU_TILE = tile
-            run(f"T {tile[0]} Wt {tile[1]}"
-                + (" (LRU_TILE)" if tile == chosen else ""))
-        ops.LRU_TILE = chosen
-        for f in ops.LRU_FOLDS:
-            ops.LRU_FOLD = f
-            run(f"fold {f}" + (" (LRU_FOLD)" if f == fold else ""))
-        ops.LRU_FOLD = fold
-        _, sB, sS, sW = next(g for g in LRU_GEOMETRIES
-                             if g[0] == "serving_chunk")
-        serve = [lru_inputs(torch, sB, sS, sW, seed=600 + i)
-                 for i in range(4)]
-        for tree in others:
-            name, mod = lru_other_tree(torch, tree)
-            cases = [("training forward", mod.lru_scan, ops.lru_scan, sets,
-                      want),
-                     ("serving chunk", mod.lru_scan, ops.lru_scan, serve,
-                      ref.lru_scan_plain(*serve[0])[0])]
-            if hasattr(mod, "_lru_vjp"):
-                cases.append(("training VJP", mod._lru_vjp, ops._lru_vjp,
-                              vjp_sets, want_db))
-            for what, old, new, ins, good in cases:
-                out = old(*ins[0])
-                out = out[1] if what.endswith("VJP") else out[0]
-                max_err(torch, [("out", out, good)], LRU_GRAD_TOL,
-                        f"{name}, {what}")
-                order = (old, new, new, old)
-                ms = [time_ms(torch, fn, ins) for fn in order]
-                gr = [graph_ms(torch, fn, ins) for fn in order]
-                log(f"[lru-tiles] {what}, in turns: {name} {ms[0]:.4f} / "
-                    f"{ms[3]:.4f} ms (in a CUDA graph {gr[0]:.4f} / "
-                    f"{gr[3]:.4f}), this tree {ms[1]:.4f} / {ms[2]:.4f} ms "
-                    f"(in a CUDA graph {gr[1]:.4f} / {gr[2]:.4f})")
+            what = (f"T {tile[0]} Wt {tile[1]}"
+                    + (" (LRU_TILE)" if tile == chosen else ""))
+            got = ops.lru_scan(*sets[0])[0]
+            da, db = ops._lru_vjp(*vjp_sets[0])
+            err = max_err(torch, [("h", got, want)], LRU_TOL, what)
+            err_b = max_err(torch, [("da", da, want_da), ("db", db, want_db)],
+                            LRU_GRAD_TOL, what)
+            fwd = time_ms(torch, ops.lru_scan, sets)
+            bwd = time_ms(torch, ops._lru_vjp, vjp_sets)
+            log(f"[lru-tiles] {what}: forward {fwd:.4f} ms, VJP {bwd:.4f} "
+                f"ms; max_abs_err {err:.3e} / {err_b:.3e}")
     finally:
-        ops.LRU_TILE, ops.LRU_FOLD = chosen, fold
+        ops.LRU_TILE = chosen
 
 
 # ---------------------------------------------------------------------------
@@ -1889,13 +1803,7 @@ def main() -> int:
                          "scan and state kernels, and stop")
     ap.add_argument("--lru-tiles", action="store_true",
                     help="phase 1, then time the RG-LRU scan kernel at the "
-                         "training shape over tiles and carry folds, and "
-                         "stop")
-    ap.add_argument("--lru-against", metavar="DIR", nargs="+", default=(),
-                    help="with --lru-tiles: also time another tree's "
-                         "kernels/rglru_scan package at each DIR (its "
-                         "ops.py around its csrc/lru_scan.cu) against this "
-                         "one, in turns")
+                         "training shape over tiles, and stop")
     ap.add_argument("--profile", action="store_true",
                     help="time phases 3's, 6's and 8's two step kinds, "
                          "then replay each on a fresh engine under "
@@ -1924,7 +1832,7 @@ def main() -> int:
         ssd_head_set_sweep(torch)
         return 0
     if args.lru_tiles:
-        lru_tile_sweep(torch, args.lru_against)
+        lru_tile_sweep(torch)
         return 0
     rows = [phase_ring_kernel(torch)]
     flash = phase_flash_kernels(torch)

@@ -51,19 +51,19 @@
 // the carry are the same, in the same order: the bits do not depend on the
 // schedule.  (A classic decoupled look-back combines the aggregates with
 // each other before applying them, and rounds differently from run to run.)
-// The fold argument picks how far a block may look back: 0 the look-back
-// above, 1 a chained scan (wait for chunk c-1's carry out), 2 every
-// aggregate from h0 (never a carry out); all three give the same bits.
-// Re-running from the carry, rather than adding prod(a) * carry to a kept
-// local h, keeps the order inside a chunk sequential.
+// Two other fixed orders give the same bits and ran slower at the training
+// shape (PERF.md): a chained scan, waiting for chunk c-1's carry out (64
+// carries in a row), and folding every aggregate from h0.  Re-running from
+// the carry, rather than adding prod(a) * carry to a kept local h, keeps
+// the order inside a chunk sequential.
 //
-// Two other designs ran slower at the training shape (PERF.md): the TPU
-// kernel's own walk, a block carrying one channel tile through the whole
-// sequence with a cp.async ring (every step of a block one dependent chain,
-// and its compiled loop's schedule swung with small changes to the source);
-// and persistent blocks that fetch their next chunk's tile while they wait
-// for the current one's carry (each block then takes its chunks' waits one
-// after another).
+// Other designs measured at the training shape (PERF.md): persistent blocks
+// that fetch their next chunk's tile while they wait for the current one's
+// carry ran slower (each block takes its chunks' waits one after another);
+// the TPU kernel's own walk, a block carrying one channel tile through the
+// whole sequence with a cp.async ring, ran slower built to this contract,
+// while a stripped build of it (no h0, h_final or VJP, the tile fixed at
+// compile time) ran faster: an open lead (ROADMAP B4).
 //
 // One chunk (S <= T, the serving chunk step): one launch of its own kernel
 // (lru_direct), no workspace, no flags, no ticket: a thread walks one
@@ -93,7 +93,6 @@ constexpr int DIRECT_THREADS = 64;  // the one-chunk kernel's block
 constexpr int MAX_WT = 4 * THREADS;
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
 constexpr int AGG = 1, INCL = 2;    // flag values: aggregate, carry out
-enum Fold { LOOKBACK = 0, CHAIN = 1, ALL = 2 };
 
 struct Args {
   const float* a;
@@ -108,7 +107,7 @@ struct Args {
   float* I;
   int* flags;
   int* ticket;
-  int B, S, W, T, Wt, nc, ntiles, reverse, shift, fold, vec;
+  int B, S, W, T, Wt, nc, ntiles, reverse, shift, vec;
 };
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
@@ -212,24 +211,15 @@ __device__ __forceinline__ float4 ldcg4(const float* p) {
   return __ldcg(reinterpret_cast<const float4*>(p));
 }
 
-// Warp 0: the chunk j whose published carry out the fold starts from (-1:
-// from h0), after waiting for what the fold mode needs.  Every chunk in
-// (j, c) has published its aggregate when this returns.
-__device__ int look_back(const int* flags, int c, int fold) {
+// Warp 0: the nearest chunk j < c whose carry out is published (-1: h0),
+// waiting for each chunk in (j, c) to publish at least its aggregate.
+__device__ int look_back(const int* flags, int c) {
   const int lane = threadIdx.x & 31;
-  if (fold == CHAIN) {
-    if (lane == 0)
-      while (ld_acquire(flags + c - 1) != INCL) {
-      }
-    __syncwarp();
-    return c - 1;
-  }
   for (int top = c - 1;; top -= 32) {
     const int k = top - lane;
     int f = INCL;                       // before chunk 0: h0
     if (k >= 0)
       do f = ld_acquire(flags + k); while (f == 0);
-    if (fold == ALL && k >= 0) f = AGG;
     const unsigned incl = __ballot_sync(0xffffffffu, f == INCL);
     if (incl) return top - (__ffs(incl) - 1);   // the nearest one
   }
@@ -316,7 +306,7 @@ lru_single_pass(Args p) {
         }
       }
       if (tid < 32) {
-        const int from = look_back(flags, c, p.fold);
+        const int from = look_back(flags, c);
         __threadfence();
         if (tid == 0) s_from = from;
       }
@@ -401,19 +391,17 @@ lru_direct(const float* __restrict__ a, const float* __restrict__ b,
 // a, b (B, S, W); h0 (B, W) or null; h (B, S, W); h_final (B, W) or null;
 // the VJP: hin (B, S, W) and da (B, S, W), both or neither.  T steps a
 // chunk, Wt channels a tile (Wt % 4 == 0, Wt <= 512); vec: 16-byte copies
-// (the caller checks W % 4 == 0 and 16-byte bases; refused otherwise);
-// fold: 0 look-back, 1 chained, 2 every aggregate.  ws: ws_words 4-byte
-// words (0 with one chunk).  Returns the first CUDA error code (0 =
-// launched).
+// (the caller checks W % 4 == 0 and 16-byte bases; refused otherwise).
+// ws: ws_words 4-byte words (0 with one chunk).  Returns the first CUDA
+// error code (0 = launched).
 extern "C" int lru_scan(const void* a, const void* b, const void* h0,
                         const void* hin, void* h, void* da, void* h_final,
                         void* ws, long long ws_words, int B, int S, int W,
-                        int T, int Wt, int reverse, int fold, int vec,
+                        int T, int Wt, int reverse, int vec,
                         void* stream) {
   if (B == 0 || W == 0) return 0;
   if (B < 0 || S <= 0 || W < 0 || T <= 0 || Wt <= 0 || Wt % 4 != 0 ||
-      Wt > MAX_WT || fold < 0 || fold > 2 ||
-      (hin != nullptr) != (da != nullptr))
+      Wt > MAX_WT || (hin != nullptr) != (da != nullptr))
     return cudaErrorInvalidValue;
   Args p;
   p.a = static_cast<const float*>(a);
@@ -432,7 +420,6 @@ extern "C" int lru_scan(const void* a, const void* b, const void* h0,
   p.ntiles = (W + Wt - 1) / Wt;
   p.reverse = reverse != 0;
   p.shift = hin != nullptr;            // the VJP's a of the step before
-  p.fold = fold;
   p.vec = vec != 0;
   if (p.vec) {
     const void* ptrs[] = {a, b, h0, hin, h, da, h_final};

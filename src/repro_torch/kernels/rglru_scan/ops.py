@@ -22,12 +22,13 @@ from its predecessors' published values and re-runs the chunk from it.
 The carry is always the fold from ``h0`` in chunk order, one fma a chunk,
 whichever published values a block finds, so reruns give the same bits
 (the source note of ``csrc/lru_scan.cu``; ``ref.lru_scan_single_pass_ref``
-is its arithmetic in plain PyTorch).  The tile, the workspace and the
-order in which blocks take their work are functions of the shapes alone
-(``lru_tiles``, ``lru_workspace``, ``lru_ticket_order``), so the call
-needs no host synchronisation and a CUDA graph can hold it.  A sequence of
-one chunk (the serving chunk step) takes a direct kernel: a thread walks
-one channel from ``h0`` with its loads unrolled ahead.
+is its arithmetic in plain PyTorch).  The tile (``LRU_TILE``), the
+workspace (``lru_workspace``) and the order in which blocks take their
+work (an atomic ticket, chunk-major in scan order) are functions of the
+shapes alone, so the call needs no host synchronisation and a CUDA graph
+can hold it.  A sequence of one chunk (S <= T, the serving chunk step)
+takes a direct kernel with no workspace: a thread walks one channel from
+``h0`` with its loads unrolled ahead.
 """
 from __future__ import annotations
 
@@ -39,21 +40,13 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.rglru_scan import ref
 
-# (T steps a chunk, Wt channels a tile) for more than one chunk: one of
-# LRU_TILE_SWEEP, the tiles ``chip_smoke.py --lru-tiles`` times at the
-# training shape (PERF.md)
+# (T steps a chunk, Wt channels a tile): one of LRU_TILE_SWEEP, the tiles
+# ``chip_smoke.py --lru-tiles`` times at the training shape (PERF.md).  A
+# sequence of at most T steps is one chunk: the kernel's direct path, which
+# takes no tile.
 LRU_TILE_SWEEP = ((16, 256), (16, 512), (32, 128), (32, 256), (32, 512),
                   (64, 64), (64, 128), (64, 256), (128, 64), (128, 128))
 LRU_TILE = (64, 128)
-# one chunk (S <= ONE_CHUNK, the serving chunk step) takes the kernel's
-# direct path: blocks of 128 threads, a channel a thread, no tile
-ONE_CHUNK, DIRECT_WT = 64, 128
-# how far a block looks back for its carry: the nearest published carry
-# out, then the aggregates after it ("lookback"); the previous chunk's
-# carry out only ("chain"); every aggregate from h0 ("all").  The same bits
-# from each; "lookback" was the fastest (PERF.md).
-LRU_FOLDS = ("lookback", "chain", "all")
-LRU_FOLD = "lookback"
 SMEM_BYTES = 232448         # a block's shared memory on sm_90
 MAX_WT = 512                # 128 threads of four channels
 
@@ -62,18 +55,9 @@ MAX_WT = 512                # 128 threads of four channels
 def _kernel():
     fn = build.load("lru_scan").lru_scan
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 8 + [ctypes.c_longlong] + [i32] * 8 + [ptr]
+    fn.argtypes = [ptr] * 8 + [ctypes.c_longlong] + [i32] * 7 + [ptr]
     fn.restype = i32
     return fn
-
-
-def lru_tiles(B: int, S: int, W: int):
-    """(T, Wt) of a call, from the shapes alone: ``LRU_TILE``, or for a
-    sequence of at most ``ONE_CHUNK`` steps one chunk of S steps on the
-    direct path (``DIRECT_WT`` channels a block)."""
-    if S <= ONE_CHUNK:
-        return max(S, 1), DIRECT_WT
-    return LRU_TILE
 
 
 def tile_fits(T: int, Wt: int, S: int, vjp: bool) -> bool:
@@ -91,18 +75,6 @@ def lru_workspace(B: int, S: int, W: int, T: int, Wt: int) -> int:
     if nc <= 1:
         return 0
     return 3 * B * nc * ntiles * Wt + B * ntiles * nc + 1
-
-
-def lru_ticket_order(B: int, S: int, W: int, T: int, Wt: int):
-    """The (batch, tile, chunk) each ticket of the kernel maps to, in
-    ticket order: chunk-major in scan order, so a block waits only on
-    blocks that took a lower ticket."""
-    nc, ntiles = -(-S // T), -(-W // Wt)
-    order = []
-    for ticket in range(B * ntiles * nc):
-        c, rest = divmod(ticket, B * ntiles)
-        order.append((rest // ntiles, rest % ntiles, c))
-    return order
 
 
 def lru_vec_loads(W: int, ptrs) -> bool:
@@ -135,7 +107,7 @@ def _ptr(t):
 
 def _launch(a, b, h0, hin, h, da, h_final, reverse):
     B, S, W = a.shape
-    T, Wt = lru_tiles(B, S, W)
+    T, Wt = LRU_TILE
     if not tile_fits(T, Wt, S, hin is not None):
         raise ValueError(f"lru_scan: tile (T {T}, Wt {Wt}) does not fit")
     words = lru_workspace(B, S, W, T, Wt)
@@ -145,7 +117,6 @@ def _launch(a, b, h0, hin, h, da, h_final, reverse):
             _ptr(da), _ptr(h_final))
     dev = a.device.index
     args = ptrs + (_ptr(ws), words, B, S, W, T, Wt, int(bool(reverse)),
-                   LRU_FOLDS.index(LRU_FOLD),
                    int(lru_vec_loads(W, ptrs)),
                    torch.cuda.current_stream(dev).cuda_stream)
     if dev == torch.cuda.current_device():

@@ -3,8 +3,9 @@ card: the ``LRU_SWEEP`` geometries of ``tests/test_kernels.py``, ragged
 sequence lengths and widths, one chunk and many, forward and reverse, with
 and without a carried state, and the hybrid training path's shape
 (recurrentgemma-9b: B=1, S=4096, W=4096); the fused VJP against
-``lru_vjp_plain``; bit-identical reruns and the same bits from every carry
-fold; a misaligned view on the 4-byte copy path; the autograd wrapper
+``lru_vjp_plain``; bit-identical reruns, equal bit for bit to the kernel's
+arithmetic in plain PyTorch, at a shape with more blocks than the card
+holds at once; a misaligned view on the 4-byte copy path; the autograd wrapper
 against the plain route; and the serving chunk step's launch.
 
 The kernel has no CPU mode, so the tests are marked ``gpu`` and skip where
@@ -159,28 +160,28 @@ def test_fused_vjp_vs_plain(cuda, B, S, W):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,W", [(1, 4096, 4096), (1, 32768, 64)],
                          ids=["training", "many_chunks"])
-def test_reruns_and_folds_are_bit_identical(cuda, B, S, W):
-    """Two runs forward and backward give the same bits, and so does each
-    way of folding the carry (look-back, chained, every aggregate): the
-    carry is always the fold from h0 in chunk order."""
+def test_reruns_are_bit_identical(cuda, B, S, W):
+    """Two runs forward and backward give the same bits, and the forward is
+    ``lru_scan_single_pass_ref`` bit for bit: the carry is always the fold
+    from h0 in chunk order, whatever a block finds published.  The
+    many-chunk shape (512 chunks of one tile) has more blocks than the card
+    holds at once, so it ends only if each block waits on blocks that took
+    a lower ticket."""
     a, b, h0 = inputs(B, S, W, cuda, seed=3)
     g = torch.randn(B, S, W, device=cuda)
     h = ops.lru_scan(a, b)[0]
-    chosen = ops.LRU_FOLD
-    outs = []
-    try:
-        for fold in (chosen,) + ops.LRU_FOLDS:
-            ops.LRU_FOLD = fold
-            outs.append(ops.lru_scan(a, b, h0) + ops._lru_vjp(a, g, h))
-    finally:
-        ops.LRU_FOLD = chosen
+    before = ops.lru_scan.launches
+    outs = [ops.lru_scan(a, b, h0) + ops._lru_vjp(a, g, h) for _ in range(2)]
     torch.cuda.synchronize()
-    for other in outs[1:]:
-        for x, y in zip(outs[0], other):
-            assert torch.equal(x, y)
-    want = ref.lru_scan_plain(a, b, h0)
-    close(outs[0][0], want[0], TOL, "h")
-    close(outs[0][1], want[1], TOL, "h_final")
+    assert ops.lru_scan.launches == before + 4
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+    want = ref.lru_scan_single_pass_ref(a, b, h0, T=ops.LRU_TILE[0])
+    assert torch.equal(outs[0][0], want[0])
+    assert torch.equal(outs[0][1], want[1])
+    plain = ref.lru_scan_plain(a, b, h0)
+    close(outs[0][0], plain[0], TOL, "h")
+    close(outs[0][1], plain[1], TOL, "h_final")
 
 
 @pytest.mark.gpu

@@ -11,7 +11,7 @@
   (a 0, b h0) and reverse as flipped inputs.
 * ``ref.lru_vjp_plain`` and ``ops.lru``'s CPU gradients against
   ``jax.vjp`` of the JAX ``lru`` (interpret mode), tolerance 1e-4.
-* ``ops.lru_tiles``, ``ops.lru_workspace``, ``ops.lru_ticket_order`` and
+* The tile (``ops.LRU_TILE``), ``ops.lru_workspace`` and
   ``ops.lru_vec_loads`` are functions of shapes and addresses alone.
 * A CPU call counts no launch.
 
@@ -128,20 +128,18 @@ def test_vjp_matches_jax(geo):
                          ids=["training", "serving_chunk", "decode",
                               "many_chunks", "ragged", "ragged_wide"])
 def test_tiles_and_workspace_from_shapes(shape):
-    """The tile fits the kernel (for the VJP too); one chunk up to
-    ``ONE_CHUNK`` steps with no workspace; else ``LRU_TILE``, with a
+    """The tile fits the kernel (for the VJP too); a sequence of at most T
+    steps is one chunk (the direct path) with no workspace; else a
     workspace of P, E and carry per (batch, chunk, padded channel), a flag
     per block and the ticket."""
     B, S, W = shape
-    T, Wt = ops.lru_tiles(B, S, W)
+    T, Wt = ops.LRU_TILE
     assert ops.tile_fits(T, Wt, S, vjp=True)
-    assert (T, Wt) == ops.lru_tiles(B, S, W)          # shapes alone
     nc, ntiles = -(-S // T), -(-W // Wt)
     words = ops.lru_workspace(B, S, W, T, Wt)
-    if S <= ops.ONE_CHUNK:
+    if S <= T:
         assert nc == 1 and words == 0
     else:
-        assert (T, Wt) == ops.LRU_TILE
         assert words == 3 * B * nc * ntiles * Wt + B * ntiles * nc + 1
     if shape == (1, 4096, 4096):
         # P, E and the carry: 6 MiB of floats; a flag per item and the
@@ -156,25 +154,6 @@ def test_every_swept_tile_fits():
     assert not ops.tile_fits(128, 512, 4096, vjp=False)   # 512 KiB
     assert not ops.tile_fits(32, 1024, 4096, vjp=False)   # > 128 threads
     assert not ops.tile_fits(32, 130, 4096, vjp=False)    # not 4-wide
-
-
-@pytest.mark.parametrize("shape,tile", [
-    ((1, 4096, 4096), (64, 128)), ((3, 100, 300), (16, 128)),
-    ((2, 65, 33), (64, 64)), ((1, 32768, 64), (128, 128))])
-def test_ticket_order(shape, tile):
-    """Every (batch, tile, chunk) takes exactly one ticket, and each chunk
-    comes after every earlier chunk of its (batch, tile): a block waits
-    only on blocks that took a lower ticket."""
-    B, S, W = shape
-    T, Wt = tile
-    order = ops.lru_ticket_order(B, S, W, T, Wt)
-    nc, ntiles = -(-S // T), -(-W // Wt)
-    assert sorted(order) == [(b, t, c) for b in range(B)
-                             for t in range(ntiles) for c in range(nc)]
-    seen = {}
-    for ticket, (b, t, c) in enumerate(order):
-        assert seen.get((b, t), -1) == c - 1, (ticket, b, t, c)
-        seen[(b, t)] = c
 
 
 def test_vec_loads_from_addresses():
