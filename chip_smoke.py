@@ -16,8 +16,9 @@ Phases (any error fails the run with a non-zero exit):
 2. Hold the ring-chunk kernels against their plain PyTorch version on the
    card, at the serving path's shape and at the edge geometries (ring
    wrap, a chunk wider than the ring, idle rows and an idle stream, GQA
-   8:1, window with softcap, a short history in a wide ring) and at phase
-   8's dh 256 shape (16 query heads over one kv head), every geometry in
+   8:1, window with softcap, a short history in a wide ring), at phase
+   8's dh 256 shape (16 query heads over one kv head) and at phase 9's
+   verify width (C = 5, batch buckets 1 and 8, both models), every geometry in
    bf16 (the tensor-core kernel, the ring split across blocks) and the
    float32 ones in float32 too (the FMA kernel): tolerance 2e-2 and 5e-5,
    every row, each launch on its dtype's route, bf16 reruns at both
@@ -86,7 +87,8 @@ Phases (any error fails the run with a non-zero exit):
    version (h and h_final, every element, tol 1e-5 plus the same share of
    |plain|) forward and in reverse, from zero and from a carried state, at
    phase 7's shape (B=1, S=4096, W=4096), on the JAX ``LRU_SWEEP``
-   geometries, ragged S and W, and the serving chunk's shape; the fused
+   geometries, ragged S and W, the serving chunk's shape and phase 9's
+   verify chunk (S = 5 at batch buckets 1 and 8); the fused
    VJP (one reverse call writing db and da) against its plain version at
    the training shape (tol 1e-4) and, bit for bit, against the unfused
    backward on the same kernel; two runs forward and backward
@@ -116,6 +118,36 @@ Phases (any error fails the run with a non-zero exit):
    checkpoints, each stream holds ring pages and a state slot, the pool's
    audit passes.  Then, on a reduced recurrentgemma-9b in float32, the
    card's tokens equal the CPU's.
+9. Speculative decoding (``spec_k=4``) from phase 3's weights on phase
+   3's requests, once with the engine's n-gram drafter and once with a
+   partial drafter built from phase 3's tokens (one right token, then
+   wrong ones): the partial run must draft, roll back and verify, every
+   ring launch on the tensor-core route, the pool's audit passing.  The
+   acceptance, the tokens accepted a verify forward, the agreement with
+   phase 3's tokens and the latencies of both runs are printed.  After
+   phase 8, the same on recurrentgemma-9b at full width and depth from
+   phase 8's weights, which must also take state checkpoints and launch
+   the RG-LRU kernel.
+10. The asynchronous swap tier on phase 3's weights and requests over an
+   oversubscribed pool (``ASYNC_ECFG``: one replica group, one domain of
+   two 512-token streams), against the synchronous tier: the
+   asynchronous run must issue spills, land them rounds later (overlap
+   rounds > 0) and recompute nothing, with the pool's audit after every
+   transfer transition.
+11. Phase 3's requests on an engine warmed by ``warm_steps`` (each paged
+   step the serve loop dispatches a CUDA graph): tokens bit-identical to
+   phase 3's, graphs replayed (each graph's replays printed).  Then a
+   cold and a warmed serve on fresh engines under torch.profiler: the
+   ring and RG-LRU kernels the card ran (graph replays included) are the
+   same in both, and the cold serve's ring split kernel ran once for each
+   launch its wrapper counted.  The capture's seconds and memory, and
+   cold against warm tokens/s, TTFT, TPOT and device idle share (the
+   profiled serves against the unprofiled walls) are printed.
+The reduced float32 reference runs of phases 3, 6 and 8 include card runs
+with speculative decoding (a partial drafter) and warmed steps, and on the
+dense and hybrid models the asynchronous swap tier (dense: a pool of one
+stream a domain; hybrid: a park forced mid-decode, spilled with its state
+slot); their tokens must equal the CPU run's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches (counted over its main path: phase
@@ -210,6 +242,21 @@ RING_GEOMETRIES = [
      2048, 0.0, "float32"),
     ("dh256_wrap_window", 2, 10, 8, 16, 1, 256, (5, 21), (10, 7), 5, 0.0,
      "float32"),
+    # phase 9's verify and reapply calls: C = spec_w = 5 at the batch
+    # buckets 1 and 8, a row's n_tokens its draft plus one (an idle
+    # padding row at pos 0), positions under the 1024-token max_len.
+    # llama3-8b (G 4: 20 query rows), recurrentgemma-9b (G 16: 80 query
+    # rows over two 64-row wgmma tiles, window 2048)
+    ("verify_dense_b1", 1, 5, 1024, 32, 8, 128, (411,), (5,), 0, 0.0,
+     "bfloat16"),
+    ("verify_dense_b8", 8, 5, 1024, 32, 8, 128,
+     (37, 120, 263, 511, 700, 905, 1019, 0), (5, 5, 4, 5, 2, 5, 5, 0), 0,
+     0.0, "bfloat16"),
+    ("verify_hybrid_b1", 1, 5, 1024, 16, 1, 256, (411,), (5,), 2048, 0.0,
+     "bfloat16"),
+    ("verify_hybrid_b8", 8, 5, 1024, 16, 1, 256,
+     (37, 120, 263, 511, 700, 905, 1019, 0), (5, 5, 4, 5, 2, 5, 5, 0), 2048,
+     0.0, "bfloat16"),
 ]
 
 
@@ -1028,6 +1075,8 @@ LRU_GEOMETRIES = [
     ("lru_sweep_2", 3, 32, 16), ("lru_sweep_3", 1, 256, 32),
     ("ragged_s100_w300", 2, 100, 300), ("ragged_s65_w33", 3, 65, 33),
     ("serving_chunk", 8, 16, 4096),
+    # phase 9's hybrid verify and reapply steps: one chunk of spec_w = 5
+    ("verify_chunk_b1", 1, 5, 4096), ("verify_chunk_b8", 8, 5, 4096),
 ]
 LRU_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/lru_scan.cu"
 
@@ -1264,15 +1313,60 @@ def lru_tile_sweep(torch):
 ENGINE_ARCH = "llama3-8b"
 
 
+def make_engine(cfg, params=None, groups=2, **ecfg):
+    """The main path's engine on ``cfg``: two pool domains,
+    ``EngineConfig(max_batch=8, max_len=1024, pool_streams=8)`` with
+    ``ecfg`` over it; weights ``params``, else random from seed 0."""
+    from repro_torch.core.topology import ChipletTopology
+    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    topo = ChipletTopology(n_pods=1, groups_per_pod=groups, chips_per_group=1)
+    base = dict(max_batch=8, max_len=1024, pool_streams=8)
+    return ServeEngine(cfg, topo, EngineConfig(**{**base, **ecfg}), seed=0,
+                       params=params)
+
+
+def reset_launches(torch):
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    ops.ring_chunk_attention.launches = 0
+    ops.ring_chunk_attention.wgmma_launches = 0
+    lru_ops.lru_scan.launches = 0
+
+
+def kernel_launches(torch):
+    """(ring, of them on the tensor-core route, RG-LRU scan) launches
+    since ``reset_launches``, made by calls in Python (not by replays of a
+    CUDA graph)."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    return (ops.ring_chunk_attention.launches,
+            ops.ring_chunk_attention.wgmma_launches,
+            lru_ops.lru_scan.launches)
+
+
+def check_requests(cfg, reqs):
+    for r in reqs:
+        if not r.done or len(r.generated) != r.max_new:
+            raise AssertionError(f"request {r.rid}: {len(r.generated)} of "
+                                 f"{r.max_new} tokens")
+        if not all(0 <= t < cfg.vocab for t in r.generated):
+            raise AssertionError(f"request {r.rid}: token out of vocab")
+
+
+def latency(st):
+    return (f"{st['tokens'] / st['wall']:.1f} tokens/s; TTFT p50/p99 "
+            f"{st['ttft_p50'] * 1e3:.1f}/{st['ttft_p99'] * 1e3:.1f} ms, "
+            f"TPOT p50/p99 {st['tpot_p50'] * 1e3:.1f}/"
+            f"{st['tpot_p99'] * 1e3:.1f} ms")
+
+
 def phase_engine(torch, arch, profile: bool = False):
     """Serve the main path's requests on ``arch`` at full width and depth
     through the port's ServeEngine.  Returns the launches of the ring and
-    the RG-LRU scan kernels over the run."""
+    the RG-LRU scan kernels over the run, the weights, every request's
+    tokens and the latency stats of the 8."""
     from repro_torch.configs import REGISTRY
-    from repro_torch.core.topology import ChipletTopology
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.rglru_scan import ops as lru_ops
-    from repro_torch.serving.engine import EngineConfig, ServeEngine
+    from repro_torch.serving.engine import ServeEngine
 
     cfg = REGISTRY[arch]
     dense = cfg.family == "dense"
@@ -1280,13 +1374,8 @@ def phase_engine(torch, arch, profile: bool = False):
     n_attn, n_rec = types.count("attn"), types.count("rec")
     tag = f"[engine {cfg.name}]"
 
-    def engine():
-        topo = ChipletTopology(n_pods=1, groups_per_pod=2, chips_per_group=1)
-        ecfg = EngineConfig(max_batch=8, max_len=1024, pool_streams=8)
-        return ServeEngine(cfg, topo, ecfg, seed=0)
-
     t0 = time.perf_counter()
-    eng = engine()
+    eng = make_engine(cfg)
     torch.cuda.synchronize()
     if cfg.family == "ssm":
         widths = (f"ssd heads={cfg.ssm_heads}x{cfg.ssm_head_dim} "
@@ -1302,24 +1391,14 @@ def phase_engine(torch, arch, profile: bool = False):
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
 
     spent, timed = step_timers(torch, eng) if profile else (None, None)
-    ops.ring_chunk_attention.launches = 0
-    ops.ring_chunk_attention.wgmma_launches = 0
-    lru_ops.lru_scan.launches = 0
+    reset_launches(torch)
     first, reqs, res, wall = serve(torch, eng, cfg, around=timed)
-    launches = ops.ring_chunk_attention.launches
-    wgmma = ops.ring_chunk_attention.wgmma_launches
-    lru_launches = lru_ops.lru_scan.launches
+    launches, wgmma, lru_launches = kernel_launches(torch)
     # bf16 serving: every ring launch took the tensor-core route
     if wgmma != launches:
         raise AssertionError(f"ring kernel: {wgmma} of {launches} launches "
                              "on the tensor-core route")
-
-    for r in [first] + reqs:
-        if not r.done or len(r.generated) != r.max_new:
-            raise AssertionError(f"request {r.rid}: {len(r.generated)} of "
-                                 f"{r.max_new} tokens")
-        if not all(0 <= t < cfg.vocab for t in r.generated):
-            raise AssertionError(f"request {r.rid}: token out of vocab")
+    check_requests(cfg, [first] + reqs)
     c = res["counters"]
     hits = c.get("kv_prefix_hits", 0.0)
     ticks = int(c.get("chunk_ticks", 0))
@@ -1363,10 +1442,9 @@ def phase_engine(torch, arch, profile: bool = False):
                                  "requests")
     eng.pool.audit([r.table for r in eng.submitted if r.table is not None])
     st = ServeEngine.stats(reqs)
+    st["wall"] = wall
     log(f"{tag} {len(reqs)} requests, {st['tokens']} tokens in "
-        f"{wall:.2f} s: {st['tokens'] / wall:.1f} tokens/s; "
-        f"TTFT p50 {st['ttft_p50'] * 1e3:.1f} ms, "
-        f"TPOT p50 {st['tpot_p50'] * 1e3:.1f} ms")
+        f"{wall:.2f} s: {latency(st)}")
     log(f"{tag} ring kernel launches {launches} ({wgmma} on the tensor-core "
         f"route), lru_scan launches "
         f"{lru_launches} over {ticks} chunk ticks ({n_attn} attn, {n_rec} "
@@ -1383,6 +1461,10 @@ def phase_engine(torch, arch, profile: bool = False):
         "ring_launches": launches, "ring_wgmma_launches": wgmma,
         "lru_launches": lru_launches,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    params = eng.params
+    tokens = [r.generated for r in [first] + reqs]
+    by_prompt = {tuple(int(t) for t in r.prompt): list(r.generated)
+                 for r in [first] + reqs}
     if profile:
         steps = sum(t for t, _ in spent.values())
         log("[profile] " + json.dumps({
@@ -1395,8 +1477,10 @@ def phase_engine(torch, arch, profile: bool = False):
         del eng
         gc.collect()                # the engine's tasks hold it in cycles
         torch.cuda.empty_cache()
-        profile_replay(torch, engine(), cfg, wall)
-    return {"ring": launches, "lru": lru_launches}
+        profile_replay(torch, make_engine(cfg, params), cfg, wall)
+    return {"ring": launches, "lru": lru_launches, "params": params,
+            "tokens": tokens, "by_prompt": by_prompt, "stats": st,
+            "arch": arch}
 
 
 def serve(torch, eng, cfg, around=None):
@@ -1458,6 +1542,21 @@ SERVING_SYMBOLS = ("ring_wgmma_kernel", "ring_combine_kernel",
                    "lru_direct")
 
 
+def device_rows(prof):
+    """(device microseconds, calls, name) of every device-side event of a
+    torch.profiler session (kernels, copies, fills: the host ops that
+    launched them report the same time again)."""
+    rows = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        dev = getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0))
+        if dev > 0:
+            rows.append((dev, e.count, e.key))
+    return rows
+
+
 def profile_replay(torch, eng, cfg, main_wall):
     """Replay the main path on a fresh engine (same seed, same requests,
     so the same device work) under torch.profiler and cProfile: the card's
@@ -1483,16 +1582,7 @@ def profile_replay(torch, eng, cfg, main_wall):
                 host.disable()
 
     *_, wall = serve(torch, eng, cfg, around=both())
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies, fills): the host ops
-        # that launched them report the same time again
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        dev = getattr(e, "self_device_time_total",
-                      getattr(e, "self_cuda_time_total", 0.0))
-        if dev > 0:
-            rows.append((dev, e.count, e.key))
+    rows = device_rows(prof)
     if not rows:
         log("[profile] device time: not measured (the profiler saw no "
             "device activity)")
@@ -1516,10 +1606,95 @@ def profile_replay(torch, eng, cfg, main_wall):
             log(f"[host] {line.rstrip()[:150]}")
 
 
+class PartialDrafter:
+    """One right token, then wrong ones: the next tokens of a run that
+    served the same prompts (``base``: prompt -> tokens), the second and
+    later each moved one id up.  Every verify of a full draft accepts a
+    strict prefix and rolls the rest back."""
+
+    def __init__(self, base, vocab):
+        self.base, self.vocab = base, vocab
+
+    def draft(self, req, k):
+        done = len(req.generated)
+        toks = self.base.get(tuple(int(t) for t in req.prompt),
+                             [])[done:done + k]
+        return toks[:1] + [(t + 1) % self.vocab for t in toks[1:]]
+
+
+# the engine options of the reference runs' variants: speculative decoding
+# (with a partial drafter); the asynchronous swap tier on a pool of one
+# stream a domain (two streams of a group cannot both fit: streams park)
+# with phase 10's watermarks (a parked stream spills); the asynchronous
+# tier with a park forced mid-decode (``force_park``) and low watermarks
+# (the parked stream spills its ring pages and state slot); and the
+# CUDA-graph warm-up
+VARIANTS = {None: {}, "spec": {"spec_decode": "ngram", "spec_k": 4},
+            "async": {"async_swap": True, "pool_streams": 1,
+                      "spill_watermarks": (0.5, 0.25)},
+            "async park": {"async_swap": True,
+                           "spill_watermarks": (0.2, 0.1)},
+            "warm": {}}
+
+
+def card_variants(*names):
+    return [(f"card {v}", "cuda", "blocked", v) for v in names]
+
+
+# the reference runs of the variants on the card, by family.  A hybrid
+# pool gives each state slot a whole ring of pages, so its streams never
+# park on their own: its asynchronous run forces a park.  A pure-state
+# pool (mamba2) has no pages, and a stream without pages is never a spill
+# victim (``_spill_parked``, as in the JAX package): it takes no
+# asynchronous run
+CARD_VARIANTS = {"dense": card_variants("spec", "async", "warm"),
+                 "ssm": card_variants("spec", "warm"),
+                 "hybrid": card_variants("spec", "async park", "warm")}
+
+
+def force_park(eng):
+    """Park the first stream four tokens past its prompt, once, as the
+    JAX package's hybrid spill test does; returns the parked ids."""
+    tick = eng._decode_tick
+    parked = []
+
+    def forced(g):
+        out = tick(g)
+        if not parked:
+            for i, r in enumerate(g.slots):
+                if r is not None and int(g.pos_h[i]) >= len(r.prompt) + 4:
+                    eng._park_stream(g, i)
+                    parked.append(r.rid)
+                    break
+        return out
+
+    eng._decode_tick = forced
+    return parked
+
+
+def spy_state_spills(pool):
+    """Record, per issued spill, whether it carries a state slot."""
+    issue = pool.spill_issue
+    had = []
+
+    def issued(table):
+        fresh = table.spill is None and not table.inflight
+        state = bool(pool.has_state and table.state_slot)
+        n = issue(table)
+        if fresh and n:
+            had.append(state)
+        return n
+
+    pool.spill_issue = issued
+    return had
+
+
 def phase_engine_reference(torch, arch, runs):
     """Small input, float32: the reduced ``arch`` engine gives the same
-    tokens in every run of ``runs``, each (label, device, chunk kernel),
-    on the same weights drawn on the CPU."""
+    tokens in every run of ``runs``, each (label, device, chunk kernel,
+    variant of ``VARIANTS``), on the same weights drawn on the CPU.  The
+    first run is a plain one; the spec variant's drafter drafts from its
+    tokens."""
     import numpy as np
     from repro_torch.configs import REGISTRY, reduced_config
     from repro_torch.core.topology import ChipletTopology
@@ -1531,25 +1706,335 @@ def phase_engine_reference(torch, arch, runs):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(2, cfg.vocab, size=int(n))
                for n in (5, 19, 33, 40)]
-    outs = {}
-    for label, device, kernel in runs:
+    outs, notes = {}, []
+    for label, device, kernel, variant in runs:
         topo = ChipletTopology(n_pods=1, groups_per_pod=2, chips_per_group=1)
-        eng = ServeEngine(cfg, topo, EngineConfig(
-            max_batch=2, max_len=48, pool_streams=2, chunk_kernel=kernel),
-            params=_to_device(base, device), device=device)
+        opts = {"max_batch": 2, "max_len": 48, "pool_streams": 2,
+                "chunk_kernel": kernel, **VARIANTS[variant]}
+        eng = ServeEngine(cfg, topo, EngineConfig(**opts),
+                          params=_to_device(base, device), device=device)
+        if variant == "spec":
+            first = outs[runs[0][0]]
+            eng.drafter = PartialDrafter(
+                {tuple(int(t) for t in p): g for p, g in zip(prompts, first)},
+                cfg.vocab)
+        if variant == "warm":
+            eng.warm_steps()
+        parked, state_spills = [], []
+        if variant == "async park":
+            parked = force_park(eng)
+            state_spills = spy_state_spills(eng.pool)
         reqs = [eng.submit(p, max_new=12) for p in prompts]
-        eng.run_until_done()
+        c = eng.run_until_done()["counters"]
         outs[label] = [r.generated for r in reqs]
+        replays = sum(eng.graph_replays().values())
+        spilled = (c.get("kv_spill_issues", 0) > 0
+                   and c.get("recompute_tokens", 0) == 0)
+        # each variant's path really ran
+        ran = {"spec": c.get("spec_rollbacks", 0) > 0,
+               "async": spilled,
+               "async park": (spilled and bool(parked)
+                              and bool(state_spills) and all(state_spills)),
+               "warm": device != "cuda" or replays > 0}
+        if not ran.get(variant, True):
+            raise AssertionError(f"reduced {arch} {label}: the {variant} "
+                                 f"path did not run: {dict(c)}")
+        if variant == "spec":
+            notes.append(f"{label}: {int(c['spec_tokens_drafted'])} drafted, "
+                         f"{int(c['spec_rollbacks'])} rollbacks")
+        elif variant == "async":
+            notes.append(f"{label}: {int(c['kv_spill_issues'])} spills "
+                         "issued")
+        elif variant == "async park":
+            notes.append(f"{label}: stream {parked[0]} parked, "
+                         f"{int(c['kv_spill_issues'])} spills issued, "
+                         f"{sum(state_spills)} with a state slot")
+        elif variant == "warm" and device == "cuda":
+            notes.append(f"{label}: {replays} graph replays")
     labels = " == ".join(outs)
     if any(v != outs[runs[0][0]] for v in outs.values()):
         raise AssertionError(f"reduced {arch} float32: not {labels} tokens")
-    log(f"[engine {cfg.name}] float32: {labels} tokens for 4 requests")
+    log(f"[engine {cfg.name}] float32: {labels} tokens for 4 requests"
+        + (f" ({'; '.join(notes)})" if notes else ""))
 
 
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     return tree.clone().to(device)
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: speculative decoding, the asynchronous swap tier, warmed
+# serving (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+def live_tables(eng):
+    return [r.table for r in eng.submitted if r.table is not None]
+
+
+def agreement(a, b):
+    """Share of token positions two runs of the same requests agree on."""
+    pairs = [(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb)]
+    return sum(x == y for x, y in pairs) / max(1, len(pairs))
+
+
+def served(torch, eng, cfg):
+    """Serve the main path's requests on ``eng``: (every request's tokens,
+    the counters, the latency stats of the 8 with their wall seconds, ring
+    launches, of them on the tensor-core route, RG-LRU launches), with
+    the requests and the pool's audit checked."""
+    from repro_torch.serving.engine import ServeEngine
+    reset_launches(torch)
+    first, reqs, res, wall = serve(torch, eng, cfg)
+    ring, wgmma, lru = kernel_launches(torch)
+    check_requests(cfg, [first] + reqs)
+    eng.pool.audit(live_tables(eng))
+    if eng.pool.inflight_tables():
+        raise AssertionError("a spill outlived the run")
+    st = ServeEngine.stats(reqs)
+    st["wall"] = wall
+    return ([r.generated for r in [first] + reqs], res["counters"], st,
+            ring, wgmma, lru)
+
+
+def phase_spec(torch, cold):
+    """Phase 9: ``cold``'s model (phase 3's or 8's weights) with
+    speculative decoding, once with the engine's n-gram drafter and once
+    with a partial drafter from ``cold``'s tokens; the partial run must
+    draft, roll back and verify, every ring launch on the tensor-core
+    route (and, on the hybrid, take state checkpoints and launch the
+    RG-LRU kernel)."""
+    from repro_torch.configs import REGISTRY
+    cfg = REGISTRY[cold["arch"]]
+    tag = f"[spec {cfg.name}]"
+    out = {}
+    for name in ("ngram", "partial"):
+        free_card(torch)
+        eng = make_engine(cfg, cold["params"], spec_decode="ngram", spec_k=4)
+        if name == "partial":
+            eng.drafter = PartialDrafter(cold["by_prompt"], cfg.vocab)
+        toks, c, st, ring, wgmma, lru = served(torch, eng, cfg)
+        kv = eng.kv_stats()
+        if wgmma != ring:
+            raise AssertionError(f"{tag} {name}: {wgmma} of {ring} ring "
+                                 "launches on the tensor-core route")
+        drafted, acc = kv["spec_tokens_drafted"], kv["spec_tokens_accepted"]
+        verifies = kv["spec_verify_forwards"]
+        out[name] = {
+            "drafted": drafted, "accepted": acc,
+            "accept_rate": kv["spec_accept_rate"],
+            "accepted_per_verify": acc / verifies if verifies else 0.0,
+            "verify_forwards": verifies, "rollbacks": kv["spec_rollbacks"],
+            "reapply_forwards": kv["spec_reapply_forwards"],
+            "ckpts": kv["spec_ckpts"],
+            "agreement_with_spec_off": agreement(toks, cold["tokens"]),
+            "tokens_per_s": st["tokens"] / st["wall"],
+            **{k: st[k] for k in ("wall", "ttft_p50", "ttft_p99",
+                                  "tpot_p50", "tpot_p99")},
+            "ring_launches": ring, "lru_launches": lru}
+        log(f"{tag} {name} drafter: {int(drafted)} drafted, {int(acc)} "
+            f"accepted ({kv['spec_accept_rate']:.4f}), {int(verifies)} "
+            f"verify forwards, {int(kv['spec_rollbacks'])} rollbacks; "
+            f"agreement with spec off {out[name]['agreement_with_spec_off']:.4f}; "
+            + latency(st))
+        del eng
+    p = out["partial"]
+    if not (p["drafted"] > 0 and p["rollbacks"] > 0
+            and p["verify_forwards"] > 0):
+        raise AssertionError(f"{tag} the partial drafter's run did not "
+                             f"draft, roll back and verify: {p}")
+    if cfg.family == "hybrid" and not (p["ckpts"] > 0 and p["lru_launches"]
+                                       > 0 and p["ring_launches"] > 0):
+        raise AssertionError(f"{tag} no state checkpoint, RG-LRU or ring "
+                             f"launch: {p}")
+    cs = cold["stats"]
+    log(f"{tag} spec off (phase {'3' if cfg.family == 'dense' else '8'}): "
+        + latency(cs))
+    log(f"{tag} " + json.dumps({
+        "arch": cfg.name, "layers": cfg.n_layers, "spec_k": 4,
+        "spec_off": {"tokens_per_s": cs["tokens"] / cs["wall"],
+                     **{k: cs[k] for k in ("wall", "ttft_p50", "ttft_p99",
+                                           "tpot_p50", "tpot_p99")}},
+        **out}))
+    free_card(torch)
+
+
+# phase 10's pool: one replica group over one domain of two 512-token
+# streams (64 pages) for requests that need about 137 pages in all, with
+# the JAX benchmark's async cell's watermarks (0.5, 0.25)
+ASYNC_ECFG = dict(groups=1, max_len=512, pool_streams=2,
+                  spill_watermarks=(0.5, 0.25))
+
+
+def phase_async(torch, cold):
+    """Phase 10: phase 3's model and requests on an oversubscribed pool,
+    with the asynchronous swap tier and with the synchronous one.  The
+    asynchronous run must issue spills, land them rounds later and
+    recompute nothing; the pool's audit runs after every transfer
+    transition."""
+    from repro_torch.configs import REGISTRY
+    cfg = REGISTRY[ENGINE_ARCH]
+    tag = f"[async {cfg.name}]"
+    out, toks = {}, {}
+    for is_async in (True, False):
+        free_card(torch)
+        eng = make_engine(cfg, cold["params"], async_swap=is_async,
+                          **ASYNC_ECFG)
+        audits = [0]
+        pool = eng.pool
+        for name in ("spill_issue", "spill_poll", "spill_fence",
+                     "restore_into", "free"):
+            def audited(*a, _orig=getattr(pool, name), **kw):
+                r = _orig(*a, **kw)
+                pool.audit(live_tables(eng))
+                audits[0] += 1
+                return r
+            setattr(pool, name, audited)
+        name = "async" if is_async else "sync"
+        toks[name], c, st, ring, wgmma, _ = served(torch, eng, cfg)
+        out[name] = {k: c.get(k, 0.0) for k in (
+            "kv_spill_issues", "kv_spills", "kv_spill_overlap_rounds",
+            "kv_fence_waits", "kv_ticks_while_inflight", "kv_restores",
+            "kv_restore_prefetches", "recompute_tokens", "kv_evictions",
+            "kv_mid_decode_parks")}
+        out[name].update(
+            tokens_per_s=st["tokens"] / st["wall"], audits=audits[0],
+            **{k: st[k] for k in ("wall", "ttft_p50", "ttft_p99",
+                                  "tpot_p50", "tpot_p99")})
+        log(f"{tag} {name}: {int(out[name]['kv_spills'])} spills "
+            f"({int(out[name]['kv_spill_issues'])} issued, overlap rounds "
+            f"{int(out[name]['kv_spill_overlap_rounds'])}, fence waits "
+            f"{int(out[name]['kv_fence_waits'])}), "
+            f"{int(out[name]['kv_restores'])} restores, recompute "
+            f"{int(out[name]['recompute_tokens'])}; {audits[0]} audits; "
+            + latency(st))
+        del eng, pool
+    a = out["async"]
+    if not (a["kv_spill_issues"] > 0 and a["kv_spills"] > 0
+            and a["kv_spill_overlap_rounds"] > 0
+            and a["recompute_tokens"] == 0):
+        raise AssertionError(f"{tag} the asynchronous tier did not spill, "
+                             f"overlap and restore without recompute: {a}")
+    agree = {"async_vs_sync": agreement(toks["async"], toks["sync"]),
+             "async_vs_phase3": agreement(toks["async"], cold["tokens"])}
+    log(f"{tag} token agreement: async/sync {agree['async_vs_sync']:.4f}, "
+        f"async/phase 3 {agree['async_vs_phase3']:.4f}")
+    log(f"{tag} " + json.dumps({"arch": cfg.name, "pool": {
+        k: v for k, v in ASYNC_ECFG.items()}, **out, "agreement": agree}))
+    free_card(torch)
+
+
+def profiled_serve(torch, eng, cfg, warm):
+    """One serve of the main path's requests on ``eng`` under
+    torch.profiler (after ``warm_steps`` with ``warm``, outside the
+    profile): (device busy seconds, or None when the profiler saw no
+    device activity; the calls of each kernel of ``SERVING_SYMBOLS`` the
+    card ran, kernels replayed inside a CUDA graph included; the ring
+    launches the wrapper counted in Python over the same window)."""
+    import contextlib
+    if warm:
+        eng.warm_steps()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    counted = [0]
+
+    @contextlib.contextmanager
+    def window():
+        before = kernel_launches(torch)[0]
+        with prof:
+            yield
+        counted[0] = kernel_launches(torch)[0] - before
+
+    serve(torch, eng, cfg, around=window())
+    rows = device_rows(prof)
+    calls = {n: sum(r[1] for r in rows if n in r[2]) for n in SERVING_SYMBOLS}
+    return (sum(r[0] for r in rows) / 1e6 if rows else None), calls, \
+        counted[0]
+
+
+def phase_warm(torch, cold):
+    """Phase 11: phase 3's model and requests on an engine warmed by
+    ``warm_steps`` (each paged step the serve loop dispatches captured as
+    a CUDA graph): tokens bit for bit phase 3's and graphs replayed (each
+    graph's replays printed).  Then a cold and a warmed serve, each on a
+    fresh engine under torch.profiler: the serving kernels the card ran in
+    the warmed serve (inside the graphs) equal the cold serve's, whose
+    ring split kernel ran once for each launch the wrapper counted; the
+    device's idle share of each against its unprofiled wall."""
+    from repro_torch.configs import REGISTRY
+    cfg = REGISTRY[ENGINE_ARCH]
+    tag = f"[warm {cfg.name}]"
+    free_card(torch)
+    eng = make_engine(cfg, cold["params"])
+    torch.cuda.synchronize()
+    alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    calls = eng.warm_steps()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    pool_gib = (torch.cuda.memory_reserved() - res0) / 2**30
+    held_gib = (torch.cuda.memory_allocated() - alloc0) / 2**30
+    r0 = eng.graph_replays()
+    toks, c, st, ring, wgmma, _ = served(torch, eng, cfg)
+    by_shape = {f"{k}/{w}/{b}": n - r0[(k, w, b)]
+                for (k, w, b), n in sorted(eng.graph_replays().items())}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    replays = sum(by_shape.values())
+    if toks != cold["tokens"]:
+        raise AssertionError(f"{tag} warmed tokens differ from phase 3's "
+                             f"(agreement {agreement(toks, cold['tokens'])})")
+    if replays <= 0:
+        raise AssertionError(f"{tag} no graph was replayed")
+    if wgmma != ring:
+        raise AssertionError(f"{tag} {wgmma} of {ring} direct ring launches "
+                             "on the tensor-core route")
+    log(f"{tag} warm_steps: {calls} step calls, {len(by_shape)} graphs "
+        f"captured in {capture_s:.2f} s, graph pool {pool_gib:.3f} GiB "
+        f"({held_gib:.3f} GiB held by the graphs' outputs)")
+    log(f"{tag} tokens bit-identical to phase 3; {replays} replays "
+        "(kind/width/bucket: " + ", ".join(f"{k} {n}"
+                                           for k, n in by_shape.items())
+        + f"); {ring} ring launches outside a graph; peak {peak:.2f} GiB")
+    log(f"{tag} cold (phase 3): " + latency(cold["stats"]))
+    log(f"{tag} warm:           " + latency(st))
+    del eng
+    free_card(torch)
+    busy, kernels, counted = {}, {}, {}
+    for k in ("cold", "warm"):
+        busy[k], kernels[k], counted[k] = profiled_serve(
+            torch, make_engine(cfg, cold["params"]), cfg, warm=k == "warm")
+        free_card(torch)
+    log(f"{tag} kernels the card ran (profiler calls): cold {kernels['cold']}"
+        f", warm {kernels['warm']}; ring launches counted in Python: cold "
+        f"{counted['cold']}, warm {counted['warm']} (outside a graph)")
+    if (kernels["warm"] != kernels["cold"]
+            or kernels["cold"]["ring_wgmma_kernel"] != counted["cold"]
+            or counted["cold"] <= 0):
+        raise AssertionError(
+            f"{tag} the warmed serve ran other kernels than the cold one, "
+            f"or the profiler missed launches: {kernels}, counted {counted}")
+    walls = {"cold": cold["stats"]["wall"], "warm": st["wall"]}
+    idle = {k: (None if busy[k] is None else 1 - busy[k] / walls[k])
+            for k in walls}
+    log(f"{tag} device busy (profiled replays) cold "
+        f"{busy['cold']} s, warm {busy['warm']} s; idle share of the "
+        f"unprofiled wall cold {idle['cold']}, warm {idle['warm']}")
+    log(f"{tag} " + json.dumps({
+        "arch": cfg.name, "warm_calls": calls, "graphs": len(by_shape),
+        "capture_s": capture_s, "graph_pool_gib": pool_gib,
+        "graph_outputs_gib": held_gib, "peak_gib": peak,
+        "replays": replays, "replays_by_shape": by_shape,
+        "ring_outside_graphs": ring, "profiled_kernel_calls": kernels,
+        "profiled_python_ring_launches": counted,
+        "busy_s": busy, "idle_share": idle,
+        **{f"{k}_{m}": v for k, s_ in (("cold", cold["stats"]), ("warm", st))
+           for m, v in (("tokens_per_s", s_["tokens"] / s_["wall"]),
+                        ("wall", s_["wall"]), ("ttft_p50", s_["ttft_p50"]),
+                        ("ttft_p99", s_["ttft_p99"]),
+                        ("tpot_p50", s_["tpot_p50"]),
+                        ("tpot_p99", s_["tpot_p99"]))}}))
 
 
 # ---------------------------------------------------------------------------
@@ -1843,11 +2328,17 @@ def main() -> int:
         row["launches"] = 0
     if not args.kernels_only:
         free_card(torch)
-        rows[0]["launches"] = phase_engine(torch, ENGINE_ARCH,
-                                           args.profile)["ring"]
+        dense = phase_engine(torch, ENGINE_ARCH, args.profile)
+        rows[0]["launches"] = dense["ring"]
         phase_engine_reference(torch, ENGINE_ARCH, [
-            ("kernel", "cuda", "blocked"),
-            ("plain attention", "cuda", "dense")])
+            ("CPU", "cpu", "blocked", None),
+            ("kernel", "cuda", "blocked", None),
+            ("plain attention", "cuda", "dense", None)]
+            + CARD_VARIANTS["dense"])
+        phase_spec(torch, dense)            # phase 9
+        phase_async(torch, dense)           # phase 10
+        phase_warm(torch, dense)            # phase 11
+        del dense
         free_card(torch)
         n_dense = REGISTRY[TRAIN_ARCH].n_layers
         flash_launches = phase_train(
@@ -1874,7 +2365,8 @@ def main() -> int:
         free_card(torch)
         phase_engine(torch, SSM_ARCH, args.profile)
         phase_engine_reference(torch, SSM_ARCH, [
-            ("card", "cuda", "blocked"), ("CPU", "cpu", "blocked")])
+            ("CPU", "cpu", "blocked", None),
+            ("card", "cuda", "blocked", None)] + CARD_VARIANTS["ssm"])
         free_card(torch)
         # phase 7: the scan forward and reverse in each rec layer, each
         # flash kernel once in each attn layer, a step
@@ -1903,8 +2395,12 @@ def main() -> int:
         served = phase_engine(torch, HYBRID_ARCH, args.profile)
         rows[0]["hybrid_launches"] = served["ring"]
         rows[4]["serving_launches"] = served["lru"]
+        phase_spec(torch, served)           # phase 9, the hybrid
+        del served
+        free_card(torch)
         phase_engine_reference(torch, HYBRID_ARCH, [
-            ("card", "cuda", "blocked"), ("CPU", "cpu", "blocked")])
+            ("CPU", "cpu", "blocked", None),
+            ("card", "cuda", "blocked", None)] + CARD_VARIANTS["hybrid"])
     ring_device_times(torch, rows[0])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -160,15 +160,45 @@ def make_serve_chunk_step(cfg: ModelConfig, spec, mode: str = "parallel",
     return serve_chunk_step
 
 
-def make_spill_gather(spec):
-    """(storage, blocks, state_slot) -> per-leaf device tensors: a stream's
-    used pages (and state slot), the device half of a swap-tier spill."""
+def make_spec_verify_step(cfg: ModelConfig, spec, mode: str = "parallel",
+                          chunk_kernel: str = "blocked"):
+    """(params, cache, tokens (B, C), pos, n_tokens) -> (per-position
+    logits (B, C, V), cache').  The speculative-decode VERIFY step: the
+    masked chunk forward of ``make_serve_chunk_step`` returning the logits
+    after EVERY fed token, so greedy acceptance can compare each draft
+    token with the argmax one position earlier.  Positions at or past
+    ``n_tokens`` come back NEG_INF."""
+    if mode == "scan":
+        raise NotImplementedError("the per-token scan verify step "
+                                  "(chunk_decode_step) is not ported yet "
+                                  "(ROADMAP A item 6)")
+    if mode != "parallel":
+        raise ValueError(f"unknown chunk-step mode {mode!r}")
+    if chunk_kernel not in ("dense", "blocked"):
+        raise ValueError(f"unknown chunk kernel {chunk_kernel!r}")
 
-    def spill_gather(storage, blocks, state_slot=None):
-        return dec.extract_pool_entries(storage, spec, blocks,
-                                        state_slot=state_slot)
+    def spec_verify_step(params, cache, tokens, pos, n_tokens):
+        return dec.prefill_chunk_step(params, cfg, spec, cache, tokens, pos,
+                                      n_tokens, chunk_kernel=chunk_kernel,
+                                      all_logits=True)
 
-    return spill_gather
+    return spec_verify_step
+
+
+def make_spill_gather_async(spec):
+    """(storage, blocks, state_slot, out, stream) -> event: the issue half
+    of an asynchronous spill.  The pages are snapshotted on the current
+    stream and copied into the host tensors ``out`` on ``stream``; the
+    returned event completes when they have landed (None on the CPU, where
+    the copy is done on return)."""
+
+    def spill_gather_async(storage, blocks, state_slot=None, *, out,
+                           stream=None):
+        return dec.extract_pool_entries_async(storage, spec, blocks,
+                                              state_slot=state_slot,
+                                              out=out, stream=stream)
+
+    return spill_gather_async
 
 
 def make_spill_scatter(spec):

@@ -296,6 +296,39 @@ def extract_pool_entries(pool, spec: CacheViewSpec, blocks,
     return out
 
 
+def extract_pool_entries_async(pool, spec: CacheViewSpec, blocks,
+                               state_slot: Optional[int] = None, *, out,
+                               stream=None):
+    """The issue half of an asynchronous spill: gather the pages (and
+    state slot) into fresh device tensors on the current stream — the
+    issue-time snapshot, which later in-place writes to the pool cannot
+    touch — then copy them into the host tensors ``out`` on the side
+    stream ``stream`` without blocking.  ``out`` holds one contiguous
+    tensor a leaf with the page (or slot) axis FIRST, None where
+    ``extract_pool_entries`` gives None.  Returns the event recorded after
+    the copies, or None on the CPU, where the copy is synchronous.  The
+    caching allocator is told the snapshot is in use on ``stream``."""
+    snap = []
+    for leaf, s, dst in zip(tree_leaves(pool, spec), spec.leaves, out):
+        ids = blocks if s.token_axis is not None else [state_slot]
+        snap.append(None if dst is None else leaf.movedim(
+            s.batch_axis, 0).index_select(0, _idx(ids, leaf.device)))
+    if stream is None:
+        for dst, x in zip(out, snap):
+            if x is not None:
+                dst.copy_(x)
+        return None
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    with torch.cuda.stream(stream):
+        for dst, x in zip(out, snap):
+            if x is not None:
+                dst.copy_(x, non_blocking=True)
+                x.record_stream(stream)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return event
+
+
 def insert_pool_entries(pool, spec: CacheViewSpec, blocks, host_leaves,
                         state_slot: Optional[int] = None):
     """Scatter ``extract_pool_entries`` leaves back into the pool at
@@ -363,13 +396,16 @@ def _layer_stack(params, cfg: ModelConfig, cache, x, step):
     """One serving step's layer stack: ``step(x, layer params, layer
     cache, layer type) -> (x, new layer cache)`` per layer in order — the
     layers, or a hybrid model's groups then tail — each layer's new cache
-    written back into ``cache`` in place."""
+    written back into ``cache`` in place.  Counts one walk in
+    ``_layer_stack.walks``."""
 
     def run(x, lp, lc, t):
         x, st = step(x, lp, lc, t)
         for k, v in st.items():
             lc[k].copy_(v)
         return x
+
+    _layer_stack.walks += 1
 
     if cfg.block_pattern:
         pattern, n_groups, _ = hybrid_structure(cfg)
@@ -388,6 +424,15 @@ def _layer_stack(params, cfg: ModelConfig, cache, x, step):
         x = run(x, layer_params(params["layers"], l),
                 {k: v[l] for k, v in states.items()}, lt)
     return x
+
+
+_layer_stack.walks = 0
+
+
+def layer_walks() -> int:
+    """Walks through the layer stack so far: one a sequential model step
+    (the engine's ``measured_model_steps`` reads it)."""
+    return _layer_stack.walks
 
 
 def _ffn_out(h, lp, cfg: ModelConfig):

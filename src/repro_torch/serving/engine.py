@@ -27,10 +27,24 @@ The default configuration is the path this module runs:
     replica groups mid-run (``_relayout``), tables re-point at their
     domain's new owner and only rebalanced streams copy their used pages;
   * SLO classes with the size-aware admission bypass and the proactive
-    watermark spill rung, as in the JAX package.
+    watermark spill rung, as in the JAX package;
+  * SPECULATIVE decoding (``spec_decode="ngram"``): a decode stream's
+    drafted tokens are verified in one all-position-logits chunk forward
+    over the drafted rows, in their own batch bucket at width
+    ``min(spec_k + 1, chunk)``; greedy acceptance keeps the longest
+    matching prefix, and rejected suffixes roll back from device-resident
+    checkpoints of the touched pages and state slots;
+  * the ASYNCHRONOUS swap tier (``async_swap=True``): the pressure ladder
+    issues a spill's device-to-host copy on a side stream and keeps
+    ticking; a per-round poll lands it (an event query) and only then
+    re-grants the victim's pages.
 
 Steps run eagerly: where the JAX package jits a step and donates the pool
-storage, the port writes the storage in place.  The dense, SSM and hybrid
+storage, the port writes the storage in place.  ``warm_steps`` is the
+port's counterpart of the JAX package's compile warm-up: on the card it
+captures each paged step — gather, model step, scatter, greedy token — as
+a CUDA graph per (kind, width, batch bucket), and the steps replay a
+graph when one was captured for their shape.  The dense, SSM and hybrid
 families are served; an SSM model's streams hold a state slot and no
 ring pages, so they take the pool's state-slot paths and never share a
 prompt prefix (the JAX engine shares prefixes only for models with ring
@@ -39,15 +53,15 @@ layers and a state slot for its recurrent layers: a prompt prefix is
 shared through the state checkpoints the pool snaps at page boundaries,
 and a spill carries the state leaves with the pages.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): speculative decoding, the asynchronous swap tier, the slot monolith
-(``paged=False``), the eager allocator (``lazy=False``), the per-token
-scan chunk path (``prefill_mode="scan"``), ``measured_model_steps`` and
-``warm_steps``.
+Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A item
+6): the slot monolith (``paged=False``), the eager allocator
+(``lazy=False``) and the per-token scan chunk path
+(``prefill_mode="scan"``).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import itertools
 import math
 import time
@@ -59,15 +73,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.controller import ControllerConfig, Decision
 from repro_torch.core.costmodel import kv_bypass_floor_bytes, \
-    kv_transfer_seconds, prefill_chunk_bytes, prefill_chunk_score_bytes
+    kv_transfer_seconds, prefill_chunk_bytes, prefill_chunk_score_bytes, \
+    spec_rejected_bytes, spec_rollback_bytes
 from repro_torch.core.layout import Layout
 from repro_torch.core.scheduler import GlobalScheduler, TieredQueues
 from repro_torch.core.tasks import BLOCK, WaitQueue
 from repro_torch.core.topology import ChipletTopology
-from repro_torch.launch.steps import make_serve_chunk_step, make_serve_step
+from repro_torch.launch.steps import make_serve_chunk_step, \
+    make_serve_step, make_spec_verify_step
 from repro_torch.models import decode as dec
 from repro_torch.models.params import PORTED_FAMILIES, init_params
 from repro_torch.serving.kvpool import KVBlockPool, KVTable, kv_bytes_exact
+from repro_torch.serving.spec import make_drafter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +168,16 @@ class EngineConfig:
     headroom: int = 0                  # blocks a lazy admission keeps free
                                        # after its first chunk
     prefix_share: bool = True          # hash-matched prefix caching
-    spec_decode: str = "off"           # speculative decoding (not ported)
+    spec_decode: str = "off"           # speculative decoding: "ngram"
+                                       # drafts up to spec_k tokens a
+                                       # decode tick from the stream's own
+                                       # committed tokens and verifies them
+                                       # in ONE fused chunk forward (greedy
+                                       # acceptance: token-identical to
+                                       # "off" by construction)
+    spec_k: int = 4                    # max draft tokens per tick
+    spec_ngram: int = 3                # longest n-gram the prompt-lookup
+                                       # drafter matches on
     cached_retention: str = "access"   # cached prefix-page reclaim order
     slo_classes: Dict[str, ClassSLO] = dataclasses.field(
         default_factory=lambda: dict(DEFAULT_SLO_CLASSES))
@@ -160,7 +186,12 @@ class EngineConfig:
     spill_watermarks: Optional[Tuple[float, float]] = None
                                        # (high, low) occupancy marks for
                                        # proactive spill; None = watchdog only
-    async_swap: bool = False           # overlapped spills (not ported)
+    async_swap: bool = False           # overlap spills behind the token
+                                       # loop: the pressure ladder ISSUES
+                                       # the D2H copy and keeps ticking,
+                                       # landing it (and re-granting the
+                                       # victim's pages) at a later poll;
+                                       # False = issue + immediate fence
     controller: ControllerConfig = dataclasses.field(
         default_factory=lambda: ControllerConfig(
             scheduler_timer=8, threshold=4.0, min_dwell=2))
@@ -170,16 +201,11 @@ def _unported(ecfg: EngineConfig) -> Optional[str]:
     """The first option of ``ecfg`` that selects a path not ported yet,
     with its ROADMAP item."""
     if not ecfg.paged:
-        return "paged=False (the slot-monolith cache): ROADMAP A6"
+        return "paged=False (the slot-monolith cache): ROADMAP A item 6"
     if not ecfg.lazy:
-        return "lazy=False (the eager make_prefill path): ROADMAP A6"
+        return "lazy=False (the eager make_prefill path): ROADMAP A item 6"
     if ecfg.prefill_mode == "scan":
-        return "prefill_mode='scan' (chunk_decode_step): ROADMAP A3"
-    if ecfg.spec_decode != "off":
-        return f"spec_decode={ecfg.spec_decode!r} (serving/spec.py): " \
-               "ROADMAP A6"
-    if ecfg.async_swap:
-        return "async_swap=True (the overlapped swap tier): ROADMAP A6"
+        return "prefill_mode='scan' (chunk_decode_step): ROADMAP A item 6"
     return None
 
 
@@ -249,6 +275,49 @@ def _bucket(n: int, cap: int) -> int:
     return min(b, cap)
 
 
+class _StepGraph:
+    """A paged step captured as a CUDA graph at one (kind, width, batch
+    bucket).  The step's five int32 inputs are static device buffers the
+    replay copies the host arrays into; the graph reads the pool storage
+    and the weights at the addresses they had at capture, which ``replay``
+    checks."""
+
+    def __init__(self, run, shapes, device, pool, leaves):
+        self.inputs = [torch.zeros(shape, dtype=torch.int32, device=device)
+                       for shape in shapes]
+        # the first call runs eagerly (lazy library and kernel set-up stays
+        # out of the capture), on the current stream: a side stream of its
+        # own would get a cuBLAS workspace of its own, kept for the process
+        run(*self.inputs)
+        # collect dead engines now: a collection during the capture would
+        # destroy their graphs, which CUDA forbids while a stream captures
+        gc.collect()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.out = run(*self.inputs)
+        self.ptrs = [t.data_ptr() for t in leaves]
+        self.replays = 0
+
+    def replay(self, arrays, leaves) -> np.ndarray:
+        ptrs = [t.data_ptr() for t in leaves]
+        if ptrs != self.ptrs:
+            moved = sum(a != b for a, b in zip(ptrs, self.ptrs))
+            raise RuntimeError(f"{moved} pool storage or weight tensors "
+                               "moved since the step's CUDA graph was "
+                               "captured")
+        for buf, a in zip(self.inputs, arrays):
+            buf.copy_(torch.from_numpy(a))
+        self.graph.replay()
+        self.replays += 1
+        return self.out.cpu().numpy()
+
+
+def _tree_tensors(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tree_tensors(tree[k])]
+    return [tree]
+
+
 class ServeEngine:
     """``ServeEngine(cfg, topology, ecfg, seed=0, device="cuda")``.
 
@@ -272,6 +341,8 @@ class ServeEngine:
             raise ValueError(f"unknown prefill_mode {ecfg.prefill_mode!r}")
         if ecfg.chunk_kernel not in ("blocked", "dense"):
             raise ValueError(f"unknown chunk_kernel {ecfg.chunk_kernel!r}")
+        if ecfg.spec_decode not in ("off", "ngram"):
+            raise ValueError(f"unknown spec_decode {ecfg.spec_decode!r}")
         if not ecfg.slo_classes:
             raise ValueError("slo_classes must name at least one class")
         self.device = torch.device(device)
@@ -300,6 +371,7 @@ class ServeEngine:
         self.submitted: List[Request] = []
         self.relayouts: List[Dict] = []
         self._chunk_kernel = ecfg.chunk_kernel
+        self._async = ecfg.async_swap
         self._parked: Dict[int, _Parked] = {}
         self._park_seq = itertools.count()
         self._progress_mark = -1.0
@@ -329,10 +401,6 @@ class ServeEngine:
         self.pool.on_free(self._on_pool_free)
         if ecfg.spill_watermarks is not None:
             self.pool.set_watermarks(*ecfg.spill_watermarks)
-        self._decode_step = make_serve_step(cfg)
-        self._chunk_step = make_serve_chunk_step(
-            cfg, self.pool.spec, mode="parallel",
-            chunk_kernel=self._chunk_kernel)
         ml = ecfg.max_len
         self._kv_fn = lambda n: kv_bytes_exact(cfg, n, ml)
         self._share = ecfg.prefix_share and self.pool.pages_per_stream > 0
@@ -342,6 +410,29 @@ class ServeEngine:
         self._chunk = ecfg.prefill_chunk or (
             self.pool.block_tokens if self.pool.pages_per_stream
             else ecfg.block_tokens)
+        # speculative decoding rides the chunk path: drafted decode streams
+        # become small-chunk rows verified through an all-position-logits
+        # variant of the same fused forward, at this narrow width
+        self._spec = (ecfg.spec_decode != "off" and ecfg.spec_k > 0
+                      and self._chunk > 1)
+        self.drafter = (make_drafter(ecfg.spec_decode, ngram=ecfg.spec_ngram)
+                        if self._spec else None)
+        self._spec_w = min(ecfg.spec_k + 1, self._chunk) if self._spec \
+            else 0
+        self._steps = {
+            "decode": self._paged_step("decode", make_serve_step(cfg)),
+            "chunk": self._paged_step("chunk", make_serve_chunk_step(
+                cfg, self.pool.spec, mode="parallel",
+                chunk_kernel=self._chunk_kernel))}
+        if self._spec:
+            self._steps["spec"] = self._paged_step(
+                "spec", make_spec_verify_step(
+                    cfg, self.pool.spec, mode="parallel",
+                    chunk_kernel=self._chunk_kernel))
+        # CUDA graphs of the paged steps, by (kind, width, batch bucket),
+        # captured by warm_steps into one memory pool
+        self._graphs: Dict[Tuple[str, int, int], _StepGraph] = {}
+        self._graph_pool = None
         self._build_groups()
         self.sched.register_relayout(self._relayout)
 
@@ -612,6 +703,9 @@ class ServeEngine:
         old_groups = self.groups
         if new_layout.replicas == len(old_groups):
             return
+        # quiesce the transfer engine: tables must not be harvested or
+        # re-pointed with a D2H copy still on the wire
+        self.pool.drain()
         # harvest in-flight streams and queued requests from the dissolving
         # groups; KV stays in the pool (tables move, data does not — except
         # the used pages of rebalanced streams).  Parked streams need no
@@ -667,12 +761,35 @@ class ServeEngine:
     def _tensor(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _paged_step(self, kind: str, step):
+        """Paged step ``kind`` ("decode", "chunk" or "spec") as a function
+        of its five int32 device inputs — tables (B, P), state slots (B,),
+        tokens (B, W), pos (B,), n_tokens (B,) — returning the greedy token
+        per row (-1 for rows with ``n_tokens == 0``), or for "spec" the
+        argmax after every fed token (B, W).  Reads nothing on the host,
+        so a CUDA graph can hold it."""
+        spec = self.pool.spec
+
+        def run(tables, slots, tokens, pos, n):
+            view = dec.gather_cache_view(self.pool.storage, spec, tables,
+                                         slots)
+            if kind == "decode":
+                logits, view = step(self.params, view, tokens, pos)
+            else:
+                logits, view = step(self.params, view, tokens, pos, n)
+            dec.scatter_cache_view(self.pool.storage, spec, tables, slots,
+                                   view)
+            if kind == "spec":
+                return logits.argmax(dim=-1).to(torch.int32)
+            return dec.next_token_ids(logits, n)
+
+        return run
+
     def _indices(self, reqs: List[Optional[Request]]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Null-padded (B, P) page tables and (B,) state slots on the
-        device.  Partially-grown tables pad their unallocated tail with
-        the null block — those ring positions are past ``pos`` and never
-        read."""
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """Null-padded (B, P) page tables and (B,) state slots.
+        Partially-grown tables pad their unallocated tail with the null
+        block — those ring positions are past ``pos`` and never read."""
         P = self.pool.pages_per_stream
         tables = np.zeros((len(reqs), P), np.int32)
         slots = np.zeros((len(reqs),), np.int32)
@@ -681,33 +798,38 @@ class ServeEngine:
                 t = req.table
                 tables[i, :len(t.blocks)] = t.blocks
                 slots[i] = t.state_slot
-        return self._tensor(tables), self._tensor(slots)
+        return tables, slots
+
+    def _run_step(self, kind: str, reqs, tokens, pos, n) -> np.ndarray:
+        """Run step ``kind`` over ``reqs``' pages (None rows point at the
+        null page and state slot): the CUDA graph captured for its shape
+        when there is one, else eagerly."""
+        tables, slots = self._indices(reqs)
+        args = (tables, slots, np.ascontiguousarray(tokens, np.int32),
+                np.ascontiguousarray(pos, np.int32),
+                np.ascontiguousarray(n, np.int32))
+        graph = self._graphs.get((kind, args[2].shape[1], len(reqs)))
+        if graph is not None:
+            return graph.replay(args, self._graph_leaves())
+        return self._steps[kind](*map(self._tensor, args)).cpu().numpy()
 
     def _paged_decode(self, reqs, tokens, pos) -> np.ndarray:
-        """Single-token step over ``reqs``' pages (None rows point at the
-        null page); returns the greedy token per row."""
-        spec = self.pool.spec
-        tables, slots = self._indices(reqs)
-        view = dec.gather_cache_view(self.pool.storage, spec, tables, slots)
-        logits, view = self._decode_step(self.params, view,
-                                         self._tensor(tokens),
-                                         self._tensor(pos))
-        dec.scatter_cache_view(self.pool.storage, spec, tables, slots, view)
-        n = (np.asarray([r is not None for r in reqs], np.int32))
-        return dec.next_token_ids(logits, self._tensor(n)).cpu().numpy()
+        """Single-token step over ``reqs``' pages; returns the greedy
+        token per row (-1 for None rows)."""
+        n = np.asarray([r is not None for r in reqs], np.int32)
+        return self._run_step("decode", reqs, tokens, pos, n)
 
     def _paged_chunk(self, reqs, tokens, pos, n_tokens) -> np.ndarray:
         """Fused multi-token chunk step over ``reqs``' pages; returns the
         greedy token per row (-1 for rows with ``n_tokens == 0``)."""
-        spec = self.pool.spec
-        tables, slots = self._indices(reqs)
-        view = dec.gather_cache_view(self.pool.storage, spec, tables, slots)
-        n = self._tensor(n_tokens)
-        logits, view = self._chunk_step(self.params, view,
-                                        self._tensor(tokens),
-                                        self._tensor(pos), n)
-        dec.scatter_cache_view(self.pool.storage, spec, tables, slots, view)
-        return dec.next_token_ids(logits, n).cpu().numpy()
+        return self._run_step("chunk", reqs, tokens, pos, n_tokens)
+
+    def _paged_spec(self, reqs, tokens, pos, n_tokens) -> np.ndarray:
+        """The speculative VERIFY step: the chunk step's gather -> masked
+        forward -> scatter, returning the greedy token after EVERY fed
+        token (B, W).  The cache commits optimistically; rejected suffixes
+        roll back from the pool's checkpoints."""
+        return self._run_step("spec", reqs, tokens, pos, n_tokens)
 
     # -- elastic growth / mid-decode parking ---------------------------------
     def _next_chunk_need(self, req: Request, pos: int) -> Tuple[int, int]:
@@ -761,7 +883,17 @@ class ServeEngine:
         while True:
             if rec.evicted:
                 return
+            if req.table is not None and req.table.inflight:
+                # our own spill is still on the wire: the fence-before-
+                # regrant invariant freezes the table until it lands (the
+                # landing's free callback wakes the line head)
+                yield BLOCK
+                continue
             if self.waiters.oldest() is not rec.cell["task"]:
+                if self._async and req.table.spill is not None:
+                    # not our turn yet: stage the H2D upload behind the
+                    # ticks ahead of us
+                    self.pool.restore_prefetch(req.table)
                 yield BLOCK             # not our turn
                 continue
             if req.table.spill is not None:
@@ -813,6 +945,11 @@ class ServeEngine:
         ``stall_evict_rounds`` rounds while streams sit parked — the
         watchdog spills (or evicts) the most-recently-parked stream."""
         self._round += 1
+        if self._async:
+            # poll phase of the ladder: land every transfer whose copy has
+            # completed — landings fire the free callback, so re-grants
+            # happen here, not at issue
+            self.pool.spill_poll()
         if len(self.waiters):
             self.counters.add("kv_head_wait_ticks", 1)
         head = self.waiters.oldest()
@@ -822,7 +959,10 @@ class ServeEngine:
         elif hid is not None:
             self._head_wait += 1
         if self._parked:
+            infl = self.pool.inflight_domains() if self._async else set()
             for d in self.pool.watermark_domains():
+                if d in infl:
+                    continue            # its frees are already in the pipe
                 if self._spill_parked(domain=d):
                     self.pool.watermark_arm(d)
                     self.counters.add("kv_proactive_spills", 1)
@@ -841,7 +981,12 @@ class ServeEngine:
                                                      0.0) > 0
                         and self._head_wait >= self.ecfg.stall_evict_rounds)
         if stalled and self._parked:
-            if self.ecfg.evict_mode == "swap" and self._spill_youngest():
+            if self._async and self.pool.inflight_tables():
+                # a spill is already on the wire: fence it instead of
+                # issuing another — the landing re-grants the victim's
+                # pages, which is the progress the watchdog wants
+                self.pool.spill_fence()
+            elif self.ecfg.evict_mode == "swap" and self._spill_youngest():
                 self.counters.add("kv_watchdog_spills", 1)
             else:
                 self._evict_youngest()
@@ -856,6 +1001,10 @@ class ServeEngine:
                     and hr.req.table.spill is None:
                 dom = hr.req.table.domain
             ex = hr.req.rid if hr is not None else None
+            if self._async and self.pool.inflight_tables():
+                self.pool.spill_fence()     # land the pipe before adding
+                self._head_wait = 0         # to it
+                return
             if self.ecfg.evict_mode == "swap" and (
                     self._spill_parked(domain=dom, exclude_rid=ex)
                     or (dom is not None
@@ -877,12 +1026,19 @@ class ServeEngine:
         to spill."""
         cands = [r for r in self._parked.values()
                  if r.req.table is not None and r.req.table.spill is None
+                 and not r.req.table.inflight
                  and r.req.table.blocks
                  and r.req.rid != exclude_rid
                  and (domain is None or r.req.table.domain == domain)]
         if not cands:
             return False
-        rec = max(cands, key=lambda r: r.seq)
+        if self._async and domain is not None:
+            # async ladder, domain-scoped rungs: the §4.5 access counters
+            # pick the victim — min ``last_touch`` is the parked stream
+            # whose pages have gone longest without a decode tick
+            rec = min(cands, key=lambda r: (r.req.table.last_touch, r.seq))
+        else:
+            rec = max(cands, key=lambda r: r.seq)
         task = rec.cell.get("task")
         if task is not None:
             # demote BEFORE spilling: the spill's free callback wakes the
@@ -891,7 +1047,12 @@ class ServeEngine:
             if ns is not None:
                 rec.req.wq_seq = ns
                 self._wait_round[task.id] = self._round
-        self.pool.spill(rec.req.table)  # frees pages -> wakes the head
+        if self._async:
+            # issue only: the D2H copy drains behind the token loop and the
+            # victim's pages re-grant at the poll that lands it
+            self.pool.spill_issue(rec.req.table)
+        else:
+            self.pool.spill(rec.req.table)  # frees pages -> wakes the head
         rec.seq = next(self._park_seq)  # its park is "fresh" again
         return True
 
@@ -992,24 +1153,168 @@ class ServeEngine:
         self.counters.add("decode_gather_null_rows", Bd - len(deco_rows))
         return nxt
 
+    def _draft_for(self, req: Request, pos: int) -> List[int]:
+        """Up to spec_k draft tokens for a DECODE stream — empty during
+        prefill, near max_new (the verify chunk's free boundary token must
+        never overrun the budget), or when the drafter has nothing.
+        Proposals are sanitized (in-vocab prefix) but never trusted: the
+        verify forward is the only thing that commits tokens."""
+        if pos < len(req.prompt):
+            return []
+        k = min(self.ecfg.spec_k, self._spec_w - 1,
+                req.max_new - len(req.generated) - 1)
+        if k <= 0:
+            return []
+        out: List[int] = []
+        for t in self.drafter.draft(req, k)[:k]:
+            t = int(t)
+            if not 0 <= t < self.cfg.vocab:
+                break
+            out.append(t)
+        return out
+
+    def _spec_rows(self, g: _Group, toks, rows: List[Tuple[int, int]]):
+        """(requests, tokens, pos, n_tokens) of ``rows`` — (slot, tokens
+        it feeds) — compacted into a pow-2 bucket at the spec width."""
+        W = self._spec_w
+        Bs = _bucket(len(rows), self.ecfg.max_batch)
+        toks_s = np.zeros((Bs, W), np.int32)
+        pos_s = np.zeros((Bs,), np.int32)
+        n_s = np.zeros((Bs,), np.int32)
+        for j, (i, n) in enumerate(rows):
+            toks_s[j, :n] = toks[i, :n]
+            pos_s[j] = g.pos_h[i]
+            n_s[j] = n
+        reqs = [g.slots[i] for i, _ in rows] + [None] * (Bs - len(rows))
+        return reqs, toks_s, pos_s, n_s
+
+    def _spec_verify(self, g: _Group, toks, n_h,
+                     drafts: Dict[int, List[int]]) -> Dict[int, np.ndarray]:
+        """The verify half: ONE all-position-logits fused chunk forward
+        over the drafted rows, compacted into their own pow-2 bucket at
+        the narrow spec width (drafted rows never share a step with
+        prefill chunks or plain decode rows, so those paths stay exactly
+        the spec-off engine's).  The cache commits optimistically.
+        Returns row -> the greedy token after each of its n_i fed
+        tokens."""
+        rows = [(i, int(n_h[i])) for i in sorted(drafts)]
+        am = self._paged_spec(*self._spec_rows(g, toks, rows))
+        self.counters.add("spec_verify_forwards", 1)
+        self.counters.add("spec_row_forwards", len(rows))
+        return {i: am[j, :n] for j, (i, n) in enumerate(rows)}
+
+    def _spec_reapply(self, g: _Group, toks, rows: List[Tuple[int, int]]):
+        """Re-apply the ACCEPTED prefix of each rolled-back draft row with
+        one masked chunk forward from the restored pre-verify state (its
+        tokens discarded — the verify pass already fixed the committed
+        tokens).  Causal masking makes this equivalent to having fed only
+        those tokens in the first place."""
+        self._paged_chunk(*self._spec_rows(g, toks, rows))
+        self.counters.add("spec_reapply_forwards", 1)
+        self.counters.add("spec_row_reapplies", len(rows))
+
+    def _verify_drafts(self, g: _Group, toks, n_h,
+                       drafts: Dict[int, List[int]]) -> Dict[int, List[int]]:
+        """The speculative half of a tick: checkpoint, verify, greedy
+        acceptance, rollback and re-apply.  Returns row -> committed
+        tokens (the accepted draft prefix plus the free boundary token).
+
+        Rollback needs, per row.  While the write window stays below the
+        ring width, rejected-suffix page writes are dead weight, never
+        wrong: they sit at or past the committed cursor and every read is
+        cursor-masked.  Once ``pos + n`` crosses the ring width a rejected
+        write at position p lands on slot p % W and destroys the live
+        position p - W, so the touched pages are snapshotted.  Recurrent
+        state always needs its snapshot: the slot holds the reduction over
+        all n fed tokens."""
+        self.counters.add("spec_ticks", 1)
+        ring_w = self.pool.spec.width if self.pool.pages_per_stream else 0
+        snap_rows: List[Tuple[KVTable, int, int, bool]] = []
+        snap_idx: List[int] = []
+        for i in sorted(drafts):
+            p0, nn = int(g.pos_h[i]), int(n_h[i])
+            wraps = bool(ring_w) and p0 + nn > ring_w
+            if self.pool.has_state or wraps:
+                snap_rows.append((g.slots[i].table, p0, nn, wraps))
+                snap_idx.append(i)
+        # one device gather snapshots every drafted row; a full accept
+        # drops the snapshot without any host copy
+        snaps = dict(zip(snap_idx, self.pool.checkpoint_rows(snap_rows))) \
+            if snap_rows else {}
+        am_rows = self._spec_verify(g, toks, n_h, drafts)
+        commits: Dict[int, List[int]] = {}
+        reapply: List[Tuple[int, int]] = []
+        rolled: List[dict] = []
+        for i in sorted(drafts):
+            n = int(n_h[i])
+            am = am_rows[i]
+            # accept the longest prefix where each draft token matches the
+            # verified argmax one position earlier; the token at the accept
+            # boundary comes free (full accept: k+1 tokens)
+            m = 0
+            while m < n - 1 and int(toks[i, m + 1]) == int(am[m]):
+                m += 1
+            commits[i] = [int(x) for x in am[:m + 1]]
+            self.counters.add("spec_tokens_drafted", n - 1)
+            self.counters.add("spec_tokens_accepted", m)
+            if m + 1 < n:
+                self.counters.add("spec_rollbacks", 1)
+                if m == 0:
+                    self.counters.add("spec_full_rejects", 1)
+                if i in snaps:
+                    rolled.append(snaps[i])
+                    reapply.append((i, m + 1))
+        if rolled:
+            self.pool.rollback_rows(rolled)     # one batched scatter
+        if reapply:
+            self._spec_reapply(g, toks, reapply)
+        drafted = self.counters.totals.get("spec_tokens_drafted", 0.0)
+        if drafted:
+            self.counters.set(
+                "spec_accept_rate",
+                self.counters.totals.get("spec_tokens_accepted", 0.0)
+                / drafted)
+        return commits
+
     def _decode_tick(self, g: _Group):
         """ONE engine tick for the group: every occupied slot consumes its
         next tokens — a page-sized prompt chunk for streams still in
-        prefill, the last generated token for decode streams.  Tables grow
-        (or park their stream) before the step writes any bytes."""
+        prefill, the last generated token (plus up to spec_k drafted
+        tokens when speculative decoding is on) for decode streams.
+        Tables grow (or park their stream) before the step writes any
+        bytes."""
         B = self.ecfg.max_batch
         n_h = np.zeros((B,), np.int32)
         chunked = False
+        drafts: Dict[int, List[int]] = {}
         for i in range(B):
             req = g.slots[i]
             if req is None:
                 continue
             pos = int(g.pos_h[i])
+            self.pool.touch_table(req.table)
             n, need = self._next_chunk_need(req, pos)
+            d = self._draft_for(req, pos) if self._spec else []
+            if d:
+                # a drafted decode stream writes 1 + k positions this tick:
+                # growth and CoW cover the full draft width BEFORE the
+                # optimistic verify forward touches pages
+                n = 1 + len(d)
+                need = self.pool.pages_needed(pos + n) - len(req.table.blocks)
             forks = (self.pool.fork_pages(req.table, pos, n)
                      if self._share else [])
             grown = not (self.pool.pages_per_stream and (need > 0 or forks)) \
                 or self._grow_stream(req, g, max(need, 0), tuple(forks))
+            if not grown and d:
+                # speculation is opportunistic: under memory pressure drop
+                # the draft and retry as a plain decode, so spec never
+                # parks a stream the non-speculative engine would have run
+                d = []
+                n, need = self._next_chunk_need(req, pos)
+                forks = (self.pool.fork_pages(req.table, pos, n)
+                         if self._share else [])
+                grown = not (need > 0 or forks) or self._grow_stream(
+                    req, g, max(need, 0), tuple(forks))
             if not grown:
                 self._park_stream(g, i)
                 continue
@@ -1017,14 +1322,22 @@ class ServeEngine:
                 # writing into a published page forks the page's index
                 # entry off it (the OLD block keeps its entry)
                 self.pool.note_writes(req.table, pos, n)
+            if d:
+                drafts[i] = d
             n_h[i] = n
-            chunked = chunked or n > 1
+            # drafted rows run their OWN verify half; "chunked" tracks only
+            # real prefill chunks, so the spec-off paths stay unchanged
+            chunked = chunked or (n > 1 and i not in drafts)
         if not n_h.any():
             return
+        if self.pool.inflight_tables():
+            # the overlap clock: a model tick ran with at least one D2H
+            # transfer on the wire
+            self.counters.add("kv_ticks_while_inflight", 1)
         # per-stream token feed: the next prompt slice for streams still in
         # prefill (a final chunk may hold a single token), the last emitted
-        # token for decode streams
-        C = self._chunk if chunked else 1
+        # token — plus its draft continuation — for decode streams
+        C = self._chunk if chunked else (self._spec_w if drafts else 1)
         toks = np.zeros((B, C), np.int32)
         for i in range(B):
             req = g.slots[i]
@@ -1035,29 +1348,45 @@ class ServeEngine:
                 toks[i, :n_h[i]] = req.prompt[pos:pos + n_h[i]]
             else:
                 toks[i, 0] = g.tok_h[i]
-        deco_rows = [i for i in range(B) if n_h[i] == 1]
+                d = drafts.get(i)
+                if d:
+                    toks[i, 1:1 + len(d)] = d
+        # drafted rows are carved out of the regular steps (n_eff = 0:
+        # their rows point at the null page or feed no token) — they run
+        # through the verify half below, so prefill chunks and plain decode
+        # rows run exactly the steps the spec-off engine runs
+        n_eff = n_h.copy()
+        for i in drafts:
+            n_eff[i] = 0
+        deco_rows = [i for i in range(B) if n_eff[i] == 1]
         if chunked:
             self.counters.add("chunk_ticks", 1)
             self.counters.add("prefill_model_steps", 1)
             if self.ecfg.split_ticks and deco_rows:
-                nxt = self._split_tick(g, n_h, toks, C, deco_rows)
+                nxt = self._split_tick(g, n_eff, toks, C, deco_rows)
             else:
                 if deco_rows:
                     # single-token streams ride the C-wide step: C-1 of
                     # their query rows are masked waste
                     self.counters.add("decode_masked_query_rows",
                                       (C - 1) * len(deco_rows))
-                nxt = self._paged_chunk(list(g.slots), toks, g.pos_h, n_h)
-        else:
+                nxt = self._paged_chunk(list(g.slots), toks, g.pos_h, n_eff)
+        elif deco_rows:
+            # the single-token step has no per-row length mask: drafted and
+            # idle rows point at the null page and state slot
             nxt = self._paged_decode(
-                [g.slots[i] if n_h[i] else None for i in range(B)],
+                [g.slots[i] if n_eff[i] else None for i in range(B)],
                 toks[:, :1], g.pos_h)
+        else:
+            nxt = np.full((B,), -1, np.int32)   # pure-spec tick
         if deco_rows:
             self.counters.add("decode_row_forwards", sum(
                 1 for i in deco_rows
                 if int(g.pos_h[i]) >= len(g.slots[i].prompt)))
             if not chunked or self.ecfg.split_ticks:
                 self.counters.add("decode_forwards", 1)
+        commits = self._verify_drafts(g, toks, n_h, drafts) if drafts \
+            else {}
         now = self._clock()
         for i in range(B):
             req = g.slots[i]
@@ -1065,27 +1394,40 @@ class ServeEngine:
                 continue
             S = len(req.prompt)
             pos0 = int(g.pos_h[i])
-            new_pos = pos0 + int(n_h[i])
-            g.pos_h[i] = new_pos
-            self.counters.add("tokens_processed", int(n_h[i]))
-            if pos0 >= S:
-                self.counters.add("decode_committed_tokens", 1)
-            if pos0 < S:
-                self.counters.add("prefill_chunks", 1)
-                req.table.used_pages = min(len(req.table.blocks),
-                                           self.pool.pages_needed(new_pos))
-                if self._share and req.page_keys:
-                    # publish the prompt pages this chunk completed
-                    self.pool.register_prefix(req.table, req.page_keys,
-                                              pos0, new_pos, S)
-                if new_pos < S:
-                    continue            # mid-prompt: no token emitted yet
-                req.t_first = now
-                self.counters.add("prefills", 1)
-            tok = int(nxt[i])
-            assert tok >= 0, f"idle slot {i} emitted a token"
-            req.generated.append(tok)
-            g.tok_h[i] = tok
+            if i in commits:
+                # a drafted decode row commits its verified tokens; the
+                # cursor lands on the last ACCEPTED position, so a park or
+                # spill next tick saves exactly this state
+                out = commits[i]
+                new_pos = pos0 + len(out)
+                g.pos_h[i] = new_pos
+                self.counters.add("tokens_processed", len(out))
+                self.counters.add("decode_committed_tokens", len(out))
+                for tok in out:
+                    assert tok >= 0, f"spec slot {i} emitted a sentinel"
+                    req.generated.append(tok)
+            else:
+                new_pos = pos0 + int(n_h[i])
+                g.pos_h[i] = new_pos
+                self.counters.add("tokens_processed", int(n_h[i]))
+                if pos0 >= S:
+                    self.counters.add("decode_committed_tokens", 1)
+                if pos0 < S:
+                    self.counters.add("prefill_chunks", 1)
+                    req.table.used_pages = min(len(req.table.blocks),
+                                               self.pool.pages_needed(new_pos))
+                    if self._share and req.page_keys:
+                        # publish the prompt pages this chunk completed
+                        self.pool.register_prefix(req.table, req.page_keys,
+                                                  pos0, new_pos, S)
+                    if new_pos < S:
+                        continue            # mid-prompt: no token emitted yet
+                    req.t_first = now
+                    self.counters.add("prefills", 1)
+                tok = int(nxt[i])
+                assert tok >= 0, f"idle slot {i} emitted a token"
+                req.generated.append(tok)
+            g.tok_h[i] = req.generated[-1]
             req.table.used_pages = min(len(req.table.blocks),
                                        self.pool.pages_needed(new_pos))
             if len(req.generated) >= req.max_new:
@@ -1119,7 +1461,9 @@ class ServeEngine:
                  "kv_spilled_pages", "kv_restores", "recompute_tokens",
                  "mixed_tick_decode_rows_saved",
                  "kv_prefix_hits", "prefill_tokens_skipped",
-                 "kv_bypass_grants", "kv_head_wait_ticks")
+                 "spec_tokens_drafted", "spec_tokens_accepted",
+                 "spec_rollbacks", "kv_bypass_grants", "kv_head_wait_ticks",
+                 "kv_ticks_while_inflight", "kv_fence_waits")
         state = {"t": self._clock()}
         state.update({n: self.counters.totals.get(n, 0.0) for n in names})
 
@@ -1131,7 +1475,14 @@ class ServeEngine:
                    "kv_parks": cur["kv_alloc_failures"]
                    - state["kv_alloc_failures"],
                    "kv_shared_pages": float(self.pool.shared_pages()),
-                   "kv_shared_bytes": self.pool.shared_bytes()}
+                   "kv_shared_bytes": self.pool.shared_bytes(),
+                   "spec_accept_rate": self.counters.totals.get(
+                       "spec_accept_rate", 0.0),
+                   # transfer-engine gauges at sample time, not deltas
+                   "kv_spill_inflight_pages": float(
+                       self.pool.inflight_pages()),
+                   "kv_spill_inflight_bytes": float(
+                       self.pool.inflight_bytes())}
             for n in names[1:]:
                 out[n] = cur[n] - state[n]
             state.update(t=t1, **cur)
@@ -1151,19 +1502,115 @@ class ServeEngine:
                                       round_hook=self._stall_hook)
         finally:
             self._running = False
+            self.pool.drain()           # no transfer outlives the run
         return {"concurrency": trace, "counters": self.counters.snapshot(),
                 "relayouts": list(self.relayouts),
                 "decisions": [dataclasses.asdict(x)
                               for x in self.controller.decisions],
                 "kv": self.kv_stats()}
 
-    def measured_model_steps(self, *args, **kwargs) -> float:
-        raise NotImplementedError("measured_model_steps reads compiled HLO; "
-                                  "its port is ROADMAP A6")
+    # -- measured model steps and the CUDA-graph warm-up ----------------------
+    def _null_args(self, B: int, W: int) -> Tuple[np.ndarray, ...]:
+        """Step inputs of ``B`` null rows at width ``W``: tables at block
+        0, state slot 0, ``n_tokens = 0`` — written but never read, so
+        live caches pass through unchanged."""
+        z = np.zeros((B,), np.int32)
+        return (np.zeros((B, self.pool.pages_per_stream), np.int32), z,
+                np.zeros((B, W), np.int32), z, z)
 
-    def warm_steps(self, *args, **kwargs) -> int:
-        raise NotImplementedError("warm_steps pre-pays jit compiles; its "
-                                  "port is ROADMAP A6")
+    def _kind_width(self, kind: str, C: Optional[int]) -> int:
+        if kind == "decode":
+            return 1
+        if kind == "spec" and not self._spec:
+            raise ValueError("spec step not built: spec_decode is off")
+        if kind not in ("chunk", "spec"):
+            raise ValueError(f"unknown step kind {kind!r}")
+        return C or (self._chunk if kind == "chunk" else self._spec_w)
+
+    def measured_model_steps(self, kind: str = "chunk", *,
+                             C: Optional[int] = None, B: int = 1) -> float:
+        """Sequential model steps ONE call of a paged step runs, counted
+        rather than assumed: the walks the call makes through the layer
+        stack (``decode.layer_walks``), in one eager call on null rows.
+        ``kind`` is "decode", "chunk" or "spec" (the verify step); ``C``
+        the width (default: the engine's own for the kind).  The JAX
+        package counts the layer scan's trips in the compiled HLO."""
+        args = self._null_args(B, self._kind_width(kind, C))
+        walks = dec.layer_walks()
+        self._steps[kind](*map(self._tensor, args))
+        return float(dec.layer_walks() - walks)
+
+    def warm_steps(self, chunks: Tuple[int, ...] = (4, 8, 16)) -> int:
+        """Prepare the paged steps on the JAX package's grid — decode, the
+        chunk widths in ``chunks`` (clamped to the engine's chunk size)
+        and, when speculative decoding is on, the verify width — at every
+        pow-2 batch bucket up to ``max_batch``, on null rows.  On the card
+        each (kind, width, bucket) the serve loop dispatches (``_dispatches``)
+        is captured once as a CUDA graph (one eager call first, then the
+        capture; all graphs share one memory pool), and the steps replay
+        it from then on; the grid's other shapes, and on the CPU every
+        shape, run one eager call.  Returns the number of step calls, as
+        the JAX package's ``warm_steps`` (which compiles the whole grid)
+        does."""
+        calls = 0
+        widths = sorted({min(c, self._chunk) for c in chunks}
+                        | ({self._spec_w} if self._spec else set()))
+        B = 1
+        while B <= self.ecfg.max_batch:
+            keys = [("decode", 1, B)]
+            for W in widths:
+                keys.append(("chunk", W, B))
+                if self._spec and W == self._spec_w:
+                    keys.append(("spec", W, B))
+            for key in keys:
+                self._warm(*key)
+                calls += 1
+            B *= 2
+        # the pow-2 page-copy buckets behind migrations and prefix forks
+        # (the JAX package compiles them too): null-block self-copies
+        b = 1
+        while b <= self.pool.pages_per_stream:
+            dec.copy_pool_entries(self.pool.storage, self.pool.spec,
+                                  [0] * b, [0] * b)
+            calls += 1
+            b *= 2
+        return calls
+
+    def _dispatches(self, kind: str, W: int) -> bool:
+        """Whether the serve loop runs step ``kind`` at width ``W``: decode
+        at 1, the chunk step at the chunk size and (the reapply) at the
+        verify width, the verify step at its width."""
+        if kind == "decode":
+            return W == 1
+        widths = {self._spec_w} if self._spec else set()
+        if kind == "chunk":
+            widths.add(self._chunk)
+        return W in widths
+
+    def _warm(self, kind: str, W: int, B: int):
+        args = self._null_args(B, W)
+        if self.device.type != "cuda" or not self._dispatches(kind, W):
+            self._steps[kind](*map(self._tensor, args))
+            return
+        graph = self._graphs.get((kind, W, B))
+        if graph is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graphs[(kind, W, B)] = _StepGraph(
+                self._steps[kind], [a.shape for a in args], self.device,
+                self._graph_pool, self._graph_leaves())
+        else:
+            graph.replay(args, self._graph_leaves())
+
+    def _graph_leaves(self) -> List[torch.Tensor]:
+        """The tensors a captured step reads by address: the pool storage
+        and the weights."""
+        return _tree_tensors(self.pool.storage) + _tree_tensors(self.params)
+
+    def graph_replays(self) -> Dict[Tuple[str, int, int], int]:
+        """Replays of each captured graph, by (kind, width, batch
+        bucket)."""
+        return {k: g.replays for k, g in self._graphs.items()}
 
     # -- latency / pool stats --------------------------------------------------
     def kv_stats(self) -> Dict[str, float]:
@@ -1178,6 +1625,24 @@ class ServeEngine:
             kernel=self._chunk_kernel)
         s["chunk_kernel"] = self._chunk_kernel
         tot = self.counters.totals
+        # speculative decoding: acceptance totals, forward participations
+        # (the denominators of accepted tokens per model step) and the
+        # costmodel-priced bytes optimism wasted
+        s["spec_decode"] = self.ecfg.spec_decode if self._spec else "off"
+        for k in ("spec_ticks", "spec_verify_forwards",
+                  "spec_reapply_forwards", "spec_row_forwards",
+                  "spec_row_reapplies", "spec_tokens_drafted",
+                  "spec_tokens_accepted", "spec_rollbacks",
+                  "spec_full_rejects", "spec_accept_rate"):
+            s[k] = tot.get(k, 0.0)
+        s["spec_rejected_bytes"] = spec_rejected_bytes(
+            self.cfg, int(s["spec_tokens_drafted"] - s["spec_tokens_accepted"]))
+        s["spec_rollback_bytes"] = spec_rollback_bytes(
+            self.cfg, int(tot.get("kv_spec_ckpt_pages", 0.0)),
+            int(tot.get("kv_spec_rollback_pages", 0.0)),
+            self.pool.block_tokens,
+            ckpts=int(tot.get("kv_spec_ckpts", 0.0)),
+            rollbacks=int(s["spec_rollbacks"]))
         for k in ("mixed_tick_decode_rows_saved", "decode_gather_rows_saved",
                   "decode_masked_query_rows", "prefill_model_steps",
                   "chunk_ticks", "decode_forwards", "decode_row_forwards",
@@ -1194,6 +1659,13 @@ class ServeEngine:
         s["head_wait_ticks"] = tot.get("kv_head_wait_ticks", 0.0)
         s["proactive_spills"] = tot.get("kv_proactive_spills", 0.0)
         s["watchdog_spills"] = tot.get("kv_watchdog_spills", 0.0)
+        # async swap tier: decode ticks that ran with a transfer on the
+        # wire, rounds each landed spill hid behind, fences that waited
+        s["async_swap"] = bool(self._async)
+        s["ticks_while_inflight"] = tot.get("kv_ticks_while_inflight", 0.0)
+        s["overlap_rounds_per_spill"] = (
+            tot.get("kv_spill_overlap_rounds", 0.0)
+            / max(1.0, s.get("spills", 0.0)))
         s["d2h_seconds"] = kv_transfer_seconds(
             tot.get("kv_d2h_bytes", 0.0), self.topology.hw.d2h_bw)
         s["h2d_seconds"] = kv_transfer_seconds(

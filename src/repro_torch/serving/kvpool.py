@@ -61,9 +61,12 @@ footprint the old slot-monolith allocator used — or to a fraction of
 ``ChipletTopology.group_hbm()`` on a real fleet.
 
 The storage is one dict of tensors on one device (all domains share the
-card); the storage ops write it in place.  Spills are synchronous: the
-gather, the device-to-host copy into the swap tier and the page release
-happen in one call.
+card); the storage ops write it in place.  A spill runs in three phases
+(``spill_issue`` / ``spill_poll`` / ``spill_fence``): the issue snapshots
+the victim's pages on the compute stream and copies them to the pinned
+host tier on a side stream, the decode ticks go on, and the victim's
+pages are re-granted only when the copy has landed.  The synchronous
+``spill`` is issue + immediate fence.
 """
 from __future__ import annotations
 
@@ -75,15 +78,16 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, \
     Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.costmodel import kv_cache_bytes, kv_dedup_bytes, \
     kv_spill_bytes, prefill_chunk_bytes
 from repro_torch.core.counters import PerfCounters
-from repro_torch.launch.steps import make_prefix_fork, make_spill_gather, \
-    make_spill_scatter
+from repro_torch.launch.steps import make_prefix_fork, make_rows_gather, \
+    make_rows_scatter, make_spill_gather_async, make_spill_scatter
 from repro_torch.models import decode as dec
-from repro_torch.serving.swap import SwapTier
+from repro_torch.serving.swap import InFlightSpill, SwapTier
 
 
 def kv_bytes_exact(cfg: ModelConfig, n_tokens: int, max_len: int) -> float:
@@ -103,6 +107,8 @@ class SpillEntry:
     data: List[Any]                 # host leaves from extract_pool_entries
     had_state: bool = False         # a state slot rides in ``data``
     tier: Optional[Any] = None      # SwapTier handle backing ``data`` views
+    staged: Optional[List[Any]] = None  # H2D-prefetched device leaves
+    staged_event: Optional[Any] = None  # completes with the prefetch copy
 
 
 @dataclasses.dataclass
@@ -145,6 +151,13 @@ class KVTable:
     used_pages: int = 0             # pages actually written (prefill/decode)
     cap_pages: int = 0              # lazy mode: max pages this stream needs
     spill: Optional[SpillEntry] = None   # host payload while spilled
+    inflight: bool = False          # D2H spill issued, not landed: the
+    #                                 table still HOLDS its pages (regrant
+    #                                 happens only at the landing) and the
+    #                                 stream must not advance
+    last_touch: int = 0             # pool touch-clock at last decode tick
+    #                                 (§4.5 access counter: watermark
+    #                                 victims are the coldest-parked)
 
     @property
     def n_blocks(self) -> int:
@@ -216,8 +229,19 @@ class KVBlockPool:
         # the AGGREGATE spilled footprint exceeds device capacity (that is
         # the point of the second tier), so a 1x sizing overflows as soon
         # as two pool-sized victims are parked at once.
-        self._spill_gather = make_spill_gather(self.spec)
+        self._spill_gather_async = make_spill_gather_async(self.spec)
         self._spill_scatter = make_spill_scatter(self.spec)
+        self._rows_gather = make_rows_gather(self.spec)
+        self._rows_scatter = make_rows_scatter(self.spec)
+        # the transfer engine's side stream (None on the CPU, where every
+        # copy is synchronous) and its issued-but-unlanded spills; an
+        # entry means its table still holds pages and its stream is
+        # frozen at its park cursor
+        self.device = torch.device(device)
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
+        self._inflight: List[InFlightSpill] = []
+        self._poll_clock = 0
         self.swap = SwapTier(
             dec.tree_leaves(self.storage, self.spec), self.spec,
             capacity_pages=4 * n_domains * self.blocks_per_domain,
@@ -752,6 +776,13 @@ class KVBlockPool:
             raise ValueError(
                 f"growing past the table's cap ({len(table.blocks)}+"
                 f"{n_pages} > {cap} pages)")
+        if table.inflight:
+            # the victim is frozen until its D2H lands (fence-before-
+            # regrant): growing would advance a stream whose landed
+            # payload no longer matches.  Parks like a full domain; the
+            # landing's free callback retries.
+            self.counters.add("kv_grow_failures", 1)
+            return False
         if len(self._free_blocks[table.domain]) < n_pages:
             self.counters.add("kv_grow_failures", 1)
             return False
@@ -768,7 +799,11 @@ class KVBlockPool:
         SPILLED table drops its host payload too (the restart-eviction
         fallback path).  Shared pages only DECREF — they stay resident for
         their other holders (and for future prefix matches: a page whose
-        last holder lets go parks on the free list still cached)."""
+        last holder lets go parks on the free list still cached).  A table
+        with a spill IN FLIGHT is fenced first — its payload lands, then
+        drops — so the transfer engine never references a dead table."""
+        if table.inflight:
+            self.spill_fence(table, count_wait=False)
         for b in sorted(table.blocks):
             self._release_block(b)
         if self.has_state and table.state_slot:
@@ -788,6 +823,130 @@ class KVBlockPool:
         self._on_free.append(cb)
 
     # -- swap tier: spill parked pages to host instead of discarding them --
+    #
+    # The transfer engine splits a spill into ISSUE / POLL / FENCE phases:
+    # ``spill_issue`` snapshots the victim's pages on the compute stream,
+    # starts their copy into the pinned host tier on the side stream and
+    # returns — the decode ticks keep running while it drains;
+    # ``spill_poll`` lands every transfer whose event has completed;
+    # ``spill_fence`` blocks until specific (or all) transfers land.  The
+    # victim's pages are RE-GRANTED ONLY AT THE LANDING (fence-before-
+    # regrant): until then the table keeps its blocks and the free
+    # callbacks stay silent, so nobody can allocate a page whose bytes are
+    # still in motion.  The victim stream itself is frozen at its park
+    # cursor.  The synchronous ``spill`` is issue + immediate fence.
+    def touch_table(self, table: KVTable):
+        """§4.5 access counter: stamp a table at every decode tick it ran
+        in.  Parked tables stop accumulating, so the coldest-parked victim
+        (min ``last_touch``) is the one whose pages have gone longest
+        without an access."""
+        self._touch_clock += 1
+        table.last_touch = self._touch_clock
+
+    def spill_issue(self, table: KVTable) -> int:
+        """Issue the D2H copy of a table's used pages (+ state slot) and
+        return at once — the copy drains behind the token loop.  Returns
+        the pages now in flight (0 = already spilled or already in
+        flight)."""
+        if table.spill is not None or table.inflight:
+            return 0
+        used = min(table.used_pages, len(table.blocks))
+        had_state = bool(self.has_state and table.state_slot)
+        handle = self.swap.reserve(used, had_state)
+        event = self._spill_gather_async(
+            self.storage, table.blocks[:used],
+            state_slot=table.state_slot if had_state else None,
+            out=handle.raw, stream=self._copy_stream)
+        rec = InFlightSpill(
+            table=table, pages=used, had_state=had_state, handle=handle,
+            event=event, issue_clock=self._poll_clock,
+            n_bytes=kv_spill_bytes(self.cfg, used, self.block_tokens,
+                                   had_state))
+        table.inflight = True
+        self._inflight.append(rec)
+        self.counters.add("kv_spill_issues", 1)
+        self.counters.add("kv_d2h_bytes", rec.n_bytes)
+        self._gauges()
+        return used
+
+    def _land_spill(self, rec: InFlightSpill):
+        """Completion half of a spill: the payload is home in the tier, so
+        free the victim's device pages to the wait-line head and fire the
+        free callbacks."""
+        table = rec.table
+        table.spill = SpillEntry(pages=rec.pages, data=rec.handle.views,
+                                 had_state=rec.had_state, tier=rec.handle)
+        # the payload COPIED every used page (shared ones included), so
+        # releasing shared pages here is safe: the other holders keep the
+        # device copy, this table restores a private one
+        for b in sorted(table.blocks):
+            self._release_block(b)
+        if rec.had_state:
+            self._free_states[table.domain].append(table.state_slot)
+        self.counters.add("kv_blocks_freed", len(table.blocks))
+        self.counters.add("kv_spills", 1)
+        self.counters.add("kv_spilled_pages", rec.pages)
+        self.counters.add("kv_spill_overlap_rounds",
+                          self._poll_clock - rec.issue_clock)
+        table.blocks = []
+        table.state_slot = 0
+        table.inflight = False
+        self.spilled_tables += 1
+        self.spilled_bytes += rec.n_bytes
+        self.peak_spilled_bytes = max(self.peak_spilled_bytes,
+                                      self.spilled_bytes)
+        self._gauges()
+        for cb in self._on_free:
+            cb()
+
+    def spill_poll(self) -> int:
+        """Land every in-flight spill whose copy has completed; never
+        blocks.  One call per engine round is the poll phase of the
+        pressure ladder (and the overlap clock: rounds between issue and
+        landing are decode rounds the transfer hid behind)."""
+        self._poll_clock += 1
+        done = [r for r in self._inflight if r.ready()]
+        for r in done:
+            self._inflight.remove(r)
+            self._land_spill(r)
+        return len(done)
+
+    def spill_fence(self, table: Optional[KVTable] = None, *,
+                    count_wait: bool = True) -> int:
+        """Block until the given table's transfer (or ALL transfers with
+        ``table=None``) lands — the drain path for shutdown, relayout,
+        eviction and the watchdog's stalled rung.  ``count_wait`` records
+        a ``kv_fence_waits`` event when the fence actually had to wait
+        (synchronous ``spill`` fences unconditionally and doesn't count)."""
+        recs = [r for r in self._inflight
+                if table is None or r.table is table]
+        waited = any(not r.ready() for r in recs)
+        for r in recs:
+            r.wait()
+            self._inflight.remove(r)
+            self._land_spill(r)
+        if recs and waited and count_wait:
+            self.counters.add("kv_fence_waits", 1)
+        return len(recs)
+
+    def drain(self) -> int:
+        """Fence every outstanding transfer (shutdown/relayout path)."""
+        return self.spill_fence(None, count_wait=False)
+
+    def inflight_tables(self) -> int:
+        return len(self._inflight)
+
+    def inflight_pages(self) -> int:
+        return sum(r.pages for r in self._inflight)
+
+    def inflight_bytes(self) -> float:
+        return sum(r.n_bytes for r in self._inflight)
+
+    def inflight_domains(self) -> set:
+        """Domains with a spill in flight — their frees are already in
+        the pipe, so the watermark rung must not double-spill them."""
+        return {r.table.domain for r in self._inflight}
+
     def spill(self, table: KVTable) -> int:
         """Move a table's USED pages (+ state slot) into the host swap
         tier and free its device resources to the wait-line head.
@@ -797,40 +956,13 @@ class KVBlockPool:
         until :meth:`restore`; its saved decode cursor makes the
         spill/restore cycle invisible in the token output.  Returns the
         number of pages spilled (0 = already spilled, nothing to do).
-        The copy completes before the pages are released."""
-        if table.spill is not None:
+        This is the SYNCHRONOUS path: issue + immediate fence."""
+        if table.inflight:
+            self.spill_fence(table, count_wait=False)
             return 0
-        used = min(table.used_pages, len(table.blocks))
-        had_state = bool(self.has_state and table.state_slot)
-        n_bytes = kv_spill_bytes(self.cfg, used, self.block_tokens,
-                                 had_state)
-        self.counters.add("kv_spill_issues", 1)
-        self.counters.add("kv_d2h_bytes", n_bytes)
-        leaves = self._spill_gather(
-            self.storage, table.blocks[:used],
-            state_slot=table.state_slot if had_state else None)
-        handle = self.swap.store(leaves, used, had_state)
-        table.spill = SpillEntry(pages=used, data=handle.views,
-                                 had_state=had_state, tier=handle)
-        # the payload COPIED every used page (shared ones included), so
-        # releasing shared pages here is safe: the other holders keep the
-        # device copy, this table restores a private one
-        for b in sorted(table.blocks):
-            self._release_block(b)
-        if had_state:
-            self._free_states[table.domain].append(table.state_slot)
-        self.counters.add("kv_blocks_freed", len(table.blocks))
-        self.counters.add("kv_spills", 1)
-        self.counters.add("kv_spilled_pages", used)
-        table.blocks = []
-        table.state_slot = 0
-        self.spilled_tables += 1
-        self.spilled_bytes += n_bytes
-        self.peak_spilled_bytes = max(self.peak_spilled_bytes,
-                                      self.spilled_bytes)
-        self._gauges()
-        for cb in self._on_free:
-            cb()
+        used = self.spill_issue(table)
+        if table.inflight:
+            self.spill_fence(table, count_wait=False)
         return used
 
     def restore(self, table: KVTable) -> bool:
@@ -839,6 +971,8 @@ class KVBlockPool:
         the host payload back; False (no side effects) when the domain
         lacks pages or a state slot.  The stream resumes mid-decode at its
         saved cursor — zero recomputed tokens."""
+        if table.inflight:
+            self.spill_fence(table, count_wait=False)
         sp = table.spill
         if sp is None:
             return True
@@ -850,7 +984,7 @@ class KVBlockPool:
         blocks = [self._pop_block(d) for _ in range(sp.pages)]
         slot = self._take_state(d) if self.has_state else 0
         self.storage = self._spill_scatter(
-            self.storage, blocks, sp.data,
+            self.storage, blocks, self._payload(sp),
             state_slot=slot if sp.had_state else None)
         table.blocks = blocks
         table.state_slot = slot
@@ -875,6 +1009,8 @@ class KVBlockPool:
         sweep re-pointed, restored, then grew in separate steps and a
         late grow failure left a restored-but-unready stream holding a
         reclaimed checkpoint)."""
+        if table.inflight:
+            self.spill_fence(table, count_wait=False)
         sp = table.spill
         if sp is None:
             return False
@@ -889,7 +1025,7 @@ class KVBlockPool:
                   for _ in range(sp.pages + grow_by)]
         slot = self._take_state(domain) if self.has_state else 0
         self.storage = self._spill_scatter(
-            self.storage, blocks[:sp.pages], sp.data,
+            self.storage, blocks[:sp.pages], self._payload(sp),
             state_slot=slot if sp.had_state else None)
         table.blocks = blocks
         table.state_slot = slot
@@ -904,6 +1040,46 @@ class KVBlockPool:
             self.counters.add("kv_lazy_grows", 1)
         self._note_usage(domain)
         return True
+
+    def restore_prefetch(self, table: KVTable) -> bool:
+        """Stage a spilled table's payload H2D on the side stream ahead of
+        the re-grant — called while the stream waits in line, so the
+        upload drains behind the ticks ahead of it and the eventual
+        restore scatter reads device tensors.  Idempotent; False when
+        there is nothing to stage."""
+        sp = table.spill
+        if sp is None or sp.staged is not None:
+            return False
+        raw, axes = sp.tier.raw, sp.tier.axes
+        if self._copy_stream is None:
+            staged = [r.clone() if r is not None else None for r in raw]
+        else:
+            # the side stream also carries the D2H copies: a tier extent
+            # released after this restore is rewritten only after the
+            # upload has read it
+            with torch.cuda.stream(self._copy_stream):
+                staged = [r.to(self.device, non_blocking=True)
+                          if r is not None else None for r in raw]
+                sp.staged_event = torch.cuda.Event()
+                sp.staged_event.record(self._copy_stream)
+        sp.staged = [None if t is None else t.movedim(0, ax)
+                     for t, ax in zip(staged, axes)]
+        self.counters.add("kv_restore_prefetches", 1)
+        return True
+
+    def _payload(self, sp: SpillEntry) -> List[Any]:
+        """The leaves a restore scatters: the prefetched device copy when
+        there is one (the compute stream waits for its upload), else the
+        host views."""
+        if sp.staged is None:
+            return sp.data
+        if sp.staged_event is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(sp.staged_event)
+            for t in sp.staged:
+                if t is not None:
+                    t.record_stream(cur)
+        return sp.staged
 
     def _drop_spill(self, table: KVTable):
         sp = table.spill
@@ -921,6 +1097,11 @@ class KVBlockPool:
         """
         if table.domain == new_domain:
             return True
+        if table.inflight:
+            # a relayout/steal hitting an in-flight victim: fence — the
+            # payload lands, the table turns host-resident, and the move
+            # below becomes the free re-point
+            self.spill_fence(table, count_wait=False)
         if table.spill is not None:
             # host-resident: the table holds no device resources, so a
             # migration (relayout rebalance, steal into the thief's domain)
@@ -959,6 +1140,75 @@ class KVBlockPool:
             cb()
         return True
 
+    # -- speculative checkpoint / rollback ---------------------------------
+    def checkpoint_rows(self, rows: Sequence[Tuple[KVTable, int, int, bool]]
+                        ) -> List[dict]:
+        """Snapshot, BEFORE a speculative verify forward commits
+        optimistically, every drafted row's write-touched pages (``pages``
+        true: the window wraps the ring) and carried-state slot — ONE
+        device gather over all rows, kept on the device (most checkpoints
+        are dropped untouched when the draft fully accepts).  Must run
+        after the tick's growth/CoW phase, so the touched blocks are
+        private and :meth:`rollback_rows` can restore them in place.
+        ``rows`` entries are ``(table, pos, n, pages)``."""
+        metas = []
+        all_blocks: List[int] = []
+        slots: List[int] = []
+        for table, pos, n, pages in rows:
+            idx = self._write_pages(pos, n, len(table.blocks)) if pages \
+                else []
+            blocks = [table.blocks[j] for j in idx]
+            slot = table.state_slot if (self.has_state and table.state_slot) \
+                else None
+            metas.append((blocks, slot, len(all_blocks),
+                          len(slots) if slot is not None else -1))
+            all_blocks.extend(blocks)
+            if slot is not None:
+                slots.append(slot)
+            self.counters.add("kv_spec_ckpts", 1)
+            self.counters.add("kv_spec_ckpt_pages", len(blocks))
+        leaves = self._rows_gather(self.storage, all_blocks,
+                                   state_slots=slots) \
+            if (all_blocks or slots) else None
+        return [{"blocks": blocks, "slot": slot, "rows": leaves,
+                 "off": off, "soff": soff}
+                for blocks, slot, off, soff in metas]
+
+    def rollback_rows(self, ckpts: Sequence[dict]):
+        """Restore the rows that REJECTED: one device scatter puts every
+        rolled-back row's pages + state slot back from the shared
+        :meth:`checkpoint_rows` gather.  The accepted prefix is then
+        re-applied by a masked chunk forward, so the restored state
+        advances by exactly the accepted tokens."""
+        live = [c for c in ckpts if c["blocks"] or c["slot"] is not None]
+        if not live:
+            return
+        groups: Dict[int, List[dict]] = {}
+        for c in live:          # rows from distinct ticks scatter apart
+            groups.setdefault(id(c["rows"]), []).append(c)
+        for group in groups.values():
+            leaves = group[0]["rows"]
+            blk_src: List[int] = []     # indices into the shared gather
+            dst_blocks: List[int] = []
+            st_src: List[int] = []
+            dst_slots: List[int] = []
+            for c in group:
+                blk_src.extend(range(c["off"], c["off"] + len(c["blocks"])))
+                dst_blocks.extend(c["blocks"])
+                if c["slot"] is not None and c["soff"] >= 0:
+                    st_src.append(c["soff"])
+                    dst_slots.append(c["slot"])
+                self.counters.add("kv_spec_rollback_pages",
+                                  len(c["blocks"]))
+            vals = []
+            for leaf, s in zip(leaves, self.spec.leaves):
+                src = blk_src if s.token_axis is not None else st_src
+                vals.append(leaf.index_select(
+                    s.batch_axis, torch.tensor(src, device=leaf.device))
+                    if leaf is not None and src else None)
+            self.storage = self._rows_scatter(self.storage, dst_blocks,
+                                              vals, state_slots=dst_slots)
+
     def _note_usage(self, domain: int):
         self.peak_used_blocks = max(self.peak_used_blocks, self.used_blocks())
         self.peak_used_per_domain[domain] = max(
@@ -975,6 +1225,9 @@ class KVBlockPool:
         self.counters.set("kv_shared_pages", float(self.shared_pages()))
         self.counters.set("kv_shared_bytes", self.shared_bytes())
         self.counters.set("kv_cached_pages", float(self.cached_pages()))
+        self.counters.set("kv_spill_inflight_pages",
+                          float(self.inflight_pages()))
+        self.counters.set("kv_spill_inflight_bytes", self.inflight_bytes())
 
     # -- consistency -------------------------------------------------------
     def audit(self, tables: Iterable[KVTable] = ()):
@@ -997,6 +1250,8 @@ class KVBlockPool:
             if t.spill is not None:
                 assert not t.blocks and not t.state_slot, \
                     f"spilled table holds device resources: {t}"
+                assert not t.inflight, \
+                    "table both landed-spilled and in flight"
             held.update(t.blocks)
             if self.has_state and t.state_slot:
                 held_states.append(t.state_slot)
@@ -1006,6 +1261,19 @@ class KVBlockPool:
                 f"block {b}: refcount {self._ref.get(b, 0)} != {c} holders"
         assert set(self._ref) == set(held), \
             f"refcount on unheld blocks: {set(self._ref) - set(held)}"
+        # in-flight transfers: fence-before-regrant means the victim still
+        # HOLDS its pages (counted above like any live table) and its
+        # payload is not yet in the swap tier; pages in flight must match
+        # the records exactly
+        for r in self._inflight:
+            assert r.table.inflight, \
+                "in-flight record on a table not marked inflight"
+            assert r.table.spill is None, \
+                "in-flight record on an already-landed table"
+            assert r.pages == min(r.table.used_pages,
+                                  len(r.table.blocks)), \
+                f"in-flight pages {r.pages} drifted from table " \
+                f"{min(r.table.used_pages, len(r.table.blocks))}"
         assert len(held_states) == len(set(held_states)), \
             "live tables share a state slot"
         for d in range(self.n_domains):
@@ -1074,9 +1342,17 @@ class KVBlockPool:
             "mid_decode_parks": snap.get("kv_mid_decode_parks", 0.0),
             "prefill_chunks": snap.get("prefill_chunks", 0.0),
             "spills": snap.get("kv_spills", 0.0),
+            # async transfer engine: issue/poll/fence overlap surface
+            "spill_issues": snap.get("kv_spill_issues", 0.0),
+            "spill_inflight_pages": float(self.inflight_pages()),
+            "spill_inflight_bytes": self.inflight_bytes(),
+            "spill_overlap_rounds": snap.get("kv_spill_overlap_rounds",
+                                             0.0),
+            "fence_waits": snap.get("kv_fence_waits", 0.0),
             "spilled_pages": snap.get("kv_spilled_pages", 0.0),
             "restores": snap.get("kv_restores", 0.0),
             "restore_failures": snap.get("kv_restore_failures", 0.0),
+            "restore_prefetches": snap.get("kv_restore_prefetches", 0.0),
             "spill_repoints": snap.get("kv_spill_repoints", 0.0),
             "spilled_tables": float(self.spilled_tables),
             "peak_spilled_bytes": self.peak_spilled_bytes,
@@ -1100,6 +1376,11 @@ class KVBlockPool:
             "shared_pages": float(self.shared_pages()),
             "shared_extra_refs": float(self.shared_extra_refs()),
             "cached_pages": float(self.cached_pages()),
+            # speculative decode rollback traffic (engine-side accept
+            # counters live in kv_stats; these are the pool's halves)
+            "spec_ckpts": snap.get("kv_spec_ckpts", 0.0),
+            "spec_ckpt_pages": snap.get("kv_spec_ckpt_pages", 0.0),
+            "spec_rollback_pages": snap.get("kv_spec_rollback_pages", 0.0),
             # cached-tier retention (access-ordered vs blind)
             "retention": self.retention,
             "cached_page_hits": snap.get("kv_cached_page_hits", 0.0),

@@ -27,10 +27,6 @@ from repro_torch.serving.engine import ServeEngine as TServeEngine
 
 JCFG = reduced_config(REGISTRY["llama3-8b"])
 TCFG = t_reduced(T_REGISTRY["llama3-8b"])
-# gauges of the JAX package's asynchronous swap tier, which the port does
-# not have yet
-ASYNC_ONLY = {"kv_spill_inflight_pages", "kv_spill_inflight_bytes",
-              "kv_spill_overlap_rounds"}
 
 
 def engines(groups=2, **ecfg):
@@ -55,8 +51,7 @@ def tokens(eng):
 
 def same_counters(jres, tres):
     jc, tc = jres["counters"], tres["counters"]
-    assert set(jc) - set(tc) <= ASYNC_ONLY, set(jc) - set(tc)
-    assert set(tc) <= set(jc), set(tc) - set(jc)
+    assert set(tc) == set(jc), set(tc) ^ set(jc)
     diff = {k: (jc[k], tc[k]) for k in tc if jc[k] != tc[k]}
     assert not diff, diff
 

@@ -31,10 +31,6 @@ from repro_torch.serving.kvpool import KVBlockPool
 
 JCFG = reduced_config(REGISTRY["recurrentgemma-9b"])
 TCFG = t_reduced(T_REGISTRY["recurrentgemma-9b"])
-# gauges of the JAX package's asynchronous swap tier, which the port does
-# not have yet
-ASYNC_ONLY = {"kv_spill_inflight_pages", "kv_spill_inflight_bytes",
-              "kv_spill_overlap_rounds"}
 
 
 def engines(groups=2, **ecfg):
@@ -57,8 +53,7 @@ def tokens(eng):
 
 def same_counters(jres, tres):
     jc, tc = jres["counters"], tres["counters"]
-    assert set(jc) - set(tc) <= ASYNC_ONLY, set(jc) - set(tc)
-    assert set(tc) <= set(jc), set(tc) - set(jc)
+    assert set(tc) == set(jc), set(tc) ^ set(jc)
     diff = {k: (jc[k], tc[k]) for k in tc if jc[k] != tc[k]}
     assert not diff, diff
 

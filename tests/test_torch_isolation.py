@@ -25,6 +25,7 @@ import repro_torch.runtime.trainer, repro_torch.optim.adamw
 import repro_torch.data.pipeline, repro_torch.checkpoint.manager
 import repro_torch.models.ssd, repro_torch.kernels.ssd_scan.ops
 import repro_torch.models.rglru, repro_torch.kernels.rglru_scan.ops
+import repro_torch.serving.spec, repro_torch.core.api
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(",".join(bad))
@@ -138,13 +139,12 @@ def test_lru_wrappers_have_no_fallback():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("spec_decode", "ngram"), ("async_swap", True), ("paged", False),
-    ("lazy", False), ("prefill_mode", "scan")])
+    ("paged", False), ("lazy", False), ("prefill_mode", "scan")])
 def test_unported_options_raise(option, value):
     from repro_torch.configs import REGISTRY, reduced_config
     from repro_torch.core.topology import ChipletTopology
     from repro_torch.serving.engine import EngineConfig, ServeEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 6"):
         ServeEngine(reduced_config(REGISTRY["llama3-8b"]),
                     ChipletTopology(1, 1, 1),
                     EngineConfig(max_len=32, **{option: value}),

@@ -30,10 +30,6 @@ from repro_torch.serving.engine import ServeEngine as TServeEngine
 
 JCFG = reduced_config(REGISTRY["mamba2-780m"])
 TCFG = t_reduced(T_REGISTRY["mamba2-780m"])
-# gauges of the JAX package's asynchronous swap tier, which the port does
-# not have yet
-ASYNC_ONLY = {"kv_spill_inflight_pages", "kv_spill_inflight_bytes",
-              "kv_spill_overlap_rounds"}
 
 
 def engines(groups=2, **ecfg):
@@ -56,8 +52,7 @@ def tokens(eng):
 
 def same_counters(jres, tres):
     jc, tc = jres["counters"], tres["counters"]
-    assert set(jc) - set(tc) <= ASYNC_ONLY, set(jc) - set(tc)
-    assert set(tc) <= set(jc), set(tc) - set(jc)
+    assert set(tc) == set(jc), set(tc) ^ set(jc)
     diff = {k: (jc[k], tc[k]) for k in tc if jc[k] != tc[k]}
     assert not diff, diff
 
