@@ -143,18 +143,44 @@ Phases (any error fails the run with a non-zero exit):
    launch its wrapper counted.  The capture's seconds and memory, and
    cold against warm tokens/s, TTFT, TPOT and device idle share (the
    profiled serves against the unprofiled walls) are printed.
+12. The engine's other modes, right after phase 3, from its weights and
+   on its requests (llama3-8b, full width and depth, bf16): (a) the eager
+   engine (``lazy=False``: whole-prompt prefill through the flash forward
+   kernel, 32 launches a prompt on the tensor-core route, no ring launch,
+   9 prefills and no chunk tick, the pool's audit); (b) the slot monolith
+   (``paged=False``, two groups: the same counts, ``kv_stats() == {}``,
+   the group caches' bytes); (c) the scan chunk path
+   (``prefill_mode="scan"``: C model steps a chunk tick, no ring launch),
+   then a fresh scan engine warmed by ``warm_steps`` whose tokens are the
+   cold scan run's bit for bit, graphs replayed; (d) ``make_prefill`` and
+   ``make_generate`` (B=1, greedy) on the first request's prompt.  Each
+   run's tokens/s, TTFT and TPOT p50 print beside phase 3's, with the
+   share of tokens that agree (printed, not gated: bf16 whole-prompt and
+   chunked prefill agree only to tolerance).  (e) After phases 6 and 8,
+   the eager engine on mamba2-780m (the SSD kernel, 48 launches a prompt,
+   tensor-core route) and recurrentgemma-9b (26 RG-LRU and 12 flash
+   forward launches a prompt) from their weights and requests: every
+   request completes with its budget.  Phases 2b, 2c and 2d hold the
+   three kernels against their plain versions at the shapes this phase
+   gives them (one prompt, B=1, at lengths of 96 to 400; the SSD scan's
+   one-chunk and front-padded forms), bf16 and float32, with their
+   phases' tolerances (``eager_prefill_max_abs_err`` in the kernels line).
 The reduced float32 reference runs of phases 3, 6 and 8 include card runs
-with speculative decoding (a partial drafter) and warmed steps, and on the
-dense and hybrid models the asynchronous swap tier (dense: a pool of one
-stream a domain; hybrid: a park forced mid-decode, spilled with its state
-slot); their tokens must equal the CPU run's.
+with speculative decoding (a partial drafter), warmed steps and (phase
+12 (f)) the eager engine, the slot monolith and the scan chunk path, and
+on the dense and hybrid models the asynchronous swap tier (dense: a pool
+of one stream a domain; hybrid: a park forced mid-decode, spilled with
+its state slot); their tokens must equal the CPU run's, and after the
+card's monolith run ``make_prefill`` + ``make_generate`` must give the
+monolith's tokens for the first prompt.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches (counted over its main path: phase
 3 for the ring kernel, phase 4 for the flash kernels, phase 5 for the SSD
 kernel, phase 7 for the RG-LRU scan; ``hybrid_*`` and
 ``serving_launches`` give the numbers on the hybrid's paths, phases 7
-and 8), error and times.
+and 8; ``eager_prefill_launches`` and ``hybrid_eager_prefill_launches``
+phase 12's, over the eager engine's 9 prefills), error and times.
 """
 from __future__ import annotations
 
@@ -570,6 +596,14 @@ FLASH_GEOMETRIES = [
     ("gqa3_window_dh128", 1, 300, 6, 2, 128, True, 100),
     ("not_causal_dh256", 2, 130, 4, 2, 256, False, 0),
     ("gqa16_ragged_dh64", 1, 333, 16, 1, 64, True, 0),
+    # phase 12's whole-prompt prefill: one prompt (B=1) at the shortest,
+    # a middle and the longest length ``serve`` submits, on llama3-8b and
+    # on recurrentgemma-9b's local attention
+    ("eager_prefill_dense_s96", 1, 96, 32, 8, 128, True, 0),
+    ("eager_prefill_dense_s148", 1, 148, 32, 8, 128, True, 0),
+    ("eager_prefill_dense_s400", 1, 400, 32, 8, 128, True, 0),
+    ("eager_prefill_hybrid_s148", 1, 148, 16, 1, 256, True, 2048),
+    ("eager_prefill_hybrid_s400", 1, 400, 16, 1, 256, True, 2048),
 ]
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/"
 
@@ -663,6 +697,9 @@ def phase_flash_kernels(torch):
             elif name == "hybrid_path" and dtype == "bfloat16":
                 rows["fwd"]["hybrid_max_abs_err"] = fwd_err
                 rows["bwd"]["hybrid_max_abs_err"] = bwd_err
+            elif name.startswith("eager_prefill") and dtype == "bfloat16":
+                key = "eager_prefill_max_abs_err"
+                rows["fwd"][key] = max(rows["fwd"].get(key, 0.0), fwd_err)
             del q, k, v, do, out, lse, want_out, want_lse, grads, want
             torch.cuda.empty_cache()
     calls["bfloat16"] += flash_strided_views(torch, ops, ref)
@@ -844,6 +881,13 @@ SSD_GEOMETRIES = [
     ("ssd_sweep_2", 2, 128, 2, 32, 1, 8, 64),
     ("groups_2", 2, 512, 8, 64, 2, 128, 256),
     ("ragged_tiles_groups_3", 2, 300, 6, 80, 3, 20, 100),
+    # phase 12's mamba2-780m prefill of one prompt: a prompt up to the
+    # model's chunk of 256 is one chunk of its own length (96, 148, 230),
+    # a longer one is front-padded to whole chunks (400 -> 512)
+    ("eager_prefill_s96", 1, 96, 48, 64, 1, 128, 96),
+    ("eager_prefill_s148", 1, 148, 48, 64, 1, 128, 148),
+    ("eager_prefill_s230", 1, 230, 48, 64, 1, 128, 230),
+    ("eager_prefill_s512", 1, 512, 48, 64, 1, 128, 256),
 ]
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/"
 # the bf16 (tensor-core) route at the training shape: its float32 operands
@@ -964,6 +1008,9 @@ def phase_ssd_kernel(torch):
                 row["max_abs_err"] = err
             elif name == "main_path":
                 row["f32_max_abs_err"] = err
+            elif name.startswith("eager_prefill") and dtype == "bfloat16":
+                key = "eager_prefill_max_abs_err"
+                row[key] = max(row.get(key, 0.0), err)
             del xdt, a, Bh, Ch, y, h, want_y, want_h
     row.update(ssd_timing(torch, ops, ref, *ssd_main_geometry()[1:]))
     return row
@@ -1077,6 +1124,10 @@ LRU_GEOMETRIES = [
     ("serving_chunk", 8, 16, 4096),
     # phase 9's hybrid verify and reapply steps: one chunk of spec_w = 5
     ("verify_chunk_b1", 1, 5, 4096), ("verify_chunk_b8", 8, 5, 4096),
+    # phase 12's recurrentgemma-9b prefill of one prompt, on the
+    # many-chunk route (S > 64)
+    ("eager_prefill_s96", 1, 96, 4096), ("eager_prefill_s148", 1, 148, 4096),
+    ("eager_prefill_s400", 1, 400, 4096),
 ]
 LRU_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/lru_scan.cu"
 
@@ -1155,6 +1206,9 @@ def phase_lru_kernel(torch):
                     f"{LRU_TOL} * |plain|)")
                 if name == "main_path":
                     worst = max(worst, err)
+                elif name.startswith("eager_prefill"):
+                    key = "eager_prefill_max_abs_err"
+                    row[key] = max(row.get(key, 0.0), err)
     row["max_abs_err"] = worst
     # the fused VJP against its plain version, and the kernel's arithmetic
     # in plain PyTorch against the kernel, at the training shape
@@ -1326,10 +1380,15 @@ def make_engine(cfg, params=None, groups=2, **ecfg):
 
 
 def reset_launches(torch):
+    """Zero the serving paths' launch counts: the ring, RG-LRU scan, flash
+    forward and SSD scan wrappers'."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.rglru_scan import ops as lru_ops
-    ops.ring_chunk_attention.launches = 0
-    ops.ring_chunk_attention.wgmma_launches = 0
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    for fn in (ops.ring_chunk_attention, ops.flash_attention,
+               ssd_ops.ssd_scan):
+        fn.launches = 0
+        fn.wgmma_launches = 0
     lru_ops.lru_scan.launches = 0
 
 
@@ -1627,14 +1686,17 @@ class PartialDrafter:
 # stream a domain (two streams of a group cannot both fit: streams park)
 # with phase 10's watermarks (a parked stream spills); the asynchronous
 # tier with a park forced mid-decode (``force_park``) and low watermarks
-# (the parked stream spills its ring pages and state slot); and the
-# CUDA-graph warm-up
+# (the parked stream spills its ring pages and state slot); the CUDA-graph
+# warm-up; and phase 12's engine modes: the eager engine, the slot
+# monolith and the scan chunk path
 VARIANTS = {None: {}, "spec": {"spec_decode": "ngram", "spec_k": 4},
             "async": {"async_swap": True, "pool_streams": 1,
                       "spill_watermarks": (0.5, 0.25)},
             "async park": {"async_swap": True,
                            "spill_watermarks": (0.2, 0.1)},
-            "warm": {}}
+            "warm": {}, "eager": {"lazy": False},
+            "monolith": {"paged": False}, "scan": {"prefill_mode": "scan"}}
+MODE_VARIANTS = ("eager", "monolith", "scan")
 
 
 def card_variants(*names):
@@ -1647,9 +1709,11 @@ def card_variants(*names):
 # pool (mamba2) has no pages, and a stream without pages is never a spill
 # victim (``_spill_parked``, as in the JAX package): it takes no
 # asynchronous run
-CARD_VARIANTS = {"dense": card_variants("spec", "async", "warm"),
-                 "ssm": card_variants("spec", "warm"),
-                 "hybrid": card_variants("spec", "async park", "warm")}
+CARD_VARIANTS = {"dense": card_variants("spec", "async", "warm",
+                                        *MODE_VARIANTS),
+                 "ssm": card_variants("spec", "warm", *MODE_VARIANTS),
+                 "hybrid": card_variants("spec", "async park", "warm",
+                                         *MODE_VARIANTS)}
 
 
 def force_park(eng):
@@ -1694,13 +1758,16 @@ def phase_engine_reference(torch, arch, runs):
     tokens in every run of ``runs``, each (label, device, chunk kernel,
     variant of ``VARIANTS``), on the same weights drawn on the CPU.  The
     first run is a plain one; the spec variant's drafter drafts from its
-    tokens."""
+    tokens.  After a card monolith run, ``make_prefill`` and
+    ``make_generate`` (B=1, greedy) on the card give the monolith's tokens
+    for the first prompt."""
     import numpy as np
     from repro_torch.configs import REGISTRY, reduced_config
     from repro_torch.core.topology import ChipletTopology
     from repro_torch.models.params import init_params
     from repro_torch.serving.engine import EngineConfig, ServeEngine
 
+    t0 = time.perf_counter()
     cfg = reduced_config(REGISTRY[arch])
     base = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(1)
@@ -1730,12 +1797,19 @@ def phase_engine_reference(torch, arch, runs):
         replays = sum(eng.graph_replays().values())
         spilled = (c.get("kv_spill_issues", 0) > 0
                    and c.get("recompute_tokens", 0) == 0)
+        whole = (c.get("prefills") == len(prompts)
+                 and not c.get("chunk_ticks", 0))
         # each variant's path really ran
         ran = {"spec": c.get("spec_rollbacks", 0) > 0,
                "async": spilled,
                "async park": (spilled and bool(parked)
                               and bool(state_spills) and all(state_spills)),
-               "warm": device != "cuda" or replays > 0}
+               "warm": device != "cuda" or replays > 0,
+               "eager": whole and eng.pool is not None,
+               "monolith": whole and eng.pool is None,
+               "scan": c.get("chunk_ticks", 0) > 0
+               and c.get("prefill_model_steps")
+               == eng._chunk * c["chunk_ticks"]}
         if not ran.get(variant, True):
             raise AssertionError(f"reduced {arch} {label}: the {variant} "
                                  f"path did not run: {dict(c)}")
@@ -1751,11 +1825,30 @@ def phase_engine_reference(torch, arch, runs):
                          f"{sum(state_spills)} with a state slot")
         elif variant == "warm" and device == "cuda":
             notes.append(f"{label}: {replays} graph replays")
+        if variant == "monolith" and device == "cuda":
+            outs["card make_generate"] = [generated(
+                torch, cfg, eng.params, prompts[0], 12, 48)] + outs[label][1:]
     labels = " == ".join(outs)
     if any(v != outs[runs[0][0]] for v in outs.values()):
         raise AssertionError(f"reduced {arch} float32: not {labels} tokens")
     log(f"[engine {cfg.name}] float32: {labels} tokens for 4 requests"
-        + (f" ({'; '.join(notes)})" if notes else ""))
+        + (f" ({'; '.join(notes)})" if notes else "")
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+
+def generated(torch, cfg, params, prompt, budget, max_len):
+    """``budget`` greedy tokens for ``prompt`` from ``make_prefill`` and
+    ``make_generate`` at B=1 on the weights' device."""
+    import numpy as np
+    from repro_torch.launch.steps import make_generate, make_prefill
+    dev = params["embed"].device
+    tokens = torch.from_numpy(np.asarray(prompt, np.int32)[None, :]).to(dev)
+    logits, cache = make_prefill(cfg, max_len)(params, {"tokens": tokens})
+    first = logits.argmax(-1).to(torch.int32)[:, None]
+    toks, _, _ = make_generate(cfg, budget - 1)(
+        params, cache, first, torch.full((1,), len(prompt),
+                                         dtype=torch.int32, device=dev))
+    return [int(first[0, 0])] + [int(t) for t in toks[0].tolist()]
 
 
 def _to_device(tree, device):
@@ -2035,6 +2128,223 @@ def phase_warm(torch, cold):
                         ("ttft_p99", s_["ttft_p99"]),
                         ("tpot_p50", s_["tpot_p50"]),
                         ("tpot_p99", s_["tpot_p99"]))}}))
+
+
+# ---------------------------------------------------------------------------
+# phase 12: whole-prompt prefill (the eager engine and the slot monolith)
+# and the per-token scan chunk path
+# ---------------------------------------------------------------------------
+
+def prefill_launches(torch):
+    """(flash forward, of them on the tensor-core route, SSD scan, of them
+    on the tensor-core route) launches since ``reset_launches``, made by
+    calls in Python."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return (ops.flash_attention.launches, ops.flash_attention.wgmma_launches,
+            ssd_ops.ssd_scan.launches, ssd_ops.ssd_scan.wgmma_launches)
+
+
+def mode_serve(torch, eng, cfg):
+    """Serve the main path's requests on ``eng`` in any engine mode, the
+    launch counts zeroed just before and read just after: every request
+    checked, a paged engine's pool audited.  Returns the tokens, counters,
+    latency stats of the 8 with their wall, and each serving kernel's
+    launches."""
+    from repro_torch.serving.engine import ServeEngine
+    reset_launches(torch)
+    first, reqs, res, wall = serve(torch, eng, cfg)
+    ring, ring_wgmma, lru = kernel_launches(torch)
+    flash, flash_wgmma, ssd, ssd_wgmma = prefill_launches(torch)
+    check_requests(cfg, [first] + reqs)
+    if eng.pool is not None:
+        eng.pool.audit(live_tables(eng))
+    st = ServeEngine.stats(reqs)
+    st["wall"] = wall
+    return {"tokens": [r.generated for r in [first] + reqs],
+            "counters": res["counters"], "stats": st,
+            "relayouts": len(res["relayouts"]), "ring": ring,
+            "ring_wgmma": ring_wgmma, "lru": lru, "flash": flash,
+            "flash_wgmma": flash_wgmma, "ssd": ssd, "ssd_wgmma": ssd_wgmma}
+
+
+def check_whole_prefill(tag, cfg, run, n_req):
+    """An eager or monolith serve: ``n_req`` whole-prompt prefills and no
+    chunk tick; each prefill launched the flash forward once an attention
+    layer, the SSD scan once an SSD layer and the RG-LRU scan once a
+    recurrent layer, bf16 on the tensor-core routes; no ring launch."""
+    types = cfg.layer_types()
+    want = {"flash": types.count("attn") * n_req,
+            "ssd": types.count("ssd") * n_req,
+            "lru": types.count("rec") * n_req, "ring": 0}
+    c = run["counters"]
+    got = {k: run[k] for k in want}
+    if (c.get("prefills") != n_req or c.get("chunk_ticks", 0)
+            or got != want or run["flash_wgmma"] != run["flash"]
+            or run["ssd_wgmma"] != run["ssd"]):
+        raise AssertionError(
+            f"{tag} prefills {c.get('prefills')} (want {n_req}), chunk "
+            f"ticks {c.get('chunk_ticks', 0)}, launches {got} (want {want})"
+            f", tensor-core flash {run['flash_wgmma']}, SSD "
+            f"{run['ssd_wgmma']}")
+
+
+def mode_line(tag, name, run, ref=None, ref_name=""):
+    st = run["stats"]
+    log(f"{tag} {name}: {st['tokens']} tokens in {st['wall']:.2f} s: "
+        + latency(st) + (f"; agreement with {ref_name} "
+                         f"{agreement(run['tokens'], ref):.4f}"
+                         if ref is not None else ""))
+
+
+def cache_gib(eng):
+    """Bytes of the slot monolith's group caches, in GiB."""
+    from repro_torch.models import decode as dec
+    return sum(t.numel() * t.element_size() for g in eng.groups
+               for t in dec.tree_leaves(g.cache, eng._cache_spec)) / 2**30
+
+
+def phase_modes(torch, cold):
+    """Phase 12 on phase 3's model and requests (llama3-8b, full width and
+    depth, bf16): (a) the eager engine, (b) the slot monolith over two
+    groups, (c) the scan chunk path cold, then a fresh scan engine warmed
+    by ``warm_steps`` (CUDA graphs of the scan step) whose tokens must be
+    the cold scan run's bit for bit — a second serve on the first engine
+    would meet its cached prefix pages and run another schedule — and (d)
+    ``make_prefill`` + ``make_generate`` on the first request's prompt.
+    Agreement with phase 3 is printed, not gated: in bf16 whole-prompt
+    and chunked prefill agree only to tolerance.  Returns the flash
+    forward's launches of (a)."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    cfg = REGISTRY[ENGINE_ARCH]
+    tag = f"[modes {cfg.name}]"
+    base = cold["tokens"]
+    log(f"{tag} phase 3 (lazy, fused chunks): " + latency(cold["stats"]))
+    out, secs = {}, {}
+    for name, opts in (("eager", {"lazy": False}),
+                       ("monolith", {"paged": False}),
+                       ("scan", {"prefill_mode": "scan"})):
+        free_card(torch)
+        t0 = time.perf_counter()
+        eng = make_engine(cfg, cold["params"], **opts)
+        run = mode_serve(torch, eng, cfg)
+        secs[name] = time.perf_counter() - t0
+        c = run["counters"]
+        if name == "scan":
+            ticks = c.get("chunk_ticks", 0)
+            if (ticks <= 0 or c.get("prefill_model_steps")
+                    != eng._chunk * ticks or run["ring"]):
+                raise AssertionError(
+                    f"{tag} scan: {c.get('prefill_model_steps')} model "
+                    f"steps over {ticks} chunk ticks of {eng._chunk}, "
+                    f"ring launches {run['ring']}")
+        else:
+            check_whole_prefill(f"{tag} {name}", cfg, run, 9)
+        if name == "monolith" and eng.kv_stats() != {}:
+            raise AssertionError(f"{tag} monolith kv_stats not empty")
+        extra = (f", group caches {cache_gib(eng):.3f} GiB over "
+                 f"{len(eng.groups)} groups, relayouts {run['relayouts']}"
+                 if name == "monolith" else "")
+        mode_line(tag, name, run, base, "phase 3")
+        log(f"{tag} {name}: flash forward launches {run['flash']} "
+            f"({run['flash_wgmma']} on the tensor-core route), ring "
+            f"{run['ring']}, prefills {int(c.get('prefills', 0))}, chunk "
+            f"ticks {int(c.get('chunk_ticks', 0))}, prefill model steps "
+            f"{int(c.get('prefill_model_steps', 0))}{extra}; "
+            f"{secs[name]:.1f} s with set-up")
+        out[name] = run
+        if name == "scan":
+            scan_chunk = eng._chunk
+        del eng
+    mode_line(tag, "monolith against eager", out["monolith"],
+              out["eager"]["tokens"], "eager")
+    # (c) continued: the scan step captured as CUDA graphs
+    free_card(torch)
+    eng = make_engine(cfg, cold["params"], prefill_mode="scan")
+    t0 = time.perf_counter()
+    calls = eng.warm_steps()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    r0 = eng.graph_replays()
+    warm = mode_serve(torch, eng, cfg)
+    replays = {f"{k}/{w}/{b}": n - r0[(k, w, b)]
+               for (k, w, b), n in sorted(eng.graph_replays().items())}
+    if warm["tokens"] != out["scan"]["tokens"]:
+        raise AssertionError(
+            f"{tag} warmed scan tokens differ from the cold scan run's "
+            f"(agreement {agreement(warm['tokens'], out['scan']['tokens'])})")
+    if sum(n for k, n in replays.items()
+           if k.startswith(f"chunk/{scan_chunk}/")) <= 0:
+        raise AssertionError(f"{tag} no scan chunk graph replayed: "
+                             f"{replays}")
+    mode_line(tag, "scan warm", warm, out["scan"]["tokens"], "scan cold")
+    log(f"{tag} scan warm: {calls} step calls, {len(replays)} graphs "
+        f"captured in {capture_s:.2f} s; tokens bit-identical to the cold "
+        f"scan run; replays (kind/width/bucket): "
+        + ", ".join(f"{k} {n}" for k, n in replays.items()))
+    out["scan_warm"] = warm
+    del eng
+    # (d) make_prefill + make_generate on the first request, B=1, greedy
+    free_card(torch)
+    rng = np.random.default_rng(0)
+    preamble = rng.integers(2, cfg.vocab, size=128)
+    prompt = np.concatenate([preamble, rng.integers(2, cfg.vocab, size=20)])
+    budget = len(base[0])
+    reset_launches(torch)
+    t0 = time.perf_counter()
+    gen = generated(torch, cfg, cold["params"], prompt, budget, 1024)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    flash = prefill_launches(torch)[0]
+    if len(gen) != budget or flash != cfg.n_layers \
+            or not all(0 <= t < cfg.vocab for t in gen):
+        raise AssertionError(f"{tag} make_generate: {len(gen)} tokens of "
+                             f"{budget}, {flash} flash launches")
+    log(f"{tag} make_prefill + make_generate (B=1, greedy, {budget} tokens, "
+        f"{gen_s:.2f} s, {flash} flash launches): {gen}; agreement with "
+        f"phase 3's first request {agreement([gen], base[:1]):.4f}, with "
+        f"the eager engine's "
+        f"{agreement([gen], out['eager']['tokens'][:1]):.4f}")
+    log(f"{tag} " + json.dumps({
+        "arch": cfg.name, "seconds": secs, "scan_capture_s": capture_s,
+        "scan_warm_calls": calls, "scan_replays": replays,
+        "generate_s": gen_s,
+        **{f"{k}_{m}": v for k, r in (("phase3", cold),
+                                      *((n, out[n]) for n in out))
+           for m, v in (("tokens_per_s", r["stats"]["tokens"]
+                         / r["stats"]["wall"]),
+                        ("wall", r["stats"]["wall"]),
+                        ("ttft_p50", r["stats"]["ttft_p50"]),
+                        ("tpot_p50", r["stats"]["tpot_p50"]))},
+        **{f"{n}_agreement_phase3": agreement(out[n]["tokens"], base)
+           for n in out},
+        **{f"{n}_flash_launches": out[n]["flash"] for n in out}}))
+    return out["eager"]["flash"]
+
+
+def phase_modes_family(torch, served):
+    """Phase 12 (e): the eager engine on ``served``'s model (phase 6's
+    mamba2-780m or phase 8's recurrentgemma-9b, full width and depth,
+    bf16) and the main path's requests.  Returns the run."""
+    from repro_torch.configs import REGISTRY
+    cfg = REGISTRY[served["arch"]]
+    tag = f"[modes {cfg.name}]"
+    free_card(torch)
+    t0 = time.perf_counter()
+    eng = make_engine(cfg, served["params"], lazy=False)
+    run = mode_serve(torch, eng, cfg)
+    secs = time.perf_counter() - t0
+    check_whole_prefill(f"{tag} eager", cfg, run, 9)
+    mode_line(tag, "eager", run, served["tokens"], f"phase "
+              f"{'6' if cfg.family == 'ssm' else '8'}")
+    log(f"{tag} eager: {run['flash']} flash forward, {run['ssd']} SSD scan "
+        f"({run['ssd_wgmma']} on the tensor-core route), {run['lru']} "
+        f"RG-LRU scan launches for 9 prefills, 0 ring, no chunk tick; "
+        f"{secs:.1f} s with set-up")
+    del eng
+    free_card(torch)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -2330,6 +2640,9 @@ def main() -> int:
         free_card(torch)
         dense = phase_engine(torch, ENGINE_ARCH, args.profile)
         rows[0]["launches"] = dense["ring"]
+        # phase 12 (a)-(d): the flash forward's launches in the eager
+        # engine's 9 whole-prompt prefills
+        rows[1]["eager_prefill_launches"] = phase_modes(torch, dense)
         phase_engine_reference(torch, ENGINE_ARCH, [
             ("CPU", "cpu", "blocked", None),
             ("kernel", "cuda", "blocked", None),
@@ -2363,7 +2676,11 @@ def main() -> int:
             args.profile)["ssd_scan"]
         phase_trainer(torch, SSM_ARCH, ssd_ops.ssd_scan)
         free_card(torch)
-        phase_engine(torch, SSM_ARCH, args.profile)
+        ssm = phase_engine(torch, SSM_ARCH, args.profile)
+        # phase 12 (e): the SSD scan in the eager engine's prefills
+        rows[3]["eager_prefill_launches"] = phase_modes_family(
+            torch, ssm)["ssd"]
+        del ssm
         phase_engine_reference(torch, SSM_ARCH, [
             ("CPU", "cpu", "blocked", None),
             ("card", "cuda", "blocked", None)] + CARD_VARIANTS["ssm"])
@@ -2396,6 +2713,9 @@ def main() -> int:
         rows[0]["hybrid_launches"] = served["ring"]
         rows[4]["serving_launches"] = served["lru"]
         phase_spec(torch, served)           # phase 9, the hybrid
+        eager = phase_modes_family(torch, served)   # phase 12 (e)
+        rows[4]["eager_prefill_launches"] = eager["lru"]
+        rows[1]["hybrid_eager_prefill_launches"] = eager["flash"]
         del served
         free_card(torch)
         phase_engine_reference(torch, HYBRID_ARCH, [

@@ -127,6 +127,22 @@ def make_eval_step(cfg: ModelConfig):
     return eval_step
 
 
+def make_prefill(cfg: ModelConfig, max_len: int):
+    """(params, batch) -> (last-token logits (B, V), cache): whole-prompt
+    prefill of ``batch["tokens"]`` (B, S) into a decode cache of capacity
+    ``max_len``."""
+
+    def serve_prefill(params, batch):
+        extra = sorted(k for k in batch if k != "tokens")
+        if extra:
+            raise NotImplementedError(
+                f"prefill extras {extra} (VLM and encoder-decoder inputs) "
+                "are not ported yet (ROADMAP A items 8 and 9)")
+        return dec.prefill(params, cfg, batch["tokens"], max_len=max_len)
+
+    return serve_prefill
+
+
 def make_serve_step(cfg: ModelConfig):
     """(params, cache, tokens, pos) -> (logits, cache')."""
 
@@ -136,51 +152,56 @@ def make_serve_step(cfg: ModelConfig):
     return serve_step
 
 
-def make_serve_chunk_step(cfg: ModelConfig, spec, mode: str = "parallel",
-                          chunk_kernel: str = "blocked"):
-    """(params, cache, tokens (B, C), pos, n_tokens) -> (last-active-token
-    logits, cache').  The continuous-batching mixed step: prefill chunks
-    and decode streams share one batched call with per-stream lengths.
-    ``mode="parallel"`` is one fused multi-token forward per tick;
-    ``chunk_kernel`` picks its attention: "blocked" (the CUDA kernel on
-    the card) or "dense" (the plain masked softmax)."""
-    if mode == "scan":
-        raise NotImplementedError("the per-token scan chunk step "
-                                  "(chunk_decode_step) is not ported yet "
-                                  "(ROADMAP A3)")
-    if mode != "parallel":
+def _check_chunk_mode(mode: str, chunk_kernel: str):
+    if mode not in ("scan", "parallel"):
         raise ValueError(f"unknown chunk-step mode {mode!r}")
     if chunk_kernel not in ("dense", "blocked"):
         raise ValueError(f"unknown chunk kernel {chunk_kernel!r}")
 
+
+def make_serve_chunk_step(cfg: ModelConfig, spec, mode: str = "scan",
+                          chunk_kernel: str = "dense"):
+    """(params, cache, tokens (B, C), pos, n_tokens) -> (last-active-token
+    logits, cache').  The continuous-batching mixed step: prefill chunks
+    and decode streams share one batched call with per-stream lengths.
+    ``mode="scan"`` (the default, as in the JAX package) is the per-token
+    reference, C single-token steps (``chunk_decode_step``);
+    ``mode="parallel"`` one fused multi-token forward per tick, whose
+    attention ``chunk_kernel`` picks: "blocked" (the CUDA kernel on the
+    card) or "dense" (the plain masked softmax).  The scan path ignores
+    ``chunk_kernel``."""
+    _check_chunk_mode(mode, chunk_kernel)
+
     def serve_chunk_step(params, cache, tokens, pos, n_tokens):
-        return dec.prefill_chunk_step(params, cfg, spec, cache, tokens, pos,
-                                      n_tokens, chunk_kernel=chunk_kernel)
+        if mode == "parallel":
+            return dec.prefill_chunk_step(params, cfg, spec, cache, tokens,
+                                          pos, n_tokens,
+                                          chunk_kernel=chunk_kernel)
+        return dec.chunk_decode_step(params, cfg, spec, cache, tokens, pos,
+                                     n_tokens)
 
     return serve_chunk_step
 
 
-def make_spec_verify_step(cfg: ModelConfig, spec, mode: str = "parallel",
-                          chunk_kernel: str = "blocked"):
+def make_spec_verify_step(cfg: ModelConfig, spec, mode: str = "scan",
+                          chunk_kernel: str = "dense"):
     """(params, cache, tokens (B, C), pos, n_tokens) -> (per-position
     logits (B, C, V), cache').  The speculative-decode VERIFY step: the
-    masked chunk forward of ``make_serve_chunk_step`` returning the logits
-    after EVERY fed token, so greedy acceptance can compare each draft
-    token with the argmax one position earlier.  Positions at or past
-    ``n_tokens`` come back NEG_INF."""
-    if mode == "scan":
-        raise NotImplementedError("the per-token scan verify step "
-                                  "(chunk_decode_step) is not ported yet "
-                                  "(ROADMAP A item 6)")
-    if mode != "parallel":
-        raise ValueError(f"unknown chunk-step mode {mode!r}")
-    if chunk_kernel not in ("dense", "blocked"):
-        raise ValueError(f"unknown chunk kernel {chunk_kernel!r}")
+    masked chunk step of ``make_serve_chunk_step`` (same ``mode`` and
+    ``chunk_kernel``) returning the logits after EVERY fed token, so
+    greedy acceptance can compare each draft token with the argmax one
+    position earlier.  Positions at or past ``n_tokens`` come back
+    NEG_INF."""
+    _check_chunk_mode(mode, chunk_kernel)
 
     def spec_verify_step(params, cache, tokens, pos, n_tokens):
-        return dec.prefill_chunk_step(params, cfg, spec, cache, tokens, pos,
-                                      n_tokens, chunk_kernel=chunk_kernel,
-                                      all_logits=True)
+        if mode == "parallel":
+            return dec.prefill_chunk_step(params, cfg, spec, cache, tokens,
+                                          pos, n_tokens,
+                                          chunk_kernel=chunk_kernel,
+                                          all_logits=True)
+        return dec.chunk_decode_step(params, cfg, spec, cache, tokens, pos,
+                                     n_tokens, all_logits=True)
 
     return spec_verify_step
 
@@ -251,3 +272,31 @@ def make_prefix_fork(spec):
                                      dst_state=dst_state)
 
     return prefix_fork
+
+
+def make_generate(cfg: ModelConfig, steps: int, temperature: float = 0.0):
+    """(params, cache, tokens (B, 1), pos (B,), generator) -> (tokens (B,
+    steps), cache', pos'): ``steps`` single-token steps from the last
+    token, each feeding back its greedy token (``temperature == 0``) or
+    one drawn from softmax(logits / temperature) with the
+    ``torch.Generator`` ``generator`` (which may be None when greedy).
+    The cache is written in place."""
+    serve_step = make_serve_step(cfg)
+
+    @torch.no_grad()
+    def generate(params, cache, tokens, pos, generator=None):
+        out = []
+        tok, pos = tokens, pos
+        for _ in range(steps):
+            logits, cache = serve_step(params, cache, tok, pos)
+            if temperature > 0:
+                probs = torch.softmax(logits / temperature, dim=-1)
+                nxt = torch.multinomial(probs, 1, generator=generator)
+            else:
+                nxt = logits.argmax(dim=-1, keepdim=True)
+            tok = nxt.to(torch.int32)
+            out.append(tok[:, 0])
+            pos = pos + 1
+        return torch.stack(out, dim=1), cache, pos
+
+    return generate

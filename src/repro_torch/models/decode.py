@@ -1,6 +1,7 @@
 """Serving path of the dense, SSM and hybrid families: cache layout, the
-paged block pool's storage ops, the single-token decode step and the fused
-multi-token chunk step.
+paged block pool's storage ops, the single-token decode step, the fused
+multi-token chunk step, its per-token scan reference
+(``chunk_decode_step``) and whole-prompt ``prefill``.
 
 Caches are nested dicts of tensors shaped like the JAX package's cache
 pytrees.  The dense family keeps ring buffers of width W = min(max_len,
@@ -18,7 +19,7 @@ group) weights.
 
 Where the JAX package updates arrays functionally (``.at[].set``) under
 buffer donation, the port writes in place and says so: the pool storage
-ops mutate the pool, and both steps update the cache they are given and
+ops mutate the pool, and the steps update the cache they are given and
 return it.
 """
 from __future__ import annotations
@@ -34,8 +35,8 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.params import PORTED_FAMILIES, hybrid_structure
 from repro_torch.models.transformer import (
-    _attn_out, _attn_proj, _ffn, _window, cdt, embed_tokens, head_logits,
-    layer_params, rope_for, tail_layers)
+    _attn_out, _attn_proj, _ffn, _window, cdt, embed_tokens, forward,
+    head_logits, layer_params, rope_for, tail_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +436,94 @@ def layer_walks() -> int:
     return _layer_stack.walks
 
 
+def _row_shape(leaf, s: CacheLeafSpec):
+    """Shape that broadcasts a (B,) per-stream mask along ``leaf``'s
+    stream axis."""
+    shape = [1] * leaf.dim()
+    shape[s.batch_axis] = leaf.shape[s.batch_axis]
+    return shape
+
+
+def _slot_index(leaf, s: CacheLeafSpec, pos):
+    """Index for ``gather`` / ``scatter_`` on ``leaf``'s token axis: each
+    stream's ring slot ``pos % W``, broadcast over the leaf's other axes
+    (the token axis of size 1)."""
+    shape = list(leaf.shape)
+    shape[s.token_axis] = 1
+    slot = (pos.long() % leaf.shape[s.token_axis]).reshape(
+        _row_shape(leaf, s))
+    return slot.expand(shape)
+
+
+def _save_rows(leaves, spec: CacheViewSpec, pos):
+    """What one single-token step can write for each stream: the ring
+    slot at ``pos % W`` of every token leaf, the whole of every state
+    leaf."""
+    out = []
+    for leaf, s in zip(leaves, spec.leaves):
+        if s.token_axis is None:
+            out.append(leaf.clone())
+        else:
+            out.append(torch.gather(leaf, s.token_axis,
+                                    _slot_index(leaf, s, pos)))
+    return out
+
+
+def _restore_rows(leaves, spec: CacheViewSpec, saved, pos, active):
+    """Put back ``saved`` (``_save_rows`` at the same ``pos``) for the
+    streams where ``active`` (B,) is False, in place — the port's
+    counterpart of the JAX package's ``select_streams``, touching only
+    what the step wrote.  No boolean indexing and no host sync, so a CUDA
+    graph can hold it."""
+    for leaf, s, old in zip(leaves, spec.leaves, saved):
+        keep = active.reshape(_row_shape(leaf, s))
+        if s.token_axis is None:
+            leaf.copy_(torch.where(keep, leaf, old))
+            continue
+        idx = _slot_index(leaf, s, pos)
+        new = torch.gather(leaf, s.token_axis, idx)
+        leaf.scatter_(s.token_axis, idx, torch.where(keep, new, old))
+
+
+def chunk_decode_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
+                      tokens, pos, n_tokens, all_logits=False):
+    """One continuous-batching tick as C single-token steps: the
+    per-token reference of ``prefill_chunk_step`` (``prefill_mode=
+    "scan"``), bit-identical to feeding each stream its tokens one a tick.
+
+    tokens: (B, C); pos: (B,) absolute position of tokens[:, 0]; n_tokens:
+    (B,) in [0, C] (0 = idle slot).  Step t runs ``decode_step`` over every
+    stream at its cursor; a stream with ``n_tokens <= t`` comes out of it
+    unchanged — its ring slot at ``pos % W`` and its state rows are saved
+    before the step and put back after it — and its cursor stays.  Writes
+    ``cache`` in place; returns (logits (B, V) after each stream's last
+    active token, NEG_INF for idle streams, cache), or with ``all_logits``
+    the logits after every fed token (B, C, V), NEG_INF at and past
+    ``n_tokens``.  Counts C layer-stack walks."""
+    _check_family(cfg)
+    B, C = tokens.shape
+    leaves = tree_leaves(cache, spec)
+    n = n_tokens.long()
+    pos_c = pos
+    logits, per = None, []
+    for t in range(C):
+        active = t < n
+        saved = _save_rows(leaves, spec, pos_c)
+        lg, _ = decode_step(params, cfg, cache, tokens[:, t:t + 1], pos_c)
+        _restore_rows(leaves, spec, saved, pos_c, active)
+        if logits is None:
+            logits = torch.full_like(lg, L.NEG_INF)
+        logits = torch.where(active[:, None], lg, logits)
+        if all_logits:
+            per.append(lg)
+        pos_c = pos_c + active.to(pos_c.dtype)
+    if all_logits:
+        la = torch.stack(per, dim=1)                          # (B, C, V)
+        live = torch.arange(C, device=la.device)[None, :] < n[:, None]
+        return torch.where(live[:, :, None], la, L.NEG_INF), cache
+    return logits, cache
+
+
 def _ffn_out(h, lp, cfg: ModelConfig):
     return h + _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
 
@@ -530,3 +619,52 @@ def prefill_chunk_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
     xl = x[torch.arange(B, device=x.device), last]
     logits = head_logits(params, cfg, xl)
     return torch.where((n > 0)[:, None], logits, L.NEG_INF), cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill: the full-sequence forward that also builds the decode cache
+# ---------------------------------------------------------------------------
+
+def _ring_arrange(kv, W: int):
+    """kv: (B, S, Hkv, dh) the prompt's keys or values -> the ring (B, W,
+    Hkv, dh) a decode step reads: zero-padded when S < W, else the last W
+    positions rolled so that position p sits in slot p % W."""
+    S = kv.shape[1]
+    if S <= W:
+        return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, W - S))
+    return torch.roll(kv[:, -W:], shifts=(S - W) % W, dims=1).contiguous()
+
+
+def _state_to_cache(cfg: ModelConfig, st, lt: str, max_len: int):
+    """One layer's prefill state in its decode-cache form: attention keys
+    and values ring-arranged to the layer's cache width (a hybrid's local
+    window folded in by ``_attn_cache_width``); recurrent and SSD states
+    as they are, but a conv tail of a prompt shorter than the conv's K-1
+    inputs front-padded with the zeros a fresh state holds."""
+    if lt == "attn":
+        W = _attn_cache_width(cfg, max_len)
+        return {"k": _ring_arrange(st["k"], W), "v": _ring_arrange(st["v"], W)}
+    K = cfg.conv_width
+    return {k: (torch.nn.functional.pad(v, (0, 0, K - 1 - v.shape[1], 0))
+                if k.startswith("conv") and v.shape[1] < K - 1
+                else v.contiguous())
+            for k, v in st.items()}
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, max_len: int):
+    """Process whole prompts: (logits (B, V) after the last token, the
+    decode cache shaped like ``init_cache(cfg, B, max_len)``).  tokens:
+    (B, S).  The forward runs every layer over the whole sequence — flash
+    attention, the SSD scan and the RG-LRU scan through their kernels on
+    the card — and ring-arranges each layer's keys and values as the
+    layer finishes, so a windowed cache never holds (L, B, S, ...)."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name}: encdec_prefill is not ported "
+                                  "yet (ROADMAP A item 9)")
+    _check_family(cfg)
+    x, states, _ = forward(params, cfg, tokens, return_states=True,
+                           state_fn=lambda st, t: _state_to_cache(
+                               cfg, st, t, max_len))
+    with torch.no_grad():
+        logits = head_logits(params, cfg, x[:, -1])
+    return logits, states

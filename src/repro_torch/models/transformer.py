@@ -28,8 +28,11 @@ What differs from the JAX forward:
 * ``head_pad_to`` and the sharding pins (``_shard_padded_heads``,
   ``_seq_gather``, ``_wsc_tree``) do nothing on one card and are not
   ported.
-* The other families (MoE, encoder-decoder, VLM) raise
-  ``NotImplementedError`` (ROADMAP A8).
+* The other families (MoE, VLM, encoder-decoder) raise
+  ``NotImplementedError`` (ROADMAP A items 7, 8 and 9).
+* ``forward(..., return_states=True)`` (the prefill path) runs the layer
+  stack without gradients and without recomputation and returns each
+  layer's decode state, stacked as the JAX layer scan stacks it.
 """
 from __future__ import annotations
 
@@ -47,6 +50,9 @@ from repro_torch.models.params import (PORTED_FAMILIES, hybrid_structure,
                                        torch_dtype)
 
 LOSS_CHUNK = 1024
+
+# the ROADMAP A item that ports each family not ported yet
+_FAMILY_ITEM = {"moe": 7, "vlm": 8, "encdec": 9}
 
 
 def cdt(cfg: ModelConfig) -> torch.dtype:
@@ -158,10 +164,6 @@ def layer_params(layers, i: int):
             for k, v in layers.items()}
 
 
-def _layer_out(x, lp, cfg, layer_type, rope, window):
-    return apply_layer(x, lp, cfg, layer_type, rope, window=window)[0]
-
-
 def _window(cfg: ModelConfig, layer_type: str) -> int:
     """The attention window of a layer: the hybrid's local attention reads
     ``local_window``, other attention ``window``."""
@@ -176,13 +178,6 @@ def tail_layers(tail):
     return [(n, n.split("_", 1)[1]) for n in names]
 
 
-def _group_out(x, gp, cfg, rope):
-    """One group of a hybrid model: its pattern's layers in order."""
-    for i, t in enumerate(cfg.block_pattern):
-        x = _layer_out(x, gp[f"b{i}_{t}"], cfg, t, rope, _window(cfg, t))
-    return x
-
-
 def _run(fn, x, p, cfg: ModelConfig):
     """``fn(x, p)``, recomputed in the backward pass unless remat is off."""
     if cfg.remat == "none":
@@ -190,33 +185,88 @@ def _run(fn, x, p, cfg: ModelConfig):
     return checkpoint(lambda x_: fn(x_, p), x, use_reentrant=False)
 
 
-def forward(params, cfg: ModelConfig, tokens, extras=None):
+def _stack_states(states):
+    """Per-layer decode states (dicts of tensors) stacked along a new
+    leading axis, as the JAX layer scan stacks its outputs."""
+    return {k: (_stack_states([s[k] for s in states])
+                if isinstance(states[0][k], dict)
+                else torch.stack([s[k] for s in states]))
+            for k in states[0]}
+
+
+def _walk(params, cfg: ModelConfig, x, rope, run, keep):
+    """Every layer of the stack in the JAX package's order: a hybrid's
+    groups (each its pattern's layers), then its tail; otherwise
+    ``n_layers`` layers of one type.  ``run(fn, x, p)`` applies a group or
+    a uniform stack's layer (``fn(x, p) -> (x, states)``); the tail's
+    layers run directly.  ``keep(state, layer_type)`` maps each layer's
+    decode state, or is None to drop the states.  Returns (x, states):
+    ``layers`` stacked, or a hybrid's ``groups`` stacked and ``tail`` by
+    name; None without ``keep``."""
+    def one(x, lp, t):
+        x, s, _ = apply_layer(x, lp, cfg, t, rope, window=_window(cfg, t))
+        return x, (keep(s, t) if keep else None)
+
+    if cfg.block_pattern:
+        pattern = [(f"b{i}_{t}", t) for i, t in enumerate(cfg.block_pattern)]
+
+        def group(x, gp):
+            st = {}
+            for nm, t in pattern:
+                x, st[nm] = one(x, gp[nm], t)
+            return x, st
+
+        _, n_groups, _ = hybrid_structure(cfg)
+        groups, tail = [], {}
+        for g in range(n_groups):
+            x, st = run(group, x, layer_params(params["groups"], g))
+            groups.append(st)
+        for nm, t in tail_layers(params["tail"]):
+            x, tail[nm] = one(x, params["tail"][nm], t)
+        if keep is None:
+            return x, None
+        return x, {"groups": _stack_states(groups), "tail": tail}
+    lt = cfg.layer_types()[0]
+    states = []
+    for i in range(cfg.n_layers):
+        x, s = run(lambda x_, lp: one(x_, lp, lt), x,
+                   layer_params(params["layers"], i))
+        states.append(s)
+    if keep is None:
+        return x, None
+    return x, {"layers": _stack_states(states)}
+
+
+def forward(params, cfg: ModelConfig, tokens, extras=None, *,
+            return_states=False, state_fn=None):
     """Full-sequence forward to the final hidden states: (x (B, S, D),
     aux loss).  ``extras`` carries nothing for the dense, SSM and hybrid
-    families."""
+    families.
+
+    With ``return_states`` (the prefill path) returns (x, states, aux):
+    the stack runs without gradients and without recomputation, and
+    ``state_fn(state, layer_type)`` transforms each layer's decode state
+    before it is stacked — prefill ring-arranges there, so a windowed
+    cache never holds the full sequence for every layer at once."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's "
-                                  "forward is not ported yet (ROADMAP A8)")
+                                  "forward is not ported yet (ROADMAP A "
+                                  f"item {_FAMILY_ITEM.get(cfg.family, 7)})")
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     rope = rope_for(cfg, positions)
-    if cfg.block_pattern:
-        _, n_groups, _ = hybrid_structure(cfg)
-        group = functools.partial(_group_out, cfg=cfg, rope=rope)
-        for g in range(n_groups):
-            x = _run(group, x, layer_params(params["groups"], g), cfg)
-        for name, t in tail_layers(params["tail"]):
-            x = _layer_out(x, params["tail"][name], cfg, t, rope,
-                           _window(cfg, t))
-    else:
-        lt = cfg.layer_types()[0]
-        layer = functools.partial(_layer_out, cfg=cfg, layer_type=lt,
-                                  rope=rope, window=_window(cfg, lt))
-        for i in range(cfg.n_layers):
-            x = _run(layer, x, layer_params(params["layers"], i), cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_states:
+        with torch.no_grad():
+            x, states = _walk(params, cfg, x, rope,
+                              lambda fn, x_, p: fn(x_, p),
+                              state_fn or (lambda s, t: s))
+            x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x, states, aux
+    x, _ = _walk(params, cfg, x, rope, functools.partial(_run, cfg=cfg), None)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------

@@ -53,10 +53,23 @@ layers and a state slot for its recurrent layers: a prompt prefix is
 shared through the state checkpoints the pool snaps at page boundaries,
 and a spill carries the state leaves with the pages.
 
-Not ported yet (each raises ``NotImplementedError`` naming ROADMAP A item
-6): the slot monolith (``paged=False``), the eager allocator
-(``lazy=False``) and the per-token scan chunk path
-(``prefill_mode="scan"``).
+The JAX package's other modes ride the same token loop:
+
+  * ``prefill_mode="scan"`` runs chunk ticks (and speculative verifies) as
+    the per-token reference, C single-token steps a chunk
+    (``decode.chunk_decode_step``), bit-identical to single-token stepping;
+    the fused path matches it to tolerance;
+  * ``lazy=False`` keeps the EAGER allocator: admission reserves the full
+    capped length and prefills the whole prompt in one forward
+    (``decode.prefill``: the flash-attention, SSD-scan and RG-LRU-scan
+    kernels on the card), whose cache is scattered into the pool; tables
+    never grow, chunk ticks never happen, and the chunk path is the scan;
+  * ``paged=False`` keeps the SLOT MONOLITH: each replica group owns a
+    ``(max_batch, max_len)`` cache, requests route straight to the
+    least-pressured group, a whole-prompt prefill is copied into a slot,
+    and a relayout carries each stream's cache slice to its new group.
+    There is no pool: ``kv_stats()`` is empty, ``warm_steps()`` does
+    nothing and ``measured_model_steps`` refuses.
 """
 from __future__ import annotations
 
@@ -79,7 +92,7 @@ from repro_torch.core.layout import Layout
 from repro_torch.core.scheduler import GlobalScheduler, TieredQueues
 from repro_torch.core.tasks import BLOCK, WaitQueue
 from repro_torch.core.topology import ChipletTopology
-from repro_torch.launch.steps import make_serve_chunk_step, \
+from repro_torch.launch.steps import make_prefill, make_serve_chunk_step, \
     make_serve_step, make_spec_verify_step
 from repro_torch.models import decode as dec
 from repro_torch.models.params import PORTED_FAMILIES, init_params
@@ -137,9 +150,14 @@ class Request:
         return self.t_done is not None
 
     def kv_bytes(self) -> float:
-        """KV footprint moved when this request changes groups (exact,
-        from the cost model through the engine's calculator)."""
-        return self._kv_fn(len(self.prompt) + len(self.generated))
+        """KV footprint moved when this request changes groups: exact,
+        from the cost model, when the engine installed its calculator (the
+        paged engines); 2 bytes a token otherwise, as in the JAX
+        package."""
+        tokens = len(self.prompt) + len(self.generated)
+        if self._kv_fn is not None:
+            return self._kv_fn(tokens)
+        return float(tokens * 2)
 
 
 @dataclasses.dataclass
@@ -152,7 +170,9 @@ class EngineConfig:
     block_tokens: int = 16             # ring tokens per KV page
     prefill_chunk: Optional[int] = None  # prompt tokens per prefill chunk;
                                          # default: one KV page
-    prefill_mode: str = "parallel"     # fused multi-token chunk forward
+    prefill_mode: str = "parallel"     # chunk-tick path: "parallel" is
+                                       # the fused multi-token forward,
+                                       # "scan" the per-token reference
     chunk_kernel: str = "blocked"      # fused-path attention: "blocked" is
                                        # the ring-chunk CUDA kernel on the
                                        # card, "dense" the plain softmax
@@ -197,24 +217,15 @@ class EngineConfig:
             scheduler_timer=8, threshold=4.0, min_dwell=2))
 
 
-def _unported(ecfg: EngineConfig) -> Optional[str]:
-    """The first option of ``ecfg`` that selects a path not ported yet,
-    with its ROADMAP item."""
-    if not ecfg.paged:
-        return "paged=False (the slot-monolith cache): ROADMAP A item 6"
-    if not ecfg.lazy:
-        return "lazy=False (the eager make_prefill path): ROADMAP A item 6"
-    if ecfg.prefill_mode == "scan":
-        return "prefill_mode='scan' (chunk_decode_step): ROADMAP A item 6"
-    return None
-
-
 @dataclasses.dataclass
 class _InFlight:
     """A mid-generation stream harvested from a retired replica group (or
-    a mid-decode park); its KV stays in the pool, only the table pointer
-    moves.  ``pos`` < len(prompt) means it was harvested mid-PREFILL."""
+    a mid-decode park).  Paged: its KV stays in the pool, only the table
+    pointer moves (``cache`` None).  Slot monolith: ``cache`` carries its
+    slice of every cache leaf.  ``pos`` < len(prompt) means it was
+    harvested mid-PREFILL."""
     req: Request
+    cache: Optional[List[torch.Tensor]]
     pos: int
     token: int
 
@@ -239,10 +250,11 @@ class _Group:
     ``resume`` holds migrated in-flight streams awaiting a free slot;
     ``retired`` marks groups dissolved by a relayout.  ``pos_h``/``tok_h``
     are every slot's stream cursor: absolute position of the next token to
-    process and the last emitted token."""
+    process and the last emitted token.  ``cache`` is the group's own
+    ``(max_batch, max_len)`` cache in the slot monolith, None when paged."""
 
     def __init__(self, gid: int, pod: int, ecfg: EngineConfig, queue,
-                 domains: List[int]):
+                 domains: List[int], cache=None):
         self.gid = gid
         self.pod = pod
         self.queue = queue
@@ -250,6 +262,7 @@ class _Group:
         self.resume: List[_InFlight] = []
         self.retired = False
         self.slots: List[Optional[Request]] = [None] * ecfg.max_batch
+        self.cache = cache
         self.pos_h = np.zeros((ecfg.max_batch,), np.int32)
         self.tok_h = np.zeros((ecfg.max_batch,), np.int32)
 
@@ -329,15 +342,12 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, topology: ChipletTopology,
                  ecfg: EngineConfig = EngineConfig(), *, seed: int = 0,
                  spread_rate: int = 1, params=None, device="cuda"):
-        unported = _unported(ecfg)
-        if unported:
-            raise NotImplementedError(f"not ported yet: {unported}")
         if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family "
                                       "is not ported yet (ROADMAP A8)")
         if ecfg.evict_mode not in ("swap", "restart"):
             raise ValueError(f"unknown evict_mode {ecfg.evict_mode!r}")
-        if ecfg.prefill_mode != "parallel":
+        if ecfg.prefill_mode not in ("parallel", "scan"):
             raise ValueError(f"unknown prefill_mode {ecfg.prefill_mode!r}")
         if ecfg.chunk_kernel not in ("blocked", "dense"):
             raise ValueError(f"unknown chunk_kernel {ecfg.chunk_kernel!r}")
@@ -370,8 +380,16 @@ class ServeEngine:
         self._clients = 0               # active open-loop client coroutines
         self.submitted: List[Request] = []
         self.relayouts: List[Dict] = []
-        self._chunk_kernel = ecfg.chunk_kernel
-        self._async = ecfg.async_swap
+        self.pool: Optional[KVBlockPool] = None
+        self._lazy = ecfg.paged and ecfg.lazy
+        self._async = ecfg.paged and ecfg.async_swap
+        # the eager and monolith paths have no chunk ticks: their chunk
+        # path is the per-token reference, which reads no chunk kernel
+        self._prefill_mode = ecfg.prefill_mode if self._lazy else "scan"
+        self._chunk_kernel = (ecfg.chunk_kernel
+                              if self._prefill_mode == "parallel" else "dense")
+        self._prefill = make_prefill(cfg, max_len=ecfg.max_len)
+        self._decode = make_serve_step(cfg)
         self._parked: Dict[int, _Parked] = {}
         self._park_seq = itertools.count()
         self._progress_mark = -1.0
@@ -381,12 +399,35 @@ class ServeEngine:
         self._head_wait = 0                   # rounds it has sat blocked there
         # bypass-class waiters are woken on frees and grants; _bypass_on
         # gates the grants themselves
-        self._bypass_wake = any(c.bypass for c in ecfg.slo_classes.values())
+        self._bypass_wake = ecfg.paged and any(
+            c.bypass for c in ecfg.slo_classes.values())
         self._bypass_on = self._bypass_wake and ecfg.slo_bypass
         self._wait_round: Dict[int, int] = {}
         self._bypass_cells: Dict[int, Dict[str, Any]] = {}
         # every bypass grant as (round, granted rid, jumped head rid)
         self.bypass_log: List[Tuple[int, int, int]] = []
+        # CUDA graphs of the paged steps, by (kind, width, batch bucket),
+        # captured by warm_steps into one memory pool
+        self._graphs: Dict[Tuple[str, int, int], _StepGraph] = {}
+        self._graph_pool = None
+        self._steps: Dict[str, Callable] = {}
+        if ecfg.paged:
+            self._init_pool()
+        else:
+            # the slot monolith: each group's own cache, one token a tick
+            self._cache_spec = dec.cache_view_specs(cfg, ecfg.max_len)
+            self._kv_fn = None
+            self._chunk = 1
+            self._share = False
+            self._spec = False
+            self._spec_w = 0
+            self.drafter = None
+        self._build_groups()
+        self.sched.register_relayout(self._relayout)
+
+    def _init_pool(self):
+        """The paged engines' KV pool, wait line and paged steps."""
+        cfg, ecfg, topology = self.cfg, self.ecfg, self.topology
         streams = ecfg.pool_streams or ecfg.max_batch
         budget = KVBlockPool.blocks_for_streams(
             cfg, ecfg.max_len, streams, ecfg.block_tokens)
@@ -403,38 +444,36 @@ class ServeEngine:
             self.pool.set_watermarks(*ecfg.spill_watermarks)
         ml = ecfg.max_len
         self._kv_fn = lambda n: kv_bytes_exact(cfg, n, ml)
-        self._share = ecfg.prefix_share and self.pool.pages_per_stream > 0
+        # prefix sharing needs elastic tables (the skip resumes at a chunk
+        # boundary like a restored park) and ring pages to share
+        self._share = (self._lazy and ecfg.prefix_share
+                       and self.pool.pages_per_stream > 0)
         # prefill chunk: one KV page by default (ring models), the
         # configured page size for pure-state models (no ring pages).  No
         # C <= W clamp: the fused forward handles chunks wider than the ring
         self._chunk = ecfg.prefill_chunk or (
             self.pool.block_tokens if self.pool.pages_per_stream
             else ecfg.block_tokens)
-        # speculative decoding rides the chunk path: drafted decode streams
-        # become small-chunk rows verified through an all-position-logits
-        # variant of the same fused forward, at this narrow width
-        self._spec = (ecfg.spec_decode != "off" and ecfg.spec_k > 0
-                      and self._chunk > 1)
+        # speculative decoding rides the lazy chunk path: drafted decode
+        # streams become small-chunk rows verified through an
+        # all-position-logits variant of the same chunk step, at this
+        # narrow width
+        self._spec = (self._lazy and ecfg.spec_decode != "off"
+                      and ecfg.spec_k > 0 and self._chunk > 1)
         self.drafter = (make_drafter(ecfg.spec_decode, ngram=ecfg.spec_ngram)
                         if self._spec else None)
         self._spec_w = min(ecfg.spec_k + 1, self._chunk) if self._spec \
             else 0
-        self._steps = {
-            "decode": self._paged_step("decode", make_serve_step(cfg)),
-            "chunk": self._paged_step("chunk", make_serve_chunk_step(
-                cfg, self.pool.spec, mode="parallel",
-                chunk_kernel=self._chunk_kernel))}
+        mode, kernel = self._prefill_mode, self._chunk_kernel
+        self._steps["decode"] = self._paged_step("decode", self._decode)
+        if self._lazy:
+            self._steps["chunk"] = self._paged_step(
+                "chunk", make_serve_chunk_step(cfg, self.pool.spec, mode=mode,
+                                               chunk_kernel=kernel))
         if self._spec:
             self._steps["spec"] = self._paged_step(
-                "spec", make_spec_verify_step(
-                    cfg, self.pool.spec, mode="parallel",
-                    chunk_kernel=self._chunk_kernel))
-        # CUDA graphs of the paged steps, by (kind, width, batch bucket),
-        # captured by warm_steps into one memory pool
-        self._graphs: Dict[Tuple[str, int, int], _StepGraph] = {}
-        self._graph_pool = None
-        self._build_groups()
-        self.sched.register_relayout(self._relayout)
+                "spec", make_spec_verify_step(cfg, self.pool.spec, mode=mode,
+                                              chunk_kernel=kernel))
 
     # ------------------------------------------------------------------
     def _domains_of(self, gid: int, lay: Layout) -> List[int]:
@@ -456,7 +495,12 @@ class ServeEngine:
                                    counters=self.counters,
                                    bytes_fn=Request.kv_bytes)
         self.groups = [_Group(g, pods[g], self.ecfg, self.queues.queue(g),
-                              self._domains_of(g, lay))
+                              self._domains_of(g, lay),
+                              cache=None if self.ecfg.paged
+                              else dec.init_cache(self.cfg,
+                                                  self.ecfg.max_batch,
+                                                  self.ecfg.max_len,
+                                                  device=self.device))
                        for g in range(lay.replicas)]
 
     def _owner_group(self, domain: int) -> _Group:
@@ -495,7 +539,10 @@ class ServeEngine:
         """Sweep every candidate domain; one logical alloc failure only
         when the whole pool is dry.  A domain already holding the prompt's
         pages admits onto shared refcounted pages and charges only the
-        unshared tail."""
+        unshared tail.  Lazy admissions keep ``headroom`` blocks free in
+        the granting domain; eager ones reserve their whole length and
+        keep none."""
+        headroom = self.ecfg.headroom if self._lazy else 0
         cands, matches = self._candidates(keys, prompt_len)
         for g, d in cands:
             shared, ckpt = matches.get(d, ((), 0))
@@ -506,7 +553,7 @@ class ServeEngine:
                 first = skip + min(self._chunk, max(1, prompt_len - skip))
             table = self.pool.reserve(d, total_tokens,
                                       first_tokens=first,
-                                      headroom=self.ecfg.headroom,
+                                      headroom=headroom,
                                       count_failure=False,
                                       prefix_blocks=shared,
                                       prefix_state=ckpt)
@@ -576,6 +623,7 @@ class ServeEngine:
         if rec is None or rec.req.table is None:
             return None, None
         cands, matches = self._candidates(req.page_keys, len(req.prompt))
+        headroom = self.ecfg.headroom if self._lazy else 0
         for g, d in cands:
             hn, head_state = self._head_need_in(rec, d)
             if (head_state and self.pool.has_state
@@ -584,7 +632,7 @@ class ServeEngine:
             shared, ckpt = matches.get(d, ((), 0))
             table = self.pool.reserve(d, total_tokens,
                                       first_tokens=None,  # eager: no growth
-                                      headroom=self.ecfg.headroom,
+                                      headroom=headroom,
                                       min_free=hn,
                                       count_failure=False,
                                       prefix_blocks=shared,
@@ -609,6 +657,13 @@ class ServeEngine:
         self._inflight += 1
         self.submitted.append(req)
         self.counters.add(f"kv_class_submits/{cls}", 1)
+        if not self.ecfg.paged:
+            # the slot monolith: straight to the least-pressured group
+            g = min(self.groups,
+                    key=lambda gr: (gr.kv_pressure(), len(gr.queue)))
+            req.group = g.gid
+            self.queues.push(g.gid, req)
+            return req
         self._spawn_admission(req, name=f"admit{req.rid}")
         return req
 
@@ -645,11 +700,13 @@ class ServeEngine:
             self.runtime.unblock(cell["task"])
 
     def _admission_task(self, req: Request, cell: Dict[str, Any]):
-        """Per-request coroutine: reserve the first chunk's pages when at
-        the head of the wait line (or by a size-aware bypass), park on
-        pool exhaustion until a free wakes us."""
+        """Per-request coroutine: reserve the first chunk's pages (the
+        eager engine: the whole capped length) when at the head of the
+        wait line (or by a size-aware bypass), park on pool exhaustion
+        until a free wakes us."""
         total = len(req.prompt) + req.max_new
-        first = min(self._chunk, max(1, len(req.prompt)))
+        first = (min(self._chunk, max(1, len(req.prompt)))
+                 if self._lazy else None)
         if self._share and req.page_keys is None:
             req.page_keys = self.pool.prefix_keys(req.prompt)
         while True:
@@ -703,13 +760,15 @@ class ServeEngine:
         old_groups = self.groups
         if new_layout.replicas == len(old_groups):
             return
-        # quiesce the transfer engine: tables must not be harvested or
-        # re-pointed with a D2H copy still on the wire
-        self.pool.drain()
+        if self.ecfg.paged:
+            # quiesce the transfer engine: tables must not be harvested or
+            # re-pointed with a D2H copy still on the wire
+            self.pool.drain()
         # harvest in-flight streams and queued requests from the dissolving
-        # groups; KV stays in the pool (tables move, data does not — except
-        # the used pages of rebalanced streams).  Parked streams need no
-        # harvesting: their regrow task re-resolves the owner group.
+        # groups.  Paged: KV stays in the pool (tables move, data does not
+        # — except the used pages of rebalanced streams), and parked
+        # streams need no harvesting: their regrow task re-resolves the
+        # owner group.  Slot monolith: each stream carries its cache slice.
         inflight: List[_InFlight] = []
         queued: List[Request] = []
         mig0 = self.counters.totals.get("kv_blocks_migrated", 0.0)
@@ -718,7 +777,8 @@ class ServeEngine:
             for slot, req in enumerate(g.slots):
                 if req is None:
                     continue
-                inflight.append(_InFlight(req, int(g.pos_h[slot]),
+                one = None if self.ecfg.paged else self._slot_slice(g, slot)
+                inflight.append(_InFlight(req, one, int(g.pos_h[slot]),
                                           int(g.tok_h[slot])))
                 g.slots[slot] = None
                 self.counters.add("kv_slots_migrated", 1)
@@ -729,24 +789,39 @@ class ServeEngine:
                 queued.append(g.queue.popleft())
         self._build_groups()
         n = len(self.groups)
-        # tables follow their domain's new owner; only streams rebalanced
-        # off the owner copy their used pages cross-domain
-        cap = max(1, math.ceil(len(inflight) / n))
-        load = {g.gid: 0 for g in self.groups}
-        for fl in inflight:
-            tgt = self._owner_group(fl.req.table.domain)
-            if load[tgt.gid] >= cap:
-                alt = min(self.groups, key=lambda gr: (load[gr.gid], gr.gid))
-                if alt is not tgt and self._migrate_into(fl.req.table, alt):
-                    tgt = alt
-            fl.req.group = tgt.gid
-            fl.req.migrations += 1
-            load[tgt.gid] += 1
-            tgt.resume.append(fl)
-        for req in queued:
-            tgt = self._owner_group(req.table.domain)
-            req.group = tgt.gid
-            self.queues.push(tgt.gid, req)
+        if self.ecfg.paged:
+            # tables follow their domain's new owner; only streams
+            # rebalanced off the owner copy their used pages cross-domain
+            cap = max(1, math.ceil(len(inflight) / n))
+            load = {g.gid: 0 for g in self.groups}
+            for fl in inflight:
+                tgt = self._owner_group(fl.req.table.domain)
+                if load[tgt.gid] >= cap:
+                    alt = min(self.groups,
+                              key=lambda gr: (load[gr.gid], gr.gid))
+                    if alt is not tgt and self._migrate_into(fl.req.table,
+                                                            alt):
+                        tgt = alt
+                fl.req.group = tgt.gid
+                fl.req.migrations += 1
+                load[tgt.gid] += 1
+                tgt.resume.append(fl)
+            for req in queued:
+                tgt = self._owner_group(req.table.domain)
+                req.group = tgt.gid
+                self.queues.push(tgt.gid, req)
+        else:
+            # the slot monolith deals streams and queued requests out
+            # round-robin
+            for i, fl in enumerate(inflight):
+                tgt = self.groups[i % n]
+                fl.req.group = tgt.gid
+                fl.req.migrations += 1
+                tgt.resume.append(fl)
+            for i, req in enumerate(queued):
+                tgt = self.groups[i % n]
+                req.group = tgt.gid
+                self.queues.push(tgt.gid, req)
         self.relayouts.append({
             "step": decision.step, "old_groups": len(old_groups),
             "new_groups": n, "moved_slots": len(inflight),
@@ -812,6 +887,16 @@ class ServeEngine:
         if graph is not None:
             return graph.replay(args, self._graph_leaves())
         return self._steps[kind](*map(self._tensor, args)).cpu().numpy()
+
+    def _monolith_decode(self, g: _Group, tokens, n) -> np.ndarray:
+        """The slot monolith's single-token step over every slot of the
+        group's own cache (idle slots compute into their own slot, which
+        admission overwrites); the greedy token per slot, -1 where ``n``
+        is 0."""
+        logits, g.cache = self._decode(self.params, g.cache,
+                                       self._tensor(tokens),
+                                       self._tensor(g.pos_h))
+        return dec.next_token_ids(logits, self._tensor(n)).cpu().numpy()
 
     def _paged_decode(self, reqs, tokens, pos) -> np.ndarray:
         """Single-token step over ``reqs``' pages; returns the greedy
@@ -912,7 +997,7 @@ class ServeEngine:
         req.grant_rounds.append(self._round)
         self._parked.pop(req.rid, None)
         req.group = g.gid
-        g.resume.append(_InFlight(req, rec.pos, rec.token))
+        g.resume.append(_InFlight(req, None, rec.pos, rec.token))
 
     def _restore_stream(self, rec: _Parked) -> Optional[_Group]:
         """Re-grant a SPILLED stream in ONE atomic ``restore_into`` leg
@@ -943,7 +1028,10 @@ class ServeEngine:
         """Called by the scheduler after every round: the proactive
         watermark rung, then — if nothing progressed for
         ``stall_evict_rounds`` rounds while streams sit parked — the
-        watchdog spills (or evicts) the most-recently-parked stream."""
+        watchdog spills (or evicts) the most-recently-parked stream.  The
+        slot monolith has no pool and does nothing here."""
+        if not self.ecfg.paged:
+            return
         self._round += 1
         if self._async:
             # poll phase of the ladder: land every transfer whose copy has
@@ -1078,10 +1166,26 @@ class ServeEngine:
         self.counters.add("recompute_tokens", rec.pos)
         self._spawn_admission(req, name=f"readmit{req.rid}")
 
+    # -- the slot monolith's cache slices ------------------------------------
+    def _slot_slice(self, g: _Group, slot: int) -> List[torch.Tensor]:
+        """A copy of one slot's slice of every leaf of a monolith group's
+        cache (a view would alias the dissolving group's cache)."""
+        return [leaf.select(s.batch_axis, slot).clone()
+                for leaf, s in zip(dec.tree_leaves(g.cache, self._cache_spec),
+                                   self._cache_spec.leaves)]
+
+    def _write_slot(self, g: _Group, slot: int, one: List[torch.Tensor]):
+        """Write a stream's slice of every cache leaf into ``slot``."""
+        for leaf, s, v in zip(dec.tree_leaves(g.cache, self._cache_spec),
+                              self._cache_spec.leaves, one):
+            leaf.select(s.batch_axis, slot).copy_(v)
+
     # -- one engine tick: admit + mixed chunk/decode token step ---------------
     def _install(self, g: _Group, slot: int, fl: _InFlight):
-        """Re-slot a migrated stream: pure bookkeeping, the KV never left
-        the pool."""
+        """Re-slot a migrated stream.  Paged: pure bookkeeping, the KV
+        never left the pool.  Slot monolith: writes the carried slice."""
+        if not self.ecfg.paged:
+            self._write_slot(g, slot, fl.cache)
         g.slots[slot] = fl.req
         g.pos_h[slot] = fl.pos
         g.tok_h[slot] = fl.token
@@ -1091,7 +1195,7 @@ class ServeEngine:
         """TieredQueues accept hook: a stolen request's reservation moves
         into the thief's memory domain (memory follows work)."""
         def accept(req: Request, _tier: str) -> bool:
-            if req.table is None:
+            if not self.ecfg.paged or req.table is None:
                 return True
             return self._migrate_into(req.table, g)
         return accept
@@ -1106,11 +1210,53 @@ class ServeEngine:
                 break
             if tier != "local":
                 req.group = g.gid
-            # the token loop prefills this stream chunk by chunk from the
-            # first unmatched prompt position
+            if self._lazy:
+                # the token loop prefills this stream chunk by chunk from
+                # the first unmatched prompt position
+                g.slots[slot] = req
+                g.pos_h[slot] = req.prefix_tokens
+                g.tok_h[slot] = 0
+                continue
+            nxt = self._prefill_whole(g, slot, req)
+            if nxt is None:
+                continue
             g.slots[slot] = req
-            g.pos_h[slot] = req.prefix_tokens
-            g.tok_h[slot] = 0
+            g.pos_h[slot] = len(req.prompt)
+            g.tok_h[slot] = nxt
+
+    def _prefill_whole(self, g: _Group, slot: int,
+                       req: Request) -> Optional[int]:
+        """The eager and monolith engines' admission: prefill the whole
+        prompt in one forward and commit its cache — into the stream's
+        pages (eager) or the group's ``slot`` (monolith).  Returns the
+        first token, or None when that token met the budget (``max_new ==
+        1``): the request finishes without a slot, and its pages free."""
+        prompt = torch.from_numpy(
+            np.ascontiguousarray(req.prompt[None, :])).to(self.device)
+        logits, cache1 = self._prefill(self.params, {"tokens": prompt})
+        nxt = int(logits[0].argmax())
+        req.generated.append(nxt)
+        req.t_first = self._clock()
+        self.counters.add("prefills", 1)
+        self.counters.add("tokens_processed", len(req.prompt))
+        if len(req.generated) >= req.max_new:
+            req.t_done = req.t_first
+            self._inflight -= 1
+            if self.ecfg.paged:
+                self.pool.free(req.table)
+            return None
+        if self.ecfg.paged:
+            tables, slots = self._indices([req])
+            dec.scatter_cache_view(self.pool.storage, self.pool.spec,
+                                   self._tensor(tables), self._tensor(slots),
+                                   cache1)
+            req.table.used_pages = self.pool.pages_needed(len(req.prompt))
+        else:
+            self._write_slot(g, slot, [
+                leaf.select(s.batch_axis, 0) for leaf, s in zip(
+                    dec.tree_leaves(cache1, self._cache_spec),
+                    self._cache_spec.leaves)])
+        return nxt
 
     def _split_tick(self, g: _Group, n_h, toks, C: int,
                     deco_rows: List[int]) -> np.ndarray:
@@ -1292,6 +1438,11 @@ class ServeEngine:
             if req is None:
                 continue
             pos = int(g.pos_h[i])
+            if not self.ecfg.paged:
+                # the slot monolith: no pages to grow, one token a tick
+                n_h[i] = 1
+                continue
+            assert req.table is not None, f"request {req.rid} has no table"
             self.pool.touch_table(req.table)
             n, need = self._next_chunk_need(req, pos)
             d = self._draft_for(req, pos) if self._spec else []
@@ -1303,7 +1454,9 @@ class ServeEngine:
                 need = self.pool.pages_needed(pos + n) - len(req.table.blocks)
             forks = (self.pool.fork_pages(req.table, pos, n)
                      if self._share else [])
-            grown = not (self.pool.pages_per_stream and (need > 0 or forks)) \
+            # eager tables hold their whole length: they never grow
+            grown = not (self._lazy and self.pool.pages_per_stream
+                         and (need > 0 or forks)) \
                 or self._grow_stream(req, g, max(need, 0), tuple(forks))
             if not grown and d:
                 # speculation is opportunistic: under memory pressure drop
@@ -1330,7 +1483,7 @@ class ServeEngine:
             chunked = chunked or (n > 1 and i not in drafts)
         if not n_h.any():
             return
-        if self.pool.inflight_tables():
+        if self.ecfg.paged and self.pool.inflight_tables():
             # the overlap clock: a model tick ran with at least one D2H
             # transfer on the wire
             self.counters.add("kv_ticks_while_inflight", 1)
@@ -1360,8 +1513,12 @@ class ServeEngine:
             n_eff[i] = 0
         deco_rows = [i for i in range(B) if n_eff[i] == 1]
         if chunked:
+            # model steps by construction of the path: the fused forward
+            # is one a tick, the scan C (``measured_model_steps`` counts
+            # them)
             self.counters.add("chunk_ticks", 1)
-            self.counters.add("prefill_model_steps", 1)
+            self.counters.add("prefill_model_steps",
+                              1 if self._prefill_mode == "parallel" else C)
             if self.ecfg.split_ticks and deco_rows:
                 nxt = self._split_tick(g, n_eff, toks, C, deco_rows)
             else:
@@ -1371,6 +1528,8 @@ class ServeEngine:
                     self.counters.add("decode_masked_query_rows",
                                       (C - 1) * len(deco_rows))
                 nxt = self._paged_chunk(list(g.slots), toks, g.pos_h, n_eff)
+        elif deco_rows and not self.ecfg.paged:
+            nxt = self._monolith_decode(g, toks[:, :1], n_eff)
         elif deco_rows:
             # the single-token step has no per-row length mask: drafted and
             # idle rows point at the null page and state slot
@@ -1428,13 +1587,15 @@ class ServeEngine:
                 assert tok >= 0, f"idle slot {i} emitted a token"
                 req.generated.append(tok)
             g.tok_h[i] = req.generated[-1]
-            req.table.used_pages = min(len(req.table.blocks),
-                                       self.pool.pages_needed(new_pos))
+            if self.ecfg.paged:
+                req.table.used_pages = min(len(req.table.blocks),
+                                           self.pool.pages_needed(new_pos))
             if len(req.generated) >= req.max_new:
                 req.t_done = now
                 g.slots[i] = None
                 self._inflight -= 1
-                self.pool.free(req.table)  # wakes parked streams
+                if self.ecfg.paged:
+                    self.pool.free(req.table)  # wakes parked streams
         self.counters.add("decode_steps", 1)
         self.counters.add("decode_tokens",
                           sum(1 for s in g.slots if s is not None))
@@ -1453,9 +1614,11 @@ class ServeEngine:
         self.sched.spawn(self._group_task(g), group=g.gid,
                          name=f"group{g.gid}")
 
-    def _round_metrics(self) -> Callable[[], Dict[str, float]]:
+    def _round_metrics(self) -> Optional[Callable[[], Dict[str, float]]]:
         """Per-round profiler feed: KV-pool gauges + deltas since the
-        previous round."""
+        previous round (None in the slot monolith)."""
+        if not self.ecfg.paged:
+            return None
         names = ("kv_alloc_failures", "kv_blocks_migrated", "kv_lazy_grows",
                  "kv_mid_decode_parks", "prefill_chunks",
                  "kv_spilled_pages", "kv_restores", "recompute_tokens",
@@ -1502,12 +1665,15 @@ class ServeEngine:
                                       round_hook=self._stall_hook)
         finally:
             self._running = False
-            self.pool.drain()           # no transfer outlives the run
-        return {"concurrency": trace, "counters": self.counters.snapshot(),
-                "relayouts": list(self.relayouts),
-                "decisions": [dataclasses.asdict(x)
-                              for x in self.controller.decisions],
-                "kv": self.kv_stats()}
+            if self.ecfg.paged:
+                self.pool.drain()       # no transfer outlives the run
+        out = {"concurrency": trace, "counters": self.counters.snapshot(),
+               "relayouts": list(self.relayouts),
+               "decisions": [dataclasses.asdict(x)
+                             for x in self.controller.decisions]}
+        if self.ecfg.paged:
+            out["kv"] = self.kv_stats()
+        return out
 
     # -- measured model steps and the CUDA-graph warm-up ----------------------
     def _null_args(self, B: int, W: int) -> Tuple[np.ndarray, ...]:
@@ -1519,12 +1685,17 @@ class ServeEngine:
                 np.zeros((B, W), np.int32), z, z)
 
     def _kind_width(self, kind: str, C: Optional[int]) -> int:
+        if not self.ecfg.paged:
+            raise ValueError("measured_model_steps needs the paged path")
         if kind == "decode":
             return 1
         if kind == "spec" and not self._spec:
             raise ValueError("spec step not built: spec_decode is off")
         if kind not in ("chunk", "spec"):
             raise ValueError(f"unknown step kind {kind!r}")
+        if kind not in self._steps:
+            raise ValueError("chunk step not built: the eager engine "
+                             "(lazy=False) has no chunk ticks")
         return C or (self._chunk if kind == "chunk" else self._spec_w)
 
     def measured_model_steps(self, kind: str = "chunk", *,
@@ -1534,7 +1705,9 @@ class ServeEngine:
         stack (``decode.layer_walks``), in one eager call on null rows.
         ``kind`` is "decode", "chunk" or "spec" (the verify step); ``C``
         the width (default: the engine's own for the kind).  The JAX
-        package counts the layer scan's trips in the compiled HLO."""
+        package counts the layer scan's trips in the compiled HLO.  One
+        walk for every kind on the fused path; the scan path walks once a
+        fed token (C for a chunk, the verify width for "spec")."""
         args = self._null_args(B, self._kind_width(kind, C))
         walks = dec.layer_walks()
         self._steps[kind](*map(self._tensor, args))
@@ -1551,7 +1724,15 @@ class ServeEngine:
         it from then on; the grid's other shapes, and on the CPU every
         shape, run one eager call.  Returns the number of step calls, as
         the JAX package's ``warm_steps`` (which compiles the whole grid)
-        does."""
+        does.  The slot monolith has no paged steps: 0.  The eager engine
+        builds no chunk step, and refuses (the JAX package's raises
+        AttributeError there)."""
+        if not self.ecfg.paged:
+            return 0
+        if not self._lazy:
+            raise ValueError("warm_steps needs the lazy paged engine: the "
+                             "eager engine (lazy=False) builds no chunk "
+                             "step to warm")
         calls = 0
         widths = sorted({min(c, self._chunk) for c in chunks}
                         | ({self._spec_w} if self._spec else set()))
@@ -1615,14 +1796,18 @@ class ServeEngine:
     # -- latency / pool stats --------------------------------------------------
     def kv_stats(self) -> Dict[str, float]:
         """KV-pool health: occupancy, parks, growth, spills, prefix
-        sharing, bypass, per-class latency."""
+        sharing, bypass, per-class latency ({} in the slot monolith)."""
+        if not self.ecfg.paged:
+            return {}
         s = self.pool.stats()
         s["prefill_chunk_bytes"] = prefill_chunk_bytes(
-            self.cfg, self._chunk, self.ecfg.max_len, mode="parallel",
-            kernel=self._chunk_kernel)
-        s["prefill_score_bytes"] = prefill_chunk_score_bytes(
             self.cfg, self._chunk, self.ecfg.max_len,
-            kernel=self._chunk_kernel)
+            mode=self._prefill_mode, kernel=self._chunk_kernel)
+        s["prefill_score_bytes"] = (
+            prefill_chunk_score_bytes(self.cfg, self._chunk,
+                                      self.ecfg.max_len,
+                                      kernel=self._chunk_kernel)
+            if self._prefill_mode == "parallel" else 0.0)
         s["chunk_kernel"] = self._chunk_kernel
         tot = self.counters.totals
         # speculative decoding: acceptance totals, forward participations

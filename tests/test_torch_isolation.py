@@ -141,11 +141,20 @@ def test_lru_wrappers_have_no_fallback():
 @pytest.mark.parametrize("option,value", [
     ("paged", False), ("lazy", False), ("prefill_mode", "scan")])
 def test_unported_options_raise(option, value):
+    """The slot monolith, the eager allocator and the scan chunk path,
+    which raised until they were ported, build an engine that serves a
+    request to its budget; with them a family still unported (MoE) raises
+    naming its ROADMAP item, as the default engine does."""
+    import numpy as np
     from repro_torch.configs import REGISTRY, reduced_config
     from repro_torch.core.topology import ChipletTopology
     from repro_torch.serving.engine import EngineConfig, ServeEngine
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 6"):
-        ServeEngine(reduced_config(REGISTRY["llama3-8b"]),
-                    ChipletTopology(1, 1, 1),
-                    EngineConfig(max_len=32, **{option: value}),
-                    device="cpu")
+    ecfg = EngineConfig(max_len=32, **{option: value})
+    eng = ServeEngine(reduced_config(REGISTRY["llama3-8b"]),
+                      ChipletTopology(1, 1, 1), ecfg, device="cpu")
+    req = eng.submit(np.arange(2, 22, dtype=np.int32), max_new=3)
+    eng.run_until_done()
+    assert req.done and len(req.generated) == 3
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        ServeEngine(reduced_config(REGISTRY["mixtral-8x22b"]),
+                    ChipletTopology(1, 1, 1), ecfg, device="cpu")

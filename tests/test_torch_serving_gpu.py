@@ -14,6 +14,9 @@ tier's in-flight copy, and the ring kernel at the verify step's widths.
   lands nothing, the fence waits and lands it.
 * The speculative verify step calls the ring kernel at C = spec_k + 1
   (4 and 5 here), not at the chunk width, at both serving models' heads.
+* The scan chunk step replays bit for bit too, and whole-prompt prefill
+  (the eager engine's) matches the CPU in float32 and launches the flash,
+  SSD and RG-LRU kernels once a layer and prompt.
 
 The graphs and the kernels have no CPU mode, so the tests are marked
 ``gpu`` and skip where no CUDA device is visible.  This file imports
@@ -131,6 +134,78 @@ def test_graph_replay_bit_identical_to_eager(cuda, arch, spec):
         assert cold_calls["ring_wgmma_kernel"] == direct > 0
     if cfg.family == "hybrid":
         assert warm_calls["lru_direct"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m",
+                                  "recurrentgemma-9b"])
+def test_scan_graph_replay_bit_identical_to_eager(cuda, arch):
+    """The per-token scan chunk step (``prefill_mode="scan"``: C
+    single-token steps with per-stream save and restore, no host sync)
+    captured as a CUDA graph gives a cold scan engine's tokens and pool
+    bytes bit for bit."""
+    cfg = bf16_config(arch)
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    cold, _ = serve(cfg, params, warm=False, prefill_mode="scan")
+    warm, _ = serve(cfg, params, warm=True, prefill_mode="scan")
+    assert [r.generated for r in warm.submitted] == \
+        [r.generated for r in cold.submitted]
+    for a, b in zip(live_bytes(cold), live_bytes(warm)):
+        assert torch.equal(bits(a), bits(b))
+    assert sum(n for (k, _, _), n in warm.graph_replays().items()
+               if k == "chunk") > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m",
+                                  "recurrentgemma-9b"])
+def test_prefill_on_the_card(cuda, arch):
+    """Whole-prompt prefill on the card: in float32 its logits and cache
+    equal the CPU's within 1e-4 (a prompt past the ring, and for the SSD
+    scan no multiple of its chunk); in bf16 the eager engine launches the
+    flash forward once an attention layer, the SSD scan once an SSD layer
+    and the RG-LRU scan once a recurrent layer for each prompt, on the
+    tensor-core routes, and no ring kernel."""
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    cfg = reduced_config(REGISTRY[arch])
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        2, cfg.vocab, size=(2, 45)).astype(np.int32))
+    want_l, want_c = dec.prefill(params, cfg, toks, max_len=40)
+    got_l, got_c = dec.prefill(
+        _to(params, cuda), cfg, toks.to(cuda),
+        max_len=40)
+    spec = dec.cache_view_specs(cfg, 40)
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-4, atol=1e-4)
+    for a, b in zip(dec.tree_leaves(want_c, spec),
+                    dec.tree_leaves(got_c, spec)):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    bcfg = bf16_config(arch)
+    bparams = init_params(bcfg, torch.Generator(cuda).manual_seed(0),
+                          device=cuda)
+    fns = (ops.flash_attention, ssd_ops.ssd_scan, lru_ops.lru_scan,
+           ops.ring_chunk_attention)
+    before = [(f.launches, getattr(f, "wgmma_launches", 0)) for f in fns]
+    eng, _ = serve(bcfg, bparams, warm=False, lazy=False)
+    n = len(eng.submitted)
+    got = [(f.launches - b0, getattr(f, "wgmma_launches", 0) - b1)
+           for f, (b0, b1) in zip(fns, before)]
+    types = bcfg.layer_types()
+    assert got[0] == (types.count("attn") * n,) * 2
+    assert got[1] == (types.count("ssd") * n,) * 2
+    assert got[2][0] == types.count("rec") * n
+    assert got[3] == (0, 0)
+    assert eng.counters.totals["prefills"] == n
+    assert not eng.counters.totals.get("chunk_ticks", 0)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 @pytest.mark.gpu

@@ -133,7 +133,7 @@ def test_ngram_drafter_lookup():
 def test_verify_step_matches_reference(arch):
     """The verify step's per-position logits equal the JAX step's (f32,
     through the pool's gather), NEG_INF at and past ``n_tokens``, and the
-    cache it writes equals JAX's; the scan mode is not ported."""
+    cache it writes equals JAX's, on the fused path and on the scan."""
     import jax
     import jax.numpy as jnp
     from repro.launch.steps import make_spec_verify_step as j_verify
@@ -145,26 +145,25 @@ def test_verify_step_matches_reference(arch):
     jcache = jax.tree.map(lambda a: jnp.asarray(
         0.3 * rng.standard_normal(a.shape).astype(np.float32)),
         JD.init_cache(tw.jcfg, B, 48))
-    tcache = TD.tree_from_leaves(tspec, [
-        torch.from_numpy(np.array(a)) for a in jax.tree.leaves(jcache)])
     toks = rng.integers(2, tw.jcfg.vocab, size=(B, C)).astype(np.int32)
     pos = np.asarray([0, 13, 40], np.int32)
     n = np.asarray([5, 3, 0], np.int32)
-    jl, jc = j_verify(tw.jcfg, jspec, mode="parallel",
-                      chunk_kernel="blocked")(
-        tw.jax.params, jcache, jnp.asarray(toks), jnp.asarray(pos),
-        jnp.asarray(n))
-    tl, tc = make_spec_verify_step(tw.tcfg, tspec, chunk_kernel="blocked")(
-        tw.params, tcache, *map(torch.from_numpy, (toks, pos, n)))
-    jl = np.asarray(jl)
-    assert tuple(tl.shape) == jl.shape == (B, C, tw.jcfg.vocab)
-    live = np.arange(C)[None, :] < n[:, None]
-    np.testing.assert_allclose(tl.numpy()[live], jl[live], rtol=2e-4,
-                               atol=2e-4)
-    assert (tl.numpy()[~live] == jl[~live]).all()
-    assert (tl.numpy()[live].argmax(-1) == jl[live].argmax(-1)).all()
-    for a, b in zip(jax.tree.leaves(jc), TD.tree_leaves(tc, tspec)):
-        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=2e-4,
+    for mode, kernel in (("parallel", "blocked"), ("scan", "dense")):
+        jl, jc = j_verify(tw.jcfg, jspec, mode=mode, chunk_kernel=kernel)(
+            tw.jax.params, jcache, jnp.asarray(toks), jnp.asarray(pos),
+            jnp.asarray(n))
+        tcache = TD.tree_from_leaves(tspec, [
+            torch.from_numpy(np.array(a)) for a in jax.tree.leaves(jcache)])
+        tl, tc = make_spec_verify_step(tw.tcfg, tspec, mode=mode,
+                                       chunk_kernel=kernel)(
+            tw.params, tcache, *map(torch.from_numpy, (toks, pos, n)))
+        jl = np.asarray(jl)
+        assert tuple(tl.shape) == jl.shape == (B, C, tw.jcfg.vocab)
+        live = np.arange(C)[None, :] < n[:, None]
+        np.testing.assert_allclose(tl.numpy()[live], jl[live], rtol=2e-4,
                                    atol=2e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 6"):
-        make_spec_verify_step(tw.tcfg, tspec, mode="scan")
+        assert (tl.numpy()[~live] == jl[~live]).all()
+        assert (tl.numpy()[live].argmax(-1) == jl[live].argmax(-1)).all()
+        for a, b in zip(jax.tree.leaves(jc), TD.tree_leaves(tc, tspec)):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=2e-4,
+                                       atol=2e-4)

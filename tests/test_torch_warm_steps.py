@@ -9,13 +9,11 @@ same number of step calls; on the card it captures each as a CUDA graph
 it gives a cold engine's tokens.  ``measured_model_steps`` counts the
 walks one call makes through the layer stack, where the JAX package
 counts the layer scan's trips in the compiled HLO: one model step for
-decode, chunk and verify alike on the parallel path."""
+decode, chunk and verify alike on the parallel path, one a fed token on
+the scan path."""
 import numpy as np
 import pytest
 
-from repro_torch.configs import REGISTRY, reduced_config
-from repro_torch.core.topology import ChipletTopology
-from repro_torch.serving.engine import EngineConfig, ServeEngine
 from torch_engine_twins import PartialDrafter, Twins, serve
 
 
@@ -106,11 +104,58 @@ def test_measured_model_steps_match_reference_parallel():
             tw.jax.measured_model_steps(kind)
 
 
+def test_measured_model_steps_match_reference_scan():
+    """On the scan path a call walks the layer stack once a fed token: C
+    for a chunk, the verify width for "spec", one for decode — the JAX
+    package's HLO count on the same engine config."""
+    tw = Twins("llama3-8b", spec="ngram", spec_k=3, prefill_mode="scan")
+    eng = tw.port()
+    assert eng.measured_model_steps("chunk", C=8) == 8.0
+    assert eng.measured_model_steps("spec") == eng._spec_w == 4
+    for kind, C in (("decode", None), ("chunk", None), ("chunk", 8),
+                    ("spec", None)):
+        assert eng.measured_model_steps(kind, C=C) == \
+            tw.jax.measured_model_steps(kind, C=C)
+
+
 def test_scan_path_is_not_ported():
-    """The per-token scan path (whose model steps scale with the width in
-    JAX) stays refused, naming ROADMAP A item 6."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 6"):
-        ServeEngine(reduced_config(REGISTRY["llama3-8b"]),
-                    ChipletTopology(1, 1, 1),
-                    EngineConfig(max_len=32, prefill_mode="scan",
-                                 spec_decode="ngram"), device="cpu")
+    """The per-token scan path with n-gram speculation, refused until it
+    was ported, now builds as the JAX engine does: ``warm_steps`` makes
+    the JAX engine's number of step calls, and a warmed serve (the
+    injected drafter drafts, accepts and rolls back) gives the JAX
+    engine's tokens and a cold scan engine's."""
+    tw = Twins("llama3-8b", spec="ngram", spec_k=3, prefill_mode="scan")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(2, tw.jcfg.vocab, size=s) for s in (5, 19)]
+    max_new = [9, 6]
+    cold = serve(tw.port(), prompts, max_new)
+    warm = tw.port()
+    assert warm.warm_steps() == tw.jax.warm_steps() > 0
+    for eng in (warm, tw.jax):
+        eng.drafter = PartialDrafter(prompts, cold, tw.jcfg.vocab)
+    assert serve(warm, prompts, max_new) == cold
+    assert serve(tw.jax, prompts, max_new) == cold
+    assert warm.kv_stats()["spec_rollbacks"] > 0
+
+
+def test_warm_steps_of_the_eager_and_monolith_engines():
+    """The eager engine builds no chunk step: the JAX package's
+    ``warm_steps`` raises (AttributeError) and the port's refuses with a
+    ValueError that says why.  The slot monolith has no paged steps:
+    both return 0, and ``measured_model_steps`` refuses in both."""
+    tw = Twins("llama3-8b", spec="off", lazy=False)
+    with pytest.raises(AttributeError):
+        tw.jax.warm_steps()
+    with pytest.raises(ValueError, match="lazy=False"):
+        tw.port().warm_steps()
+    assert tw.port().measured_model_steps("decode") == \
+        tw.jax.measured_model_steps("decode") == 1.0
+    with pytest.raises(ValueError, match="no chunk ticks"):
+        tw.port().measured_model_steps("chunk")
+    mono = tw.jax_engine(paged=False)
+    port = tw.port(paged=False)
+    assert port.warm_steps() == mono.warm_steps() == 0
+    for eng in (mono, port):
+        with pytest.raises(ValueError, match="paged path"):
+            eng.measured_model_steps("decode")
+    assert port.kv_stats() == mono.kv_stats() == {}

@@ -25,11 +25,12 @@ def configs(arch):
 
 def ecfg_kw(*, spec="ngram", spec_k=3, max_batch=2, max_len=48,
             pool_streams=2, share=False, evict_mode="swap", **kw):
-    """The engine options of ``tests/test_spec_decode.py``'s ``_engine``."""
-    return dict(max_batch=max_batch, max_len=max_len, paged=True, lazy=True,
-                pool_streams=pool_streams, adaptive=False,
-                evict_mode=evict_mode, prefix_share=share, spec_decode=spec,
-                spec_k=spec_k, **kw)
+    """The engine options of ``tests/test_spec_decode.py``'s ``_engine``,
+    ``kw`` over them (``paged`` and ``lazy`` among them)."""
+    return {**dict(max_batch=max_batch, max_len=max_len, paged=True,
+                   lazy=True, pool_streams=pool_streams, adaptive=False,
+                   evict_mode=evict_mode, prefix_share=share,
+                   spec_decode=spec, spec_k=spec_k), **kw}
 
 
 class Twins:
@@ -126,3 +127,23 @@ class PartialDrafter(OracleDrafter):
         toks = super().draft(req, k)
         return (toks[:self._good]
                 + [(t + 1) % self._vocab for t in toks[self._good:]])
+
+
+def served_pair(arch, prompts, max_new, *, groups=2, **kw):
+    """A JAX engine and its port twin with the options of
+    ``tests/test_continuous_batching.py``'s ``_run`` (``max_batch=2,
+    max_len=32, pool_streams=1``, ``kw`` over them), each having served
+    ``prompts`` to their budgets: (JAX engine, port engine, JAX tokens,
+    port tokens), tokens in submission order."""
+    jcfg, tcfg = configs(arch)
+    opts = {**dict(max_batch=2, max_len=32, pool_streams=1,
+                   adaptive=False), **kw}
+    topo = dict(n_pods=1, groups_per_pod=groups, chips_per_group=1)
+    jeng = JServeEngine(jcfg, JTopology(**topo), JEngineConfig(**opts),
+                        spread_rate=1, seed=0)
+    params = from_reference(jax.tree.map(np.asarray, jeng.params),
+                            device="cpu")
+    teng = TServeEngine(tcfg, TTopology(**topo), TEngineConfig(**opts),
+                        spread_rate=1, params=params, device="cpu")
+    return jeng, teng, serve(jeng, prompts, max_new), \
+        serve(teng, prompts, max_new)
