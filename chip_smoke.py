@@ -52,10 +52,10 @@ Phases (any error fails the run with a non-zero exit):
 4. Train llama3.2-3b at full width and depth (bf16, random weights from
    a seeded generator) for 4 steps of the port's ``make_train_step`` at
    B=2, S=2048, on batches a ``SyntheticCorpus`` wrote to a temporary
-   directory and the port's ``ShardedLoader`` read back: losses and grad
-   norms finite, parameters changed, and both flash kernels launched once
-   per layer and step (the forward twice under remat).  ``--profile``
-   adds one more step under torch.profiler.
+   directory and the port's ``ShardedLoader`` read back: losses, grad
+   norms and the aux loss finite, parameters changed, and both flash
+   kernels launched once per layer and step (the forward twice under
+   remat).  ``--profile`` adds one more step under torch.profiler.
 4b. The port's ``Trainer`` on a reduced llama3.2-3b in float32 on the card:
    6 steps with a checkpoint every 3; a fresh Trainer resumed from step 3
    repeats steps 4-6; the same 6 steps on the CPU (the plain attention)
@@ -165,6 +165,36 @@ Phases (any error fails the run with a non-zero exit):
    gives them (one prompt, B=1, at lengths of 96 to 400; the SSD scan's
    one-chunk and front-padded forms), bf16 and float32, with their
    phases' tolerances (``eager_prefill_max_abs_err`` in the kernels line).
+13. The MoE family on mixtral-8x22b at full width (d_model 6144, 48/8
+   heads, d_ff 16384, 8 experts top-2, window 4096, vocab 32768), cut
+   in depth to 8 of its 56 layers (20,435,146,752 parameters, 38.1 GiB
+   in bf16: all 56 layers do not fit one card), bf16, random weights
+   from seed 0.  (a) Phase 3's requests and ``EngineConfig``: every
+   request completes with its budget, 8 ring launches a chunk tick on
+   the tensor-core route, a prefix hit, the pool's audit, no claim
+   dropped in a serving step (they run the experts dropless); then the
+   same requests on a fresh engine warmed by ``warm_steps``, whose
+   tokens must be the cold run's bit for bit with graphs replayed.
+   Tokens/s, TTFT and TPOT p50 of both print beside the decode step's
+   byte bound (every weight but the embedding read once).  (b) The eager
+   engine on the same weights and requests: 8 flash forward launches a
+   prompt on the tensor-core route, no ring launch; its prefills keep
+   capacity factor 1.25 and drop claims (the share printed), so its
+   agreement with (a) is printed, not gated.  (c) One layer at B=1,
+   S=8192 for 4 steps (remat "none", AdamW with float32 moments):
+   losses, grad norms and ``aux`` finite, ``dropped`` in [0, 1), the
+   router, an expert's ``wi`` and ``wq`` changed, each flash kernel once
+   a step; the window masks half the causal band.  (d) The reduced
+   float32 reference runs of mixtral-8x22b (with every card variant of
+   the dense model) and grok-1-314b (gelu experts, the 30.0 softcap),
+   and reduced mixtral-8x22b at capacity factor 1.0 through
+   ``make_prefill`` + ``make_generate``: the card drops claims and gives
+   the CPU's logits (1e-4) and tokens.  Phases 2 and 2b hold the ring
+   and flash kernels at this phase's shapes (G = 6 at dh 128: the chunk,
+   the verify widths, a 4096-token ring with the window acting; the
+   eager prompts and the training shape), bf16 and float32
+   (``moe_max_abs_err`` and ``moe_eager_prefill_max_abs_err`` in the
+   kernels line).  The phase prints its seconds.
 The reduced float32 reference runs of phases 3, 6 and 8 include card runs
 with speculative decoding (a partial drafter), warmed steps and (phase
 12 (f)) the eager engine, the slot monolith and the scan chunk path, and
@@ -180,7 +210,9 @@ lists every kernel with its launches (counted over its main path: phase
 kernel, phase 7 for the RG-LRU scan; ``hybrid_*`` and
 ``serving_launches`` give the numbers on the hybrid's paths, phases 7
 and 8; ``eager_prefill_launches`` and ``hybrid_eager_prefill_launches``
-phase 12's, over the eager engine's 9 prefills), error and times.
+phase 12's, over the eager engine's 9 prefills; ``moe_launches`` phase
+13's serving (ring) and training (flash), ``moe_eager_prefill_launches``
+its eager prefills), error and times.
 """
 from __future__ import annotations
 
@@ -283,6 +315,23 @@ RING_GEOMETRIES = [
     ("verify_hybrid_b8", 8, 5, 1024, 16, 1, 256,
      (37, 120, 263, 511, 700, 905, 1019, 0), (5, 5, 4, 5, 2, 5, 5, 0), 2048,
      0.0, "bfloat16"),
+    # phase 13's mixtral-8x22b: G = 6 (48 query heads over 8 kv heads) at
+    # dh 128, window 4096.  The serving chunk (96 query rows a kv head:
+    # query 10's six heads straddle the 64-row wgmma tile), its float32
+    # twin, the verify step's C = 5 at buckets 1 and 8 (30 rows), and a
+    # 4096-token ring with the window acting, positions past 4096 wrapped
+    ("moe_path", 8, 16, 1024, 48, 8, 128,
+     (0, 16, 208, 1008, 1024, 1500, 3000, 64),
+     (16, 16, 16, 16, 16, 16, 9, 0), 4096, 0.0, "bfloat16"),
+    ("moe_path_f32", 2, 16, 1024, 48, 8, 128, (700, 2100), (16, 11), 4096,
+     0.0, "float32"),
+    ("verify_moe_b1", 1, 5, 1024, 48, 8, 128, (411,), (5,), 4096, 0.0,
+     "bfloat16"),
+    ("verify_moe_b8", 8, 5, 1024, 48, 8, 128,
+     (37, 120, 263, 511, 700, 905, 1019, 0), (5, 5, 4, 5, 2, 5, 5, 0), 4096,
+     0.0, "bfloat16"),
+    ("moe_window_4096", 3, 16, 4096, 48, 8, 128, (4100, 5000, 9007),
+     (16, 11, 16), 4096, 0.0, "float32"),
 ]
 
 
@@ -427,6 +476,9 @@ def phase_ring_kernel(torch):
                 row["max_abs_err"] = max_err
             elif name == "hybrid_path":
                 row["hybrid_max_abs_err"] = max_err
+            elif name.startswith(("moe_", "verify_moe")) and dt == "bfloat16":
+                row["moe_max_abs_err"] = max(row.get("moe_max_abs_err", 0.0),
+                                             max_err)
     routes = {"wgmma": fn.wgmma_launches - before[1],
               "fma": fn.launches - before[0] - (fn.wgmma_launches - before[1])}
     want_routes = {"wgmma": calls["bfloat16"], "fma": calls["float32"]}
@@ -604,8 +656,19 @@ FLASH_GEOMETRIES = [
     ("eager_prefill_dense_s400", 1, 400, 32, 8, 128, True, 0),
     ("eager_prefill_hybrid_s148", 1, 148, 16, 1, 256, True, 2048),
     ("eager_prefill_hybrid_s400", 1, 400, 16, 1, 256, True, 2048),
+    # phase 13's mixtral-8x22b, G = 6 at dh 128, window 4096: the eager
+    # engine's prompts (the window inert) and the training shape, where
+    # the window masks half of the causal band
+    ("eager_prefill_moe_s96", 1, 96, 48, 8, 128, True, 4096),
+    ("eager_prefill_moe_s148", 1, 148, 48, 8, 128, True, 4096),
+    ("eager_prefill_moe_s400", 1, 400, 48, 8, 128, True, 4096),
+    ("moe_train", 1, 8192, 48, 8, 128, True, 4096),
 ]
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/"
+# the plain versions hold several (B, Hq, S, S) float32 score tensors at
+# once: past this many bytes of scores they run one kv head's query group
+# at a time (the groups are independent)
+REF_SCORE_BYTES = 2 << 30
 
 
 def flash_inputs(torch, B, S, Hq, Hkv, dh, dtype, seed):
@@ -615,6 +678,27 @@ def flash_inputs(torch, B, S, Hq, Hkv, dh, dtype, seed):
     return [torch.randn(s, generator=g, device="cuda").to(dt)
             for s in ((B, S, Hq, dh), (B, S, Hkv, dh), (B, S, Hkv, dh),
                       (B, S, Hq, dh))]
+
+
+def flash_refs(torch, ref, q, k, v, do, **kw):
+    """The plain forward's (out, lse) and, from them, the plain backward's
+    (dq, dk, dv), one kv head's query group at a time when the whole
+    problem's float32 scores would pass ``REF_SCORE_BYTES``."""
+    B, S, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    step = 1 if B * Hq * S * k.shape[1] * 4 > REF_SCORE_BYTES else Hkv
+    parts = []
+    for h in range(0, Hkv, step):
+        qs, ks = slice(h * G, (h + step) * G), slice(h, h + step)
+        qh, doh = q[:, :, qs].contiguous(), do[:, :, qs].contiguous()
+        kh, vh = k[:, :, ks].contiguous(), v[:, :, ks].contiguous()
+        out, lse = ref.flash_attention_fwd_ref(qh, kh, vh, **kw)
+        parts.append((out, lse) + tuple(ref.flash_attention_bwd_ref(
+            qh, kh, vh, out, lse, doh, **kw)))
+    out, lse, dq, dk, dv = (torch.cat([p[i] for p in parts], dim=d)
+                            for i, d in enumerate((2, 1, 2, 2, 2)))
+    return (out, lse), (dq, dk, dv)
 
 
 def max_err(torch, pairs, tol, what):
@@ -663,13 +747,12 @@ def phase_flash_kernels(torch):
                                        seed=S + dh)
             kw = dict(causal=causal, window=window)
             out, lse = ops.flash_attention_fwd(q, k, v, **kw)
-            want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+            (want_out, want_lse), want = flash_refs(torch, ref, q, k, v, do,
+                                                    **kw)
             # the backward kernels on the plain forward's out and lse
             grads = ops.flash_attention_bwd(q, k, v, want_out, want_lse, do,
                                             **kw)
             torch.cuda.synchronize()
-            want = ref.flash_attention_bwd_ref(q, k, v, want_out, want_lse,
-                                               do, **kw)
             tf, tb = FLASH_TOL["fwd", dtype], FLASH_TOL["bwd", dtype]
             what = (f"{name} {dtype} B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh} "
                     f"causal={causal} window={window}")
@@ -698,8 +781,12 @@ def phase_flash_kernels(torch):
                 rows["fwd"]["hybrid_max_abs_err"] = fwd_err
                 rows["bwd"]["hybrid_max_abs_err"] = bwd_err
             elif name.startswith("eager_prefill") and dtype == "bfloat16":
-                key = "eager_prefill_max_abs_err"
+                key = ("moe_eager_prefill_max_abs_err" if "_moe_" in name
+                       else "eager_prefill_max_abs_err")
                 rows["fwd"][key] = max(rows["fwd"].get(key, 0.0), fwd_err)
+            elif name == "moe_train" and dtype == "bfloat16":
+                rows["fwd"]["moe_max_abs_err"] = fwd_err
+                rows["bwd"]["moe_max_abs_err"] = bwd_err
             del q, k, v, do, out, lse, want_out, want_lse, grads, want
             torch.cuda.empty_cache()
     calls["bfloat16"] += flash_strided_views(torch, ops, ref)
@@ -1711,6 +1798,8 @@ def card_variants(*names):
 # asynchronous run
 CARD_VARIANTS = {"dense": card_variants("spec", "async", "warm",
                                         *MODE_VARIANTS),
+                 "moe": card_variants("spec", "async", "warm",
+                                      *MODE_VARIANTS),
                  "ssm": card_variants("spec", "warm", *MODE_VARIANTS),
                  "hybrid": card_variants("spec", "async park", "warm",
                                          *MODE_VARIANTS)}
@@ -2422,13 +2511,14 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
         t = time.perf_counter()
         params, opt, m = step(params, opt, batches[i])
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        aux = float(m["aux"])
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
-        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+        if not all(map(math.isfinite, (loss, gnorm, aux))):
             raise AssertionError(f"step {i + 1}: loss {loss}, grad norm "
-                                 f"{gnorm}")
+                                 f"{gnorm}, aux {aux}")
         log(f"{tag} step {i + 1}: loss {loss:.6f} grad_norm {gnorm:.6f} "
-            f"lr {float(m['lr']):.3e} {secs[-1]:.6f} s"
+            f"aux {aux:.6f} lr {float(m['lr']):.3e} {secs[-1]:.6f} s"
             + (f", peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
                "GiB after the first step" if i == 0 else ""))
     launches = {name: fn.launches for name, (fn, _) in kernels.items()}
@@ -2584,6 +2674,264 @@ def phase_trainer(torch, arch, kernel):
         raise AssertionError("the card's losses differ from the CPU's")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the MoE family
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "mixtral-8x22b"
+# mixtral-8x22b at full width cut to 8 of its 56 layers: a layer holds
+# 2,504,060,928 parameters (5.01 GB in bf16), so all 56 do not fit one
+# card; 8 layers with the embedding and head come to 20,435,146,752
+# parameters, 38.1 GiB
+MOE_LAYERS = 8
+# one layer trained at mixtral's own 8192-token context (B=1): the 4096
+# window masks half of the causal band; 2,906,720,256 parameters, 32.5
+# GiB of weights, gradients and float32 moments
+MOE_TRAIN_S = 8192
+
+
+def moe_config(layers=MOE_LAYERS):
+    import dataclasses
+    from repro_torch.configs import REGISTRY
+    return dataclasses.replace(REGISTRY[MOE_ARCH], n_layers=layers)
+
+
+def decode_bound_s(cfg):
+    """Seconds a decode step of the slot layout cannot go below: every
+    weight but the embedding table (of which a step gathers a row a
+    stream) read once, against the card's memory rate."""
+    from repro_torch.models.params import param_bytes
+    return (param_bytes(cfg) - cfg.vocab_padded * cfg.d_model * 2) \
+        / PEAK_BYTES
+
+
+def spy_dropped():
+    """Record every ``moe_apply`` call's positions a row and ``dropped`` (a
+    device scalar); returns (the list of pairs, a function that takes the
+    spy out)."""
+    from repro_torch.models import moe
+    apply, seen = moe.moe_apply, []
+
+    def spy(x, *a, **kw):
+        y, aux = apply(x, *a, **kw)
+        seen.append((x.shape[1], aux["dropped"].detach()))
+        return y, aux
+
+    moe.moe_apply = spy
+    return seen, lambda: setattr(moe, "moe_apply", apply)
+
+
+def phase_moe_serve(torch):
+    """Phase 13 (a) and (b): phase 3's requests on mixtral-8x22b at full
+    width and 8 layers (bf16, random weights from seed 0), (a) cold — 8
+    ring launches a chunk tick on the tensor-core route, a prefix hit,
+    the pool's audit — then on a fresh engine warmed by ``warm_steps``,
+    whose tokens must be the cold run's bit for bit with graphs replayed
+    (the dropless MoE step reads nothing on the host); (b) the eager
+    engine: 8 flash forward launches a prompt on the tensor-core route,
+    no ring launch, agreement with (a) printed (whole-prompt prefill
+    drops claims at capacity factor 1.25, the chunk steps do not).
+    Returns the ring launches of (a) and the flash launches of (b)."""
+    from repro_torch.models.params import n_params
+    cfg = moe_config()
+    tag = f"[moe {cfg.name}]"
+    t0 = time.perf_counter()
+    eng = make_engine(cfg)
+    torch.cuda.synchronize()
+    log(f"{tag} d_model={cfg.d_model} layers={cfg.n_layers} of 56 "
+        f"heads={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} experts="
+        f"{cfg.n_experts} top-{cfg.top_k} window={cfg.window} "
+        f"vocab={cfg.vocab} {cfg.param_dtype}, {n_params(cfg)} params; "
+        f"set-up {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    seen, restore = spy_dropped()
+    try:
+        cold = mode_serve(torch, eng, cfg)
+    finally:
+        restore()
+    # the chunk and decode steps run the experts dropless
+    step_dropped = float(torch.stack([d for _, d in seen]).max())
+    c = cold["counters"]
+    ticks = int(c.get("chunk_ticks", 0))
+    hits = c.get("kv_prefix_hits", 0.0)
+    if (ticks <= 0 or cold["ring"] != cfg.n_layers * ticks
+            or cold["ring_wgmma"] != cold["ring"] or cold["flash"]
+            or hits <= 0 or step_dropped != 0.0):
+        raise AssertionError(
+            f"{tag} cold: ring launches {cold['ring']} ({cold['ring_wgmma']}"
+            f" on the tensor-core route) over {ticks} chunk ticks of "
+            f"{cfg.n_layers} layers, flash {cold['flash']}, prefix hits "
+            f"{hits}, dropped up to {step_dropped} in a serving step")
+    params = eng.params
+    del eng
+    free_card(torch)
+    eng = make_engine(cfg, params)
+    t0 = time.perf_counter()
+    calls = eng.warm_steps()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    r0 = eng.graph_replays()
+    warm = mode_serve(torch, eng, cfg)
+    replays = {f"{k}/{w}/{b}": n - r0[(k, w, b)]
+               for (k, w, b), n in sorted(eng.graph_replays().items())}
+    if warm["tokens"] != cold["tokens"]:
+        raise AssertionError(f"{tag} warmed tokens differ from the cold "
+                             f"run's (agreement "
+                             f"{agreement(warm['tokens'], cold['tokens'])})")
+    if sum(replays.values()) <= 0:
+        raise AssertionError(f"{tag} no graph was replayed")
+    del eng
+    free_card(torch)
+    eng = make_engine(cfg, params, lazy=False)
+    seen, restore = spy_dropped()
+    try:
+        eager = mode_serve(torch, eng, cfg)
+    finally:
+        restore()
+    check_whole_prefill(f"{tag} eager", cfg, eager, 9)
+    # whole-prompt prefill keeps the configured capacity; decode steps
+    # (one position a row) are dropless
+    prefill_dropped = [float(d) for n, d in seen if n > 1]
+    if max(float(d) for n, d in seen if n == 1) != 0.0:
+        raise AssertionError(f"{tag} eager: a decode step dropped claims")
+    del eng, params
+    free_card(torch)
+    bound = decode_bound_s(cfg)
+    mode_line(tag, "cold", cold)
+    mode_line(tag, "warm", warm, cold["tokens"], "cold")
+    mode_line(tag, "eager", eager, cold["tokens"], "cold")
+    log(f"{tag} cold: ring launches {cold['ring']} ({cold['ring_wgmma']} on "
+        f"the tensor-core route) over {ticks} chunk ticks, kv_prefix_hits "
+        f"{int(hits)}, pool audit ok; warm: {calls} step calls, "
+        f"{len(replays)} graphs captured in {capture_s:.2f} s, tokens "
+        f"bit-identical to cold, replays (kind/width/bucket): "
+        + ", ".join(f"{k} {n}" for k, n in replays.items()))
+    log(f"{tag} eager: flash forward launches {eager['flash']} "
+        f"({eager['flash_wgmma']} on the tensor-core route), ring "
+        f"{eager['ring']}, 9 prefills, no chunk tick; the prefills "
+        f"dropped {sum(prefill_dropped) / len(prefill_dropped):.4f} of "
+        f"their claims on average over {len(prefill_dropped)} layer calls "
+        f"(up to {max(prefill_dropped):.4f}) at capacity factor "
+        f"{cfg.capacity_factor}, the serving steps none; decode-step bound "
+        f"{bound * 1e3:.3f} ms (every weight but the embedding read once "
+        f"at {PEAK_BYTES / 1e12} TB/s) against TPOT p50 cold "
+        f"{cold['stats']['tpot_p50'] * 1e3:.3f} ms, warm "
+        f"{warm['stats']['tpot_p50'] * 1e3:.3f} ms")
+    log(f"{tag} " + json.dumps({
+        "arch": cfg.name, "layers": cfg.n_layers, "chunk_ticks": ticks,
+        "ring_launches": cold["ring"], "prefix_hits": hits,
+        "warm_calls": calls, "capture_s": capture_s, "replays": replays,
+        "eager_flash_launches": eager["flash"],
+        "eager_prefill_dropped": prefill_dropped,
+        "decode_bound_s": bound,
+        **{f"{k}_{m}": v for k, r in (("cold", cold), ("warm", warm),
+                                      ("eager", eager))
+           for m, v in (("tokens_per_s", r["stats"]["tokens"]
+                         / r["stats"]["wall"]),
+                        ("wall", r["stats"]["wall"]),
+                        ("ttft_p50", r["stats"]["ttft_p50"]),
+                        ("tpot_p50", r["stats"]["tpot_p50"]))},
+        "eager_agreement_cold": agreement(eager["tokens"], cold["tokens"]),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    return {"ring": cold["ring"], "flash": eager["flash"]}
+
+
+def phase_moe_train(torch):
+    """Phase 13 (c): one mixtral-8x22b layer at full width, B=1, S=8192,
+    4 steps: losses, grad norms and ``aux`` finite, every layer's
+    ``dropped`` in [0, 1), the router, an expert's ``wi`` and ``wq``
+    changed, each flash kernel launched once a step.  Returns the
+    launches."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    seen, restore = spy_dropped()
+    try:
+        launches = phase_train(
+            torch, MOE_ARCH, 1, "none",
+            {"flash_attention_fwd": (fa_ops.flash_attention, 1),
+             "flash_attention_bwd": (fa_ops.flash_attention_bwd, 1)},
+            {"router[0]": lambda p: p["layers"]["moe"]["router"][0],
+             "wi[0][3][:64]": lambda p: p["layers"]["moe"]["wi"][0, 3, :64],
+             "wq[0]": lambda p: p["layers"]["attn"]["wq"][0]},
+            S=MOE_TRAIN_S, layers=1)
+    finally:
+        restore()
+    dropped = [float(d) for _, d in seen]
+    if len(dropped) != 4 or not all(0.0 <= d < 1.0 for d in dropped):
+        raise AssertionError(f"[train {MOE_ARCH}] dropped {dropped}: want "
+                             "4 values in [0, 1)")
+    log(f"[train {MOE_ARCH}] dropped (share of claims past capacity, "
+        f"capacity factor 1.25, a step): {dropped}")
+    return launches
+
+
+def phase_moe_capacity(torch):
+    """Phase 13 (d), last part: reduced mixtral-8x22b in float32 at
+    capacity factor 1.0 through ``make_prefill`` + ``make_generate`` (B=2)
+    on the CPU and the card: the card's prefill drops claims, its logits
+    agree with the CPU's to 1e-4 and its greedy tokens are the CPU's."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import REGISTRY, reduced_config
+    from repro_torch.launch.steps import make_generate, make_prefill
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(reduced_config(REGISTRY[MOE_ARCH]),
+                              capacity_factor=1.0)
+    base = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = torch.from_numpy(np.random.default_rng(2).integers(
+        2, cfg.vocab, size=(2, 40)).astype(np.int32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = _to_device(base, device)
+        seen, restore = spy_dropped()
+        try:
+            logits, cache = make_prefill(cfg, 64)(
+                params, {"tokens": prompts.to(device)})
+        finally:
+            restore()
+        first = logits.argmax(-1).to(torch.int32)[:, None]
+        toks, _, _ = make_generate(cfg, 11)(
+            params, cache, first,
+            torch.full((2,), 40, dtype=torch.int32, device=device))
+        out[device] = (logits.cpu(), torch.cat([first, toks], 1).cpu(),
+                       max(float(d) for _, d in seen))
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    tag = f"[moe {cfg.name}]"
+    log(f"{tag} float32, capacity factor 1.0, make_prefill + make_generate "
+        f"(B=2, 40-token prompts, 12 tokens): dropped up to "
+        f"{out['cuda'][2]:.4f} a layer on the card, {out['cpu'][2]:.4f} on "
+        f"the CPU; logits max abs err {err:.3e} (tol 1e-4); tokens "
+        + ("equal" if torch.equal(out["cuda"][1], out["cpu"][1])
+           else "DIFFER"))
+    if out["cuda"][2] <= 0 or err > 1e-4 \
+            or not torch.equal(out["cuda"][1], out["cpu"][1]):
+        raise AssertionError(f"{tag} capacity 1.0 prefill on the card: "
+                             "no drop, or not the CPU's logits and tokens")
+
+
+def phase_moe(torch, rows):
+    """Phase 13, the MoE family: (a)-(b) serving, (c) training, (d) the
+    reduced float32 reference runs.  Adds the path's launches to the
+    kernel rows and prints the phase's seconds."""
+    t0 = time.perf_counter()
+    free_card(torch)
+    served = phase_moe_serve(torch)
+    rows[0]["moe_launches"] = served["ring"]
+    rows[1]["moe_eager_prefill_launches"] = served["flash"]
+    free_card(torch)
+    trained = phase_moe_train(torch)
+    rows[1]["moe_launches"] = trained["flash_attention_fwd"]
+    rows[2]["moe_launches"] = trained["flash_attention_bwd"]
+    free_card(torch)
+    phase_engine_reference(torch, MOE_ARCH, [
+        ("CPU", "cpu", "blocked", None),
+        ("kernel", "cuda", "blocked", None),
+        ("plain attention", "cuda", "dense", None)] + CARD_VARIANTS["moe"])
+    phase_engine_reference(torch, "grok-1-314b", [
+        ("CPU", "cpu", "blocked", None), ("card", "cuda", "blocked", None)])
+    phase_moe_capacity(torch)
+    log(f"[moe] phase 13: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2721,6 +3069,7 @@ def main() -> int:
         phase_engine_reference(torch, HYBRID_ARCH, [
             ("CPU", "cpu", "blocked", None),
             ("card", "cuda", "blocked", None)] + CARD_VARIANTS["hybrid"])
+        phase_moe(torch, rows)              # phase 13
     ring_device_times(torch, rows[0])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

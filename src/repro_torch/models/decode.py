@@ -1,11 +1,12 @@
-"""Serving path of the dense, SSM and hybrid families: cache layout, the
-paged block pool's storage ops, the single-token decode step, the fused
-multi-token chunk step, its per-token scan reference
+"""Serving path of the dense, MoE, SSM and hybrid families: cache layout,
+the paged block pool's storage ops, the single-token decode step, the
+fused multi-token chunk step, its per-token scan reference
 (``chunk_decode_step``) and whole-prompt ``prefill``.
 
 Caches are nested dicts of tensors shaped like the JAX package's cache
-pytrees.  The dense family keeps ring buffers of width W = min(max_len,
-window) per layer: ``{"layers": {"k": (L, B, W, Hkv, dh), "v": ...}}``.
+pytrees.  The dense and MoE families keep ring buffers of width W =
+min(max_len, window) per layer: ``{"layers": {"k": (L, B, W, Hkv, dh),
+"v": ...}}``.
 The SSM family keeps per-stream state only: ``{"layers": {"conv_B",
 "conv_C", "conv_x": (L, B, K-1, ·) in the compute type, "ssm": (L, B, H,
 P, N) float32}}``.  The hybrid family keeps, per group and per tail
@@ -15,7 +16,10 @@ float32, ``conv`` in the compute type): ``{"groups": {"b0_rec": {"conv":
 (G, B, K-1, W), "h": (G, B, W)}, ..., "b2_attn": {"k", "v": (G, B, W,
 Hkv, dh)}}, "tail": {"t0_rec": {"conv": (B, K-1, W), "h": (B, W)},
 ...}}``.  The layer stack is a Python loop over the stacked layer (or
-group) weights.
+group) weights.  An MoE layer's experts run dropless in every serving
+step (capacity = the step's tokens, as the JAX steps call them); whole-
+prompt ``prefill`` goes through ``forward`` and so keeps the configured
+capacity, as in the JAX package.
 
 Where the JAX package updates arrays functionally (``.at[].set``) under
 buffer donation, the port writes in place and says so: the pool storage
@@ -110,15 +114,15 @@ def _hybrid_spec(cfg: ModelConfig, max_len: int) -> CacheViewSpec:
 
 def cache_view_specs(cfg: ModelConfig, max_len: int) -> CacheViewSpec:
     """The serving cache's layout, declared per family (the JAX package
-    finds the same layout by probing ``init_cache`` shapes).  Dense: per
-    layer a K and a V ring, stream axis 1, token axis 2.  SSM: per layer
-    the three conv tails and the SSD state, stream axis 1, no token axis
-    (width 0), in the JAX leaf order (sorted keys).  Hybrid: see
-    ``_hybrid_spec``."""
+    finds the same layout by probing ``init_cache`` shapes).  Dense and
+    MoE: per layer a K and a V ring, stream axis 1, token axis 2.  SSM:
+    per layer the three conv tails and the SSD state, stream axis 1, no
+    token axis (width 0), in the JAX leaf order (sorted keys).  Hybrid:
+    see ``_hybrid_spec``."""
     L_ = cfg.n_layers
     if cfg.block_pattern:
         return _hybrid_spec(cfg, max_len)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         W = _attn_cache_width(cfg, max_len)
         leaf = CacheLeafSpec(batch_axis=1, token_axis=2, width=W)
         shape = (L_, 1, W, cfg.n_kv_heads, cfg.head_dim)
@@ -525,7 +529,10 @@ def chunk_decode_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
 
 
 def _ffn_out(h, lp, cfg: ModelConfig):
-    return h + _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
+    """The residual feed-forward of a serving step: MoE layers dropless."""
+    f, _ = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg,
+                dropless=True)
+    return h + f
 
 
 def _decode_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos):

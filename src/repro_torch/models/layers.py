@@ -27,12 +27,15 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 def _mm_f32(a, b):
-    """a (M, K) @ b (K, N) -> (M, N) float32 from operands of one type,
-    with no float32 copy of either on the card: cuBLAS's bf16 -> f32 GEMM
-    (``out_dtype``) there; the CPU upcasts, which computes the same
-    function (products of bf16 values are exact in float32)."""
+    """a (M, K) @ b (K, N) -> (M, N) float32 from operands of one type, or
+    batched, a (E, M, K) @ b (E, K, N) -> (E, M, N), with no float32 copy
+    of either on the card: cuBLAS's bf16 -> f32 GEMM (``out_dtype``)
+    there; the CPU upcasts, which computes the same function (products of
+    bf16 values are exact in float32)."""
     if a.dtype == torch.float32 or a.device.type != "cuda":
         return a.float() @ b.float()
+    if a.dim() == 3:
+        return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.mm(a, b, out_dtype=torch.float32)
 
 
@@ -40,7 +43,8 @@ GRAD_BLOCK = 16384      # weight-gradient columns summed at a time
 
 
 class _MatmulF32(torch.autograd.Function):
-    """x (M, K) @ w (K, N) -> float32, as a JAX einsum with
+    """x (M, K) @ w (K, N) -> float32, or the batched x (E, M, K) @ w (E,
+    K, N), as a JAX einsum with
     ``preferred_element_type=float32`` computes it: the product is never
     rounded to the operands' type, and the float32 cotangent is contracted
     in float32.  On the card the backward splits the float32 cotangent
@@ -64,16 +68,22 @@ class _MatmulF32(torch.autograd.Function):
         else:
             hi = g.to(x.dtype)
             parts = (hi, (g - hi).to(x.dtype))    # f32 - bf16: no f32 copy
-        gx = _mm_f32(parts[0], w.t())
+        wt = w.transpose(-1, -2)
+        gx = _mm_f32(parts[0], wt)
         for p in parts[1:]:
-            gx += _mm_f32(p, w.t())
+            gx += _mm_f32(p, wt)
         gw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
-        for c0 in range(0, w.shape[1], GRAD_BLOCK):
-            cols = slice(c0, c0 + GRAD_BLOCK)
-            acc = _mm_f32(x.t(), parts[0][:, cols])
-            for p in parts[1:]:
-                acc += _mm_f32(x.t(), p[:, cols])
-            gw[:, cols] = acc
+        # a batched product's weight gradient one batch entry at a time
+        batched = w.dim() == 3
+        for e in range(w.shape[0] if batched else 1):
+            xe, ge = (x[e], gw[e]) if batched else (x, gw)
+            pe = [p[e] for p in parts] if batched else parts
+            for c0 in range(0, ge.shape[1], GRAD_BLOCK):
+                cols = slice(c0, c0 + GRAD_BLOCK)
+                acc = _mm_f32(xe.t(), pe[0][:, cols])
+                for p in pe[1:]:
+                    acc += _mm_f32(xe.t(), p[:, cols])
+                ge[:, cols] = acc
         return gx.to(x.dtype), gw
 
 
@@ -83,6 +93,13 @@ def matmul_f32(x, w):
     lead = x.shape[:-1]
     return _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w) \
         .reshape(*lead, w.shape[-1])
+
+
+def bmm_f32(x, w):
+    """x (E, M, K) @ w (E, K, N) -> float32 (E, M, N) from operands of one
+    type, differentiable: one product a batch entry (an expert); see
+    ``_MatmulF32``."""
+    return _MatmulF32.apply(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -125,33 +142,41 @@ def apply_rope(x, cos, sin):
 # MLPs
 # ---------------------------------------------------------------------------
 
-def mlp_apply(x, params, activation: str):
-    """params: {wi: (D, 2, F) for GLU or (D, F), wo: (F, D)}.  The ``wi``
-    product is float32 (``matmul_f32``, as the JAX einsum's
-    ``preferred_element_type``), so the gate and up pre-activations are
-    never rounded to ``x.dtype``; the activation's output is, and ``wo``
-    runs in ``x.dtype``."""
-    if activation in ("swiglu", "gelu_glu", "relu_glu"):
-        D, _, Fd = params["wi"].shape
-        h = matmul_f32(x, params["wi"].reshape(D, 2 * Fd))
-        gate, up = h[..., :Fd], h[..., Fd:]
+GLU = ("swiglu", "gelu_glu", "relu_glu")
+
+
+def ffn_activation(h, activation: str, dtype):
+    """The feed-forward activation of the float32 ``wi`` product ``h``
+    (GLU: gate and up halves along the last axis), rounded to
+    ``dtype``."""
+    if activation in GLU:
+        gate, up = h.chunk(2, dim=-1)
         if activation == "swiglu":
             act = F.silu(gate)
         elif activation == "gelu_glu":
             act = F.gelu(gate, approximate="tanh")
         else:
             act = F.relu(gate)
-        h = (act * up).to(x.dtype)
+        return (act * up).to(dtype)
+    if activation == "squared_relu":
+        h = F.relu(h).square()
+    elif activation == "gelu":
+        h = F.gelu(h, approximate="tanh")
     else:
-        h = matmul_f32(x, params["wi"])
-        if activation == "squared_relu":
-            h = F.relu(h).square()
-        elif activation == "gelu":
-            h = F.gelu(h, approximate="tanh")
-        else:
-            raise ValueError(activation)
-        h = h.to(x.dtype)
-    return (h @ params["wo"]).to(x.dtype)
+        raise ValueError(activation)
+    return h.to(dtype)
+
+
+def mlp_apply(x, params, activation: str):
+    """params: {wi: (D, 2, F) for GLU or (D, F), wo: (F, D)}.  The ``wi``
+    product is float32 (``matmul_f32``, as the JAX einsum's
+    ``preferred_element_type``), so the gate and up pre-activations are
+    never rounded to ``x.dtype``; the activation's output is, and ``wo``
+    runs in ``x.dtype``."""
+    wi = params["wi"]
+    h = matmul_f32(x, wi.reshape(wi.shape[0], -1))
+    return (ffn_activation(h, activation, x.dtype) @ params["wo"]) \
+        .to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

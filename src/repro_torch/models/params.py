@@ -1,5 +1,5 @@
-"""Parameter definitions and initialisers for the dense, SSM and hybrid
-families.
+"""Parameter definitions and initialisers for the dense, MoE, SSM and
+hybrid families.
 
 ``model_def`` yields the same tree paths and shapes as the JAX package's
 ``models/params.py``: a nested dict whose layer leaves are stacked on a
@@ -7,12 +7,13 @@ leading layer axis.  Parameters are plain dicts of tensors, so a tree of
 JAX arrays converts leaf by leaf (``from_reference``) and the tests can
 drive both packages with the same weights.
 
-The dense, SSM and hybrid families are ported; the other families raise
-``NotImplementedError`` until their slice lands (ROADMAP A8).  A hybrid
-model (``cfg.block_pattern``) stacks its repeating groups under
-``groups`` (``b{i}_{type}``, stacked over the groups) and keeps the
-remainder layers under ``tail`` (``t{i}_{type}``, unstacked), as the JAX
-tree does.
+The dense, MoE, SSM and hybrid families are ported; the other families
+raise ``NotImplementedError`` until their slice lands (ROADMAP A8).  An
+MoE model's attention layers hold ``moe`` (router and stacked experts) in
+place of ``mlp``.  A hybrid model (``cfg.block_pattern``) stacks its
+repeating groups under ``groups`` (``b{i}_{type}``, stacked over the
+groups) and keeps the remainder layers under ``tail`` (``t{i}_{type}``,
+unstacked), as the JAX tree does.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ class ParamDef:
         return ParamDef((n,) + self.shape, self.init)
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig):
@@ -63,6 +64,13 @@ def _mlp_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
     glu = cfg.activation in ("swiglu", "gelu_glu", "relu_glu")
     wi = ParamDef((D, 2, F)) if glu else ParamDef((D, F))
     return {"wi": wi, "wo": ParamDef((F, D))}
+
+
+def _moe_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    glu = cfg.activation in ("swiglu", "gelu_glu", "relu_glu")
+    wi = ParamDef((E, D, 2, F)) if glu else ParamDef((E, D, F))
+    return {"router": ParamDef((D, E)), "wi": wi, "wo": ParamDef((E, F, D))}
 
 
 def _rglru_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -102,8 +110,10 @@ def _ssd_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
 def layer_def(cfg: ModelConfig, layer_type: str) -> Dict:
     D = cfg.d_model
     if layer_type == "attn":
+        ffn = {"moe": _moe_def(cfg)} if cfg.n_experts else \
+            {"mlp": _mlp_def(cfg)}
         return {"ln1": ParamDef((D,), "ones"), "attn": _attn_def(cfg),
-                "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
+                "ln2": ParamDef((D,), "ones"), **ffn}
     if layer_type == "rec":
         return {"ln1": ParamDef((D,), "ones"), "rec": _rglru_def(cfg),
                 "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
@@ -185,10 +195,16 @@ def _const(init: str) -> Optional[float]:
 def _std(path: Tuple[str, ...], shape: Tuple[int, ...], init: str) -> float:
     """Init scale of one (unstacked) leaf: the fixed std of ``normal:``
     leaves, else 1/sqrt(fan-in) over the dims the projection contracts —
-    the first, or (heads, head_dim) for the attention output."""
+    the first, (heads, head_dim) for the attention output, the second
+    (after the expert axis) for an expert's ``wi`` and ``wo``."""
     if init.startswith("normal:"):
         return float(init.split(":")[1])
-    fan_in = shape[0] * shape[1] if path[-2:] == ("attn", "wo") else shape[0]
+    if path[-2:] == ("attn", "wo"):
+        fan_in = shape[0] * shape[1]
+    elif path[-2:] in (("moe", "wi"), ("moe", "wo")):
+        fan_in = shape[1]
+    else:
+        fan_in = shape[0]
     return fan_in ** -0.5
 
 

@@ -1,7 +1,7 @@
 """Transformer blocks, the full-sequence forward and the chunked loss.
 
 Counterparts of the same-named functions in the JAX package's
-``models/transformer.py``, for the dense decoder, SSM and hybrid
+``models/transformer.py``, for the dense decoder, MoE, SSM and hybrid
 families: the helpers the serving steps use (embedding, output head,
 attention projections, the feed-forward block) and the training path
 (``attn_block``, ``apply_layer``, ``forward``, ``chunked_ce_loss``,
@@ -28,8 +28,11 @@ What differs from the JAX forward:
 * ``head_pad_to`` and the sharding pins (``_shard_padded_heads``,
   ``_seq_gather``, ``_wsc_tree``) do nothing on one card and are not
   ported.
-* The other families (MoE, VLM, encoder-decoder) raise
-  ``NotImplementedError`` (ROADMAP A items 7, 8 and 9).
+* The other families (VLM, encoder-decoder) raise
+  ``NotImplementedError`` (ROADMAP A items 8 and 9).
+* An MoE layer's feed-forward is ``moe.moe_apply`` at the configured
+  capacity here (the serving steps call it dropless); each layer's
+  ``lb_loss`` is summed into the aux that ``forward`` returns.
 * ``forward(..., return_states=True)`` (the prefill path) runs the layer
   stack without gradients and without recomputation and returns each
   layer's decode state, stacked as the JAX layer scan stacks it.
@@ -44,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.params import (PORTED_FAMILIES, hybrid_structure,
@@ -52,7 +56,7 @@ from repro_torch.models.params import (PORTED_FAMILIES, hybrid_structure,
 LOSS_CHUNK = 1024
 
 # the ROADMAP A item that ports each family not ported yet
-_FAMILY_ITEM = {"moe": 7, "vlm": 8, "encdec": 9}
+_FAMILY_ITEM = {"vlm": 8, "encdec": 9}
 
 
 def cdt(cfg: ModelConfig) -> torch.dtype:
@@ -97,11 +101,13 @@ def _attn_out(o, p, dtype):
             @ wo.reshape(H * dh, wo.shape[-1])).to(dtype)
 
 
-def _ffn(x, lp, cfg: ModelConfig):
+def _ffn(x, lp, cfg: ModelConfig, dropless=False):
+    """The feed-forward block: (y, aux) — an MoE layer's ``lb_loss`` and
+    ``dropped`` (``dropless``: capacity = tokens, the serving steps'), an
+    MLP's none."""
     if "moe" in lp:
-        raise NotImplementedError("MoE feed-forward is not ported yet "
-                                  "(ROADMAP A8)")
-    return L.mlp_apply(x, lp["mlp"], cfg.activation)
+        return moe_mod.moe_apply(x, lp["moe"], cfg, dropless=dropless)
+    return L.mlp_apply(x, lp["mlp"], cfg.activation), {}
 
 
 def rope_for(cfg: ModelConfig, positions):
@@ -142,8 +148,8 @@ def apply_layer(x, lp, cfg: ModelConfig, layer_type: str, rope, *,
         r, state = rglru_mod.rglru_block_apply(
             L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["rec"], cfg)
         h = x + r
-        f = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
-        return h + f, state, {}
+        f, aux = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
+        return h + f, state, aux
     if layer_type != "attn":
         raise NotImplementedError(f"{layer_type!r} blocks are not ported "
                                   "yet (ROADMAP A8)")
@@ -151,8 +157,8 @@ def apply_layer(x, lp, cfg: ModelConfig, layer_type: str, rope, *,
                            lp["attn"], cfg, rope, causal=causal,
                            window=window)
     h = x + a
-    f = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
-    return h + f, {"k": k, "v": v}, {}
+    f, aux = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
+    return h + f, {"k": k, "v": v}, aux
 
 
 def layer_params(layers, i: int):
@@ -198,50 +204,57 @@ def _walk(params, cfg: ModelConfig, x, rope, run, keep):
     """Every layer of the stack in the JAX package's order: a hybrid's
     groups (each its pattern's layers), then its tail; otherwise
     ``n_layers`` layers of one type.  ``run(fn, x, p)`` applies a group or
-    a uniform stack's layer (``fn(x, p) -> (x, states)``); the tail's
-    layers run directly.  ``keep(state, layer_type)`` maps each layer's
-    decode state, or is None to drop the states.  Returns (x, states):
-    ``layers`` stacked, or a hybrid's ``groups`` stacked and ``tail`` by
-    name; None without ``keep``."""
+    a uniform stack's layer (``fn(x, p) -> (x, states, lb_loss)``); the
+    tail's layers run directly.  ``keep(state, layer_type)`` maps each
+    layer's decode state, or is None to drop the states.  Returns (x,
+    states, aux): ``layers`` stacked, or a hybrid's ``groups`` stacked and
+    ``tail`` by name, None without ``keep``; aux the sum of every layer's
+    ``lb_loss`` (float32, 0 without MoE layers)."""
     def one(x, lp, t):
-        x, s, _ = apply_layer(x, lp, cfg, t, rope, window=_window(cfg, t))
-        return x, (keep(s, t) if keep else None)
+        x, s, aux = apply_layer(x, lp, cfg, t, rope, window=_window(cfg, t))
+        lb = aux.get("lb_loss", torch.zeros((), device=x.device))
+        return x, (keep(s, t) if keep else None), lb
 
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_pattern:
         pattern = [(f"b{i}_{t}", t) for i, t in enumerate(cfg.block_pattern)]
 
         def group(x, gp):
-            st = {}
+            st, lbs = {}, 0.0
             for nm, t in pattern:
-                x, st[nm] = one(x, gp[nm], t)
-            return x, st
+                x, st[nm], lb = one(x, gp[nm], t)
+                lbs = lbs + lb
+            return x, st, lbs
 
         _, n_groups, _ = hybrid_structure(cfg)
         groups, tail = [], {}
         for g in range(n_groups):
-            x, st = run(group, x, layer_params(params["groups"], g))
+            x, st, lb = run(group, x, layer_params(params["groups"], g))
             groups.append(st)
+            total = total + lb
         for nm, t in tail_layers(params["tail"]):
-            x, tail[nm] = one(x, params["tail"][nm], t)
+            x, tail[nm], lb = one(x, params["tail"][nm], t)
+            total = total + lb
         if keep is None:
-            return x, None
-        return x, {"groups": _stack_states(groups), "tail": tail}
+            return x, None, total
+        return x, {"groups": _stack_states(groups), "tail": tail}, total
     lt = cfg.layer_types()[0]
     states = []
     for i in range(cfg.n_layers):
-        x, s = run(lambda x_, lp: one(x_, lp, lt), x,
-                   layer_params(params["layers"], i))
+        x, s, lb = run(lambda x_, lp: one(x_, lp, lt), x,
+                       layer_params(params["layers"], i))
         states.append(s)
+        total = total + lb
     if keep is None:
-        return x, None
-    return x, {"layers": _stack_states(states)}
+        return x, None, total
+    return x, {"layers": _stack_states(states)}, total
 
 
 def forward(params, cfg: ModelConfig, tokens, extras=None, *,
             return_states=False, state_fn=None):
     """Full-sequence forward to the final hidden states: (x (B, S, D),
-    aux loss).  ``extras`` carries nothing for the dense, SSM and hybrid
-    families.
+    aux loss: the sum of the MoE layers' ``lb_loss``).  ``extras`` carries
+    nothing for the dense, MoE, SSM and hybrid families.
 
     With ``return_states`` (the prefill path) returns (x, states, aux):
     the stack runs without gradients and without recomputation, and
@@ -251,20 +264,20 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's "
                                   "forward is not ported yet (ROADMAP A "
-                                  f"item {_FAMILY_ITEM.get(cfg.family, 7)})")
+                                  f"item {_FAMILY_ITEM[cfg.family]})")
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     rope = rope_for(cfg, positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_states:
         with torch.no_grad():
-            x, states = _walk(params, cfg, x, rope,
-                              lambda fn, x_, p: fn(x_, p),
-                              state_fn or (lambda s, t: s))
+            x, states, aux = _walk(params, cfg, x, rope,
+                                   lambda fn, x_, p: fn(x_, p),
+                                   state_fn or (lambda s, t: s))
             x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, states, aux
-    x, _ = _walk(params, cfg, x, rope, functools.partial(_run, cfg=cfg), None)
+    x, _, aux = _walk(params, cfg, x, rope, functools.partial(_run, cfg=cfg),
+                      None)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
 

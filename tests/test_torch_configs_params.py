@@ -48,12 +48,12 @@ def test_config_fields_match(arch):
         assert t.layer_types() == j.layer_types()
 
 
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_or_not_ported(arch):
-    """Dense, SSM and hybrid: same paths and shapes as
+    """Dense, MoE, SSM and hybrid: same paths and shapes as
     ``repro.models.params`` at
     full size, same bytes and count.  Other families: NotImplementedError
     from every entry point, naming the ROADMAP item."""

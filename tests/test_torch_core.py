@@ -79,7 +79,9 @@ def test_layouts_and_device_grid_match(dims):
 @pytest.mark.parametrize("arch,shape", [("llama3-8b", "train_4k"),
                                         ("llama3-8b", "decode_32k"),
                                         ("nemotron-4-15b", "prefill_32k"),
-                                        ("starcoder2-15b", "decode_32k")])
+                                        ("starcoder2-15b", "decode_32k"),
+                                        ("mixtral-8x22b", "train_4k"),
+                                        ("grok-1-314b", "decode_32k")])
 def test_cost_estimates_match_on_the_same_hardware(arch, shape):
     jt, tt = _topos(1, 16, 16, same_hw=True)
     jcfg, tcfg = get_config(arch), t_get_config(arch)
@@ -93,11 +95,11 @@ def test_cost_estimates_match_on_the_same_hardware(arch, shape):
 
 def test_cost_estimate_of_unported_family_raises():
     """The estimate prices parameters from the port's own parameter tree,
-    which holds the dense, SSM and hybrid families so far: the MoE family
-    still raises."""
+    which holds the dense, MoE, SSM and hybrid families so far: the VLM
+    family still raises."""
     _, tt = _topos(1, 16, 16)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TM.estimate(t_get_config("mixtral-8x22b"), SHAPES["train_4k"],
+        TM.estimate(t_get_config("qwen2-vl-2b"), SHAPES["train_4k"],
                     TL.Layout(tt, 1))
 
 

@@ -143,7 +143,7 @@ def test_lru_wrappers_have_no_fallback():
 def test_unported_options_raise(option, value):
     """The slot monolith, the eager allocator and the scan chunk path,
     which raised until they were ported, build an engine that serves a
-    request to its budget; with them a family still unported (MoE) raises
+    request to its budget; with them a family still unported (VLM) raises
     naming its ROADMAP item, as the default engine does."""
     import numpy as np
     from repro_torch.configs import REGISTRY, reduced_config
@@ -156,5 +156,5 @@ def test_unported_options_raise(option, value):
     eng.run_until_done()
     assert req.done and len(req.generated) == 3
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        ServeEngine(reduced_config(REGISTRY["mixtral-8x22b"]),
+        ServeEngine(reduced_config(REGISTRY["qwen2-vl-2b"]),
                     ChipletTopology(1, 1, 1), ecfg, device="cpu")

@@ -273,5 +273,7 @@ def test_attn_proj_out_and_ffn():
           TT._attn_out(t(o), {"wo": t(attn["wo"])}, torch.float32))
     jf, _ = JT._ffn(jnp.asarray(x), {"mlp": {k: jnp.asarray(v)
                                              for k, v in mlp.items()}}, jcfg)
-    close(jf, TT._ffn(t(x), {"mlp": {k: t(v) for k, v in mlp.items()}},
-                      tcfg))
+    tf, taux = TT._ffn(t(x), {"mlp": {k: t(v) for k, v in mlp.items()}},
+                       tcfg)
+    close(jf, tf)
+    assert taux == {}
