@@ -195,6 +195,30 @@ Phases (any error fails the run with a non-zero exit):
    eager prompts and the training shape), bf16 and float32
    (``moe_max_abs_err`` and ``moe_eager_prefill_max_abs_err`` in the
    kernels line).  The phase prints its seconds.
+14. The VLM and encoder-decoder families at full width and depth, bf16,
+   random weights from a seeded generator.  (a) Phase 3's requests on
+   qwen2-vl-2b served text-only, cold (28 ring launches a chunk tick on
+   the tensor-core route, a prefix hit, the pool's audit) and after
+   ``warm_steps`` (tokens bit-identical).  (b) Its vision frontend:
+   ``make_prefill`` on a ``make_batch`` batch (B=2, S=2048, 512 patch
+   embeddings) with M-RoPE ids that differ over the vision span (28
+   flash launches, finite logits that the ids move), 32 ``make_generate``
+   steps, then 4 training steps at B=2, S=2048.  (c) seamless-m4t-large-
+   v2 trained 4 steps at B=2, S=2048 (1024 frames, 1024 target tokens):
+   24 encoder, 24 decoder and 24 cross-attention blocks a step, each one
+   flash forward and backward.  (d) Its model-level serving: 4 streams
+   of 4096 frames and 32-token prefixes through ``make_prefill`` (72
+   flash launches) and 32 ``make_generate`` steps; the chunked twin
+   (``prefill_chunk_step``, blocked: the ring kernel at G = 1, dh 64 and
+   cross flash at Sq = 16, Skv = 4096), its tokens' agreement printed;
+   a scan verify of 4 drafted tokens equal to 4 decode steps (the scan
+   identity only), then the fused verify (ring at C = 4, cross flash at
+   Sq = 4), its launches gated and its agreement printed.  (e) The
+   reduced float32 VLM engine variants, both reduced Trainers and the
+   reduced seamless prefill and chunk paths, card against CPU.  Phases 2
+   and 2b hold the ring and flash kernels at these shapes (``vlm_*``,
+   ``encdec_*`` and ``ragged_sq_over_skv`` rows, bf16 and float32).  The
+   phase prints its seconds.
 The reduced float32 reference runs of phases 3, 6 and 8 include card runs
 with speculative decoding (a partial drafter), warmed steps and (phase
 12 (f)) the eager engine, the slot monolith and the scan chunk path, and
@@ -212,7 +236,8 @@ kernel, phase 7 for the RG-LRU scan; ``hybrid_*`` and
 and 8; ``eager_prefill_launches`` and ``hybrid_eager_prefill_launches``
 phase 12's, over the eager engine's 9 prefills; ``moe_launches`` phase
 13's serving (ring) and training (flash), ``moe_eager_prefill_launches``
-its eager prefills), error and times.
+its eager prefills; ``vlm_*`` and ``encdec_*`` phase 14's launches and
+errors), error and times.
 """
 from __future__ import annotations
 
@@ -332,6 +357,21 @@ RING_GEOMETRIES = [
      0.0, "bfloat16"),
     ("moe_window_4096", 3, 16, 4096, 48, 8, 128, (4100, 5000, 9007),
      (16, 11, 16), 4096, 0.0, "float32"),
+    # phase 14: qwen2-vl-2b's chunk tick (G 6 over 2 kv heads at dh 128:
+    # 96 query rows a kv head) and its float32 twin; seamless-m4t-large-
+    # v2's chunk step (MHA, G 1 at dh 64) over a 256-slot ring, in bf16
+    # and float32.  Each has a wrapped ring, a decode row (n_tokens 1) and
+    # an idle row.  Last, seamless's fused verify step (C = 4) over the
+    # same ring, with a partial and an idle row
+    ("vlm_chunk", 8, 16, 1024, 12, 2, 128,
+     (0, 16, 208, 1008, 1024, 1500, 3000, 64),
+     (16, 16, 16, 16, 1, 16, 9, 0), 0, 0.0, "bfloat16"),
+    ("vlm_chunk_f32", 3, 16, 1024, 12, 2, 128, (700, 2100, 64), (16, 1, 0),
+     0, 0.0, "float32"),
+    ("encdec_chunk", 4, 16, 256, 16, 16, 64, (0, 300, 600, 32),
+     (16, 16, 1, 0), 0, 0.0, "float32"),
+    ("encdec_verify", 4, 4, 256, 16, 16, 64, (32, 120, 300, 0),
+     (4, 3, 4, 0), 0, 0.0, "float32"),
 ]
 
 
@@ -479,6 +519,10 @@ def phase_ring_kernel(torch):
             elif name.startswith(("moe_", "verify_moe")) and dt == "bfloat16":
                 row["moe_max_abs_err"] = max(row.get("moe_max_abs_err", 0.0),
                                              max_err)
+            elif name.startswith(("vlm_", "encdec_")):
+                key = name.split("_")[0] + ("_max_abs_err" if dt == "bfloat16"
+                                            else "_f32_max_abs_err")
+                row[key] = max(row.get(key, 0.0), max_err)
     routes = {"wgmma": fn.wgmma_launches - before[1],
               "fma": fn.launches - before[0] - (fn.wgmma_launches - before[1])}
     want_routes = {"wgmma": calls["bfloat16"], "fma": calls["float32"]}
@@ -630,39 +674,57 @@ def ring_device_times(torch, row):
 # phase 2b
 # ---------------------------------------------------------------------------
 
-# name, B, S, Hq, Hkv, dh, causal, window
-FLASH_MAIN = ("main_path", 2, 2048, 24, 8, 128, True, 0)
+# name, B, Sq, Skv, Hq, Hkv, dh, causal, window
+FLASH_MAIN = ("main_path", 2, 2048, 2048, 24, 8, 128, True, 0)
 # phase 7's shape: recurrentgemma-9b's local attention, dh 256, 16 query
 # heads over one kv head, window 2048 at S 4096
-FLASH_HYBRID = ("hybrid_path", 1, 4096, 16, 1, 256, True, 2048)
+FLASH_HYBRID = ("hybrid_path", 1, 4096, 4096, 16, 1, 256, True, 2048)
 FLASH_GEOMETRIES = [
-    ("fa_sweep_0", 2, 128, 4, 2, 64, True, 0),
-    ("fa_sweep_1", 1, 256, 4, 4, 32, True, 64),
-    ("fa_sweep_2", 2, 128, 8, 2, 64, False, 0),
-    ("fa_sweep_3", 1, 128, 2, 1, 128, True, 32),
-    ("fa_sweep_4", 2, 64, 4, 1, 64, True, 0),
-    ("fa_sweep_5", 1, 192, 6, 3, 32, True, 48),
-    ("ragged_s200", 2, 200, 6, 2, 16, True, 0),
-    ("ragged_dh256", 1, 1000, 16, 1, 256, True, 300),
-    ("ragged_not_causal_dh128", 1, 77, 4, 4, 128, False, 0),
-    ("gqa3_window_dh128", 1, 300, 6, 2, 128, True, 100),
-    ("not_causal_dh256", 2, 130, 4, 2, 256, False, 0),
-    ("gqa16_ragged_dh64", 1, 333, 16, 1, 64, True, 0),
+    ("fa_sweep_0", 2, 128, 128, 4, 2, 64, True, 0),
+    ("fa_sweep_1", 1, 256, 256, 4, 4, 32, True, 64),
+    ("fa_sweep_2", 2, 128, 128, 8, 2, 64, False, 0),
+    ("fa_sweep_3", 1, 128, 128, 2, 1, 128, True, 32),
+    ("fa_sweep_4", 2, 64, 64, 4, 1, 64, True, 0),
+    ("fa_sweep_5", 1, 192, 192, 6, 3, 32, True, 48),
+    ("ragged_s200", 2, 200, 200, 6, 2, 16, True, 0),
+    ("ragged_dh256", 1, 1000, 1000, 16, 1, 256, True, 300),
+    ("ragged_not_causal_dh128", 1, 77, 77, 4, 4, 128, False, 0),
+    ("gqa3_window_dh128", 1, 300, 300, 6, 2, 128, True, 100),
+    ("not_causal_dh256", 2, 130, 130, 4, 2, 256, False, 0),
+    ("gqa16_ragged_dh64", 1, 333, 333, 16, 1, 64, True, 0),
     # phase 12's whole-prompt prefill: one prompt (B=1) at the shortest,
     # a middle and the longest length ``serve`` submits, on llama3-8b and
     # on recurrentgemma-9b's local attention
-    ("eager_prefill_dense_s96", 1, 96, 32, 8, 128, True, 0),
-    ("eager_prefill_dense_s148", 1, 148, 32, 8, 128, True, 0),
-    ("eager_prefill_dense_s400", 1, 400, 32, 8, 128, True, 0),
-    ("eager_prefill_hybrid_s148", 1, 148, 16, 1, 256, True, 2048),
-    ("eager_prefill_hybrid_s400", 1, 400, 16, 1, 256, True, 2048),
+    ("eager_prefill_dense_s96", 1, 96, 96, 32, 8, 128, True, 0),
+    ("eager_prefill_dense_s148", 1, 148, 148, 32, 8, 128, True, 0),
+    ("eager_prefill_dense_s400", 1, 400, 400, 32, 8, 128, True, 0),
+    ("eager_prefill_hybrid_s148", 1, 148, 148, 16, 1, 256, True, 2048),
+    ("eager_prefill_hybrid_s400", 1, 400, 400, 16, 1, 256, True, 2048),
     # phase 13's mixtral-8x22b, G = 6 at dh 128, window 4096: the eager
     # engine's prompts (the window inert) and the training shape, where
     # the window masks half of the causal band
-    ("eager_prefill_moe_s96", 1, 96, 48, 8, 128, True, 4096),
-    ("eager_prefill_moe_s148", 1, 148, 48, 8, 128, True, 4096),
-    ("eager_prefill_moe_s400", 1, 400, 48, 8, 128, True, 4096),
-    ("moe_train", 1, 8192, 48, 8, 128, True, 4096),
+    ("eager_prefill_moe_s96", 1, 96, 96, 48, 8, 128, True, 4096),
+    ("eager_prefill_moe_s148", 1, 148, 148, 48, 8, 128, True, 4096),
+    ("eager_prefill_moe_s400", 1, 400, 400, 48, 8, 128, True, 4096),
+    ("moe_train", 1, 8192, 8192, 48, 8, 128, True, 4096),
+    # phase 14: qwen2-vl-2b training and whole-prompt prefill (G 6 at dh
+    # 128 over 2 kv heads); seamless-m4t-large-v2 (MHA 16/16 at dh 64) at
+    # the training shape (1024 frames, 1024 target tokens): the encoder's
+    # non-causal self-attention (cross-attention has its shape), the
+    # decoder's causal one; in prefill the encoder over 4096 frames, the
+    # decoder's causal self-attention over the 32-token prefixes (one
+    # partial tile with the diagonal inside it) and cross-attention of 32
+    # queries over the frames, and of a 16-wide chunk step and the fused
+    # verify step's 4 tokens; a ragged row with more queries than keys
+    ("vlm_train", 2, 2048, 2048, 12, 2, 128, True, 0),
+    ("encdec_enc", 2, 1024, 1024, 16, 16, 64, False, 0),
+    ("encdec_dec", 2, 1024, 1024, 16, 16, 64, True, 0),
+    ("encdec_enc_prefill", 4, 4096, 4096, 16, 16, 64, False, 0),
+    ("encdec_dec_prefill", 4, 32, 32, 16, 16, 64, True, 0),
+    ("encdec_cross_prefill", 4, 32, 4096, 16, 16, 64, False, 0),
+    ("encdec_cross_chunk", 4, 16, 4096, 16, 16, 64, False, 0),
+    ("encdec_cross_verify", 4, 4, 4096, 16, 16, 64, False, 0),
+    ("ragged_sq_over_skv", 1, 300, 77, 16, 16, 64, False, 0),
 ]
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/"
 # the plain versions hold several (B, Hq, S, S) float32 score tensors at
@@ -671,12 +733,14 @@ FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/"
 REF_SCORE_BYTES = 2 << 30
 
 
-def flash_inputs(torch, B, S, Hq, Hkv, dh, dtype, seed):
-    """q, k, v and an upstream gradient do, on the card."""
+def flash_inputs(torch, B, S, Hq, Hkv, dh, dtype, seed, Skv=None):
+    """q, k, v and an upstream gradient do, on the card: S queries over
+    ``Skv`` keys (S when not given)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
+    Skv = S if Skv is None else Skv
     return [torch.randn(s, generator=g, device="cuda").to(dt)
-            for s in ((B, S, Hq, dh), (B, S, Hkv, dh), (B, S, Hkv, dh),
+            for s in ((B, S, Hq, dh), (B, Skv, Hkv, dh), (B, Skv, Hkv, dh),
                       (B, S, Hq, dh))]
 
 
@@ -739,12 +803,12 @@ def phase_flash_kernels(torch):
     parts = (("fwd", ops.flash_attention), ("bwd", ops.flash_attention_bwd))
     before = {part: (fn.launches, fn.wgmma_launches) for part, fn in parts}
     for geo in [FLASH_MAIN, FLASH_HYBRID] + FLASH_GEOMETRIES:
-        name, B, S, Hq, Hkv, dh, causal, window = geo
+        name, B, S, Skv, Hq, Hkv, dh, causal, window = geo
         dtypes = ("bfloat16",) if name == "main_path" else ("float32",
                                                             "bfloat16")
         for dtype in dtypes:
             q, k, v, do = flash_inputs(torch, B, S, Hq, Hkv, dh, dtype,
-                                       seed=S + dh)
+                                       seed=S + dh, Skv=Skv)
             kw = dict(causal=causal, window=window)
             out, lse = ops.flash_attention_fwd(q, k, v, **kw)
             (want_out, want_lse), want = flash_refs(torch, ref, q, k, v, do,
@@ -754,8 +818,8 @@ def phase_flash_kernels(torch):
                                             **kw)
             torch.cuda.synchronize()
             tf, tb = FLASH_TOL["fwd", dtype], FLASH_TOL["bwd", dtype]
-            what = (f"{name} {dtype} B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh} "
-                    f"causal={causal} window={window}")
+            what = (f"{name} {dtype} B={B} Sq={S} Skv={Skv} Hq={Hq} "
+                    f"Hkv={Hkv} dh={dh} causal={causal} window={window}")
             fwd_err = max_err(torch, [("out", out, want_out),
                                       ("lse", lse, want_lse)], tf, what)
             bwd_err = max_err(torch, zip(("dq", "dk", "dv"), grads, want),
@@ -787,6 +851,13 @@ def phase_flash_kernels(torch):
             elif name == "moe_train" and dtype == "bfloat16":
                 rows["fwd"]["moe_max_abs_err"] = fwd_err
                 rows["bwd"]["moe_max_abs_err"] = bwd_err
+            elif name.startswith(("vlm_", "encdec_")):
+                # phase 14's rows, by family and route
+                fam = name.split("_")[0]
+                key = (f"{fam}_max_abs_err" if dtype == "bfloat16"
+                       else f"{fam}_f32_max_abs_err")
+                for part, err in (("fwd", fwd_err), ("bwd", bwd_err)):
+                    rows[part][key] = max(rows[part].get(key, 0.0), err)
             del q, k, v, do, out, lse, want_out, want_lse, grads, want
             torch.cuda.empty_cache()
     calls["bfloat16"] += flash_strided_views(torch, ops, ref)
@@ -806,8 +877,11 @@ def phase_flash_kernels(torch):
         raise AssertionError(f"flash launches by route {routes}, expected "
                              f"{want_routes}: a bf16 call did not take the "
                              "tensor-core kernels")
-    timing = flash_timing(torch, ops, ref, *FLASH_MAIN[1:])
-    hybrid = flash_timing(torch, ops, ref, *FLASH_HYBRID[1:])
+    # the timed shapes have one length for queries and keys
+    timing = flash_timing(torch, ops, ref, *FLASH_MAIN[1:3],
+                          *FLASH_MAIN[4:])
+    hybrid = flash_timing(torch, ops, ref, *FLASH_HYBRID[1:3],
+                          *FLASH_HYBRID[4:])
     for part in ("fwd", "bwd"):
         rows[part].update(timing[part])
         rows[part].update({f"hybrid_{k}": v for k, v in hybrid[part].items()})
@@ -1802,7 +1876,9 @@ CARD_VARIANTS = {"dense": card_variants("spec", "async", "warm",
                                       *MODE_VARIANTS),
                  "ssm": card_variants("spec", "warm", *MODE_VARIANTS),
                  "hybrid": card_variants("spec", "async park", "warm",
-                                         *MODE_VARIANTS)}
+                                         *MODE_VARIANTS),
+                 # the engine serves a VLM only on the lazy paged path
+                 "vlm": card_variants("spec", "async", "warm", "scan")}
 
 
 def force_park(eng):
@@ -2932,6 +3008,498 @@ def phase_moe(torch, rows):
     log(f"[moe] phase 13: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the VLM and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "qwen2-vl-2b"
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+# phase 14 (b): B=2, S=2048, of which make_batch's vision_frac 0.25 makes
+# 512 positions of patch embeddings ahead of 1536 text tokens
+VLM_B, VLM_S = 2, 2048
+# phase 14 (d): 4 streams of 4096 source frames (the JAX package's
+# encoder-decoder serving source length, ``launch/inputs.py``
+# ENCDEC_SRC_LEN) and 32-token target prefixes, a 256-slot decoder ring
+ENCDEC_B, ENCDEC_SRC, ENCDEC_PREFIX, ENCDEC_MAX_LEN = 4, 4096, 32, 256
+GENERATE_STEPS = 32
+
+
+def vision_position_ids(B, S, sv, width=32):
+    """M-RoPE ids (3, B, S) whose components differ over the vision span:
+    the first ``sv`` positions a grid of patches ``width`` wide (time 0,
+    row, column), then the text's positions, equal in all three, from the
+    grid's largest id on."""
+    import numpy as np
+    h, w = np.arange(sv) // width, np.arange(sv) % width
+    text = np.arange(S - sv) + max(h.max(), w.max()) + 1
+    ids = np.stack([np.concatenate([c, text])
+                    for c in (np.zeros(sv, np.int64), h, w)])
+    return np.broadcast_to(ids[:, None], (3, B, S)).astype(np.int32).copy()
+
+
+def flash_counts(torch):
+    from repro_torch.kernels.flash_attention import ops
+    return ops.flash_attention.launches, ops.flash_attention.wgmma_launches
+
+
+def spy_attention_blocks():
+    """Record each ``transformer.attn_block`` call of the training path as
+    "enc" (non-causal self-attention), "dec" (causal) or "cross" (over
+    given keys and values); returns (the list, a function that takes the
+    spy out).  One call is one flash forward and, in training, one flash
+    backward."""
+    from repro_torch.models import transformer
+    block, seen = transformer.attn_block, []
+
+    def spy(x, p, cfg, rope, *, causal=True, window=0, kv=None):
+        seen.append("cross" if kv is not None else
+                    "dec" if causal else "enc")
+        return block(x, p, cfg, rope, causal=causal, window=window, kv=kv)
+
+    transformer.attn_block = spy
+    return seen, lambda: setattr(transformer, "attn_block", block)
+
+
+def phase_vlm_serve(torch):
+    """Phase 14 (a): phase 3's requests on qwen2-vl-2b at full width and
+    depth, served text-only (bf16, random weights from seed 0): cold — 28
+    ring launches a chunk tick on the tensor-core route, a prefix hit,
+    the pool's audit — then on a fresh engine warmed by ``warm_steps``,
+    whose tokens must be the cold run's bit for bit with graphs
+    replayed.  Returns the cold run's ring launches and the weights."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models.params import n_params
+    cfg = REGISTRY[VLM_ARCH]
+    tag = f"[vlm {cfg.name}]"
+    t0 = time.perf_counter()
+    eng = make_engine(cfg)
+    torch.cuda.synchronize()
+    log(f"{tag} d_model={cfg.d_model} layers={cfg.n_layers} heads="
+        f"{cfg.n_heads}/{cfg.n_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"M-RoPE sections {cfg.mrope_sections} vocab={cfg.vocab} "
+        f"{cfg.param_dtype}, {n_params(cfg)} params; set-up "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    cold = mode_serve(torch, eng, cfg)
+    c = cold["counters"]
+    ticks = int(c.get("chunk_ticks", 0))
+    hits = c.get("kv_prefix_hits", 0.0)
+    if (ticks <= 0 or cold["ring"] != cfg.n_layers * ticks
+            or cold["ring_wgmma"] != cold["ring"] or cold["flash"]
+            or hits <= 0):
+        raise AssertionError(
+            f"{tag} cold: ring launches {cold['ring']} ({cold['ring_wgmma']}"
+            f" on the tensor-core route) over {ticks} chunk ticks of "
+            f"{cfg.n_layers} layers, flash {cold['flash']}, prefix hits "
+            f"{hits}")
+    params = eng.params
+    del eng
+    free_card(torch)
+    eng = make_engine(cfg, params)
+    t0 = time.perf_counter()
+    calls = eng.warm_steps()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    r0 = eng.graph_replays()
+    warm = mode_serve(torch, eng, cfg)
+    replays = {f"{k}/{w}/{b}": n - r0[(k, w, b)]
+               for (k, w, b), n in sorted(eng.graph_replays().items())}
+    if warm["tokens"] != cold["tokens"]:
+        raise AssertionError(f"{tag} warmed tokens differ from the cold "
+                             f"run's (agreement "
+                             f"{agreement(warm['tokens'], cold['tokens'])})")
+    if sum(replays.values()) <= 0:
+        raise AssertionError(f"{tag} no graph was replayed")
+    del eng
+    free_card(torch)
+    mode_line(tag, "cold", cold)
+    mode_line(tag, "warm", warm, cold["tokens"], "cold")
+    log(f"{tag} cold: ring launches {cold['ring']} ({cold['ring_wgmma']} on "
+        f"the tensor-core route) over {ticks} chunk ticks, kv_prefix_hits "
+        f"{int(hits)}, pool audit ok; warm: {calls} step calls, "
+        f"{len(replays)} graphs captured in {capture_s:.2f} s, tokens "
+        f"bit-identical to cold, replays (kind/width/bucket): "
+        + ", ".join(f"{k} {n}" for k, n in replays.items()))
+    log(f"{tag} " + json.dumps({
+        "arch": cfg.name, "chunk_ticks": ticks, "ring_launches": cold["ring"],
+        "prefix_hits": hits, "warm_calls": calls, "capture_s": capture_s,
+        "replays": replays,
+        **{f"{k}_{m}": v for k, r in (("cold", cold), ("warm", warm))
+           for m, v in (("tokens_per_s", r["stats"]["tokens"]
+                         / r["stats"]["wall"]),
+                        ("wall", r["stats"]["wall"]),
+                        ("ttft_p50", r["stats"]["ttft_p50"]),
+                        ("ttft_p99", r["stats"]["ttft_p99"]),
+                        ("tpot_p50", r["stats"]["tpot_p50"]),
+                        ("tpot_p99", r["stats"]["tpot_p99"]))},
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    return {"ring": cold["ring"], "params": params}
+
+
+def phase_vlm_vision(torch, params):
+    """Phase 14 (b), first part: qwen2-vl-2b's vision frontend through
+    ``make_prefill`` on a ``make_batch`` batch (B=2, S=2048: 512 patch
+    embeddings, 1536 text tokens) with M-RoPE ids that differ over the
+    vision span — 28 flash launches, all on the tensor-core route, finite
+    logits that the ids move — then ``make_generate`` for 32 steps.
+    Returns the prefill's flash launches."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import make_generate, make_prefill
+    cfg = REGISTRY[VLM_ARCH]
+    tag = f"[vlm {cfg.name}]"
+    block = np.random.default_rng(3).integers(
+        2, cfg.vocab, size=(VLM_B, VLM_S + 1)).astype(np.int32)
+    batch = make_batch(cfg, block)
+    sv = batch["vision_embeds"].shape[1]
+    batch["position_ids"] = vision_position_ids(VLM_B, VLM_S, sv)
+    feed = {k: torch.from_numpy(batch[k]).cuda()
+            for k in ("tokens", "vision_embeds", "position_ids")}
+    prefill = make_prefill(cfg, VLM_S + 2 * GENERATE_STEPS)
+    reset_launches(torch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(params, feed)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    flash, flash_wgmma = flash_counts(torch)
+    if (flash != cfg.n_layers or flash_wgmma != flash
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag} vision prefill: flash launches {flash} "
+                             f"({flash_wgmma} on the tensor-core route), "
+                             f"want {cfg.n_layers}; logits finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    # the same batch with text-only ids: M-RoPE is not RoPE over the
+    # vision span, so the logits move
+    plain, _ = prefill(params, dict(feed, position_ids=torch.arange(
+        VLM_S, dtype=torch.int32, device="cuda").expand(3, VLM_B, VLM_S)))
+    moved = float((plain - logits)[:, :cfg.vocab].abs().max())
+    if moved == 0.0:
+        raise AssertionError(f"{tag} the vision span's M-RoPE ids did not "
+                             "move the logits")
+    del plain
+    first = logits.argmax(-1).to(torch.int32)[:, None]
+    pos = torch.full((VLM_B,), VLM_S, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, cache, _ = make_generate(cfg, GENERATE_STEPS)(params, cache,
+                                                        first, pos)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    if not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{tag} a generated token is out of vocab")
+    log(f"{tag} vision prefill B={VLM_B} S={VLM_S} ({sv} patch embeddings, "
+        f"{VLM_S - sv} text tokens, M-RoPE t/h/w ids distinct over the "
+        f"vision span; the decode steps broadcast their positions, "
+        f"{VLM_S} on, to the three components): flash launches {flash} "
+        f"({flash_wgmma} on the "
+        f"tensor-core route), logits finite, text-only ids move them by "
+        f"{moved:.4f}; prefill {prefill_s:.4f} s, {GENERATE_STEPS} "
+        f"make_generate steps {gen_s:.4f} s "
+        f"({VLM_B * GENERATE_STEPS / gen_s:.1f} tokens/s)")
+    del cache, logits
+    free_card(torch)
+    return flash
+
+
+def phase_encdec_train(torch):
+    """Phase 14 (c): seamless-m4t-large-v2 at full width and depth, 4
+    steps at B=2, S=2048 (``make_batch``: 1024 source frames, 1024 target
+    tokens): per step 24 non-causal encoder, 24 causal decoder and 24
+    cross-attention blocks, each one flash forward and one flash
+    backward.  Returns the launches."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    cfg = REGISTRY[ENCDEC_ARCH]
+    per = cfg.enc_layers + 2 * cfg.dec_layers
+    seen, restore = spy_attention_blocks()
+    try:
+        launches = phase_train(
+            torch, ENCDEC_ARCH, 2, "none",
+            {"flash_attention_fwd": (fa_ops.flash_attention, per),
+             "flash_attention_bwd": (fa_ops.flash_attention_bwd, per)},
+            {"enc wq[0]": lambda p: p["enc_layers"]["attn"]["wq"][0],
+             "dec cross wk[0]": lambda p: p["dec_layers"]["cross"]["wk"][0],
+             "head[:, :4096]": lambda p: p["head"][:, :4096]})
+    finally:
+        restore()
+    step = (["enc"] * cfg.enc_layers + ["dec", "cross"] * cfg.dec_layers)
+    if seen != step * TRAIN_STEPS:
+        counts = [seen.count(k) for k in ("enc", "dec", "cross")]
+        raise AssertionError(f"[train {cfg.name}] attention blocks {counts} "
+                             "(enc, dec, cross), or out of order")
+    log(f"[train {cfg.name}] a step: {cfg.enc_layers} non-causal encoder, "
+        f"{cfg.dec_layers} causal decoder and {cfg.dec_layers} cross-"
+        f"attention blocks, each one flash forward and one backward")
+    return launches
+
+
+def phase_encdec_serve(torch):
+    """Phase 14 (d): seamless-m4t-large-v2 at full width and depth served
+    at model level, the path the JAX package has: ``make_prefill`` of 4
+    streams of 4096 source frames and 32-token prefixes (72 flash
+    launches: 24 encoder at S=4096, 24 decoder at S=32, 24 cross at
+    Sq=32, Skv=4096), then ``make_generate`` for 32 steps.  Its chunked
+    twin: ``prefill_chunk_step`` (blocked) over the prefix in 16-token
+    chunks from a cache holding the same cross keys and values (24 ring
+    launches at G=1, dh 64, and 24 cross flash launches at Sq=16 a
+    chunk), then 32 ``decode_step``s; the tokens' agreement with the
+    first run is printed, not gated.  Last, one scan verify step with 4
+    drafted tokens: its argmax at each position equals 4 sequential
+    ``decode_step``s'.  That gate checks only the scan identity (the scan
+    verify is a loop of the same ``decode_step``, so it can catch a fault
+    in the cache save and restore, nothing more); the fused verify
+    (``mode="parallel"``, blocked: 24 ring launches at C=4 and 24 cross
+    flash launches at Sq=4, Skv=4096) runs after it, its launches gated
+    and its argmax agreement with the decode steps printed, not gated
+    (bf16).  Returns the launches."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.steps import (make_generate, make_prefill,
+                                          make_serve_step,
+                                          make_spec_verify_step)
+    from repro_torch.models import decode as dec
+    from repro_torch.models.params import init_params, n_params
+    cfg = REGISTRY[ENCDEC_ARCH]
+    tag = f"[encdec {cfg.name}]"
+    B, P, S_src, W = ENCDEC_B, ENCDEC_PREFIX, ENCDEC_SRC, ENCDEC_MAX_LEN
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"{tag} d_model={cfg.d_model} {cfg.enc_layers} encoder + "
+        f"{cfg.dec_layers} decoder layers heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff} vocab="
+        f"{cfg.vocab} {cfg.param_dtype}, {n_params(cfg)} params; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(4)
+    frames = torch.from_numpy((rng.standard_normal((B, S_src, cfg.d_model))
+                               * 0.02).astype(np.float32)).cuda()
+    prefix = torch.from_numpy(rng.integers(2, cfg.vocab, size=(B, P))
+                              .astype(np.int32)).cuda()
+    pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+    generate = make_generate(cfg, GENERATE_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(torch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = make_prefill(cfg, W)(params, {"tokens": prefix,
+                                                  "frame_embeds": frames})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    flash, flash_wgmma = flash_counts(torch)
+    want = cfg.enc_layers + 2 * cfg.dec_layers
+    if (flash != want or flash_wgmma != flash
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag} prefill: flash launches {flash} "
+                             f"({flash_wgmma} on the tensor-core route), "
+                             f"want {want}; logits finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    cross = (cache["cross_k"].clone(), cache["cross_v"].clone())
+    first = logits.argmax(-1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, _, _ = generate(params, cache, first, pos)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    run1 = torch.cat([first, toks], 1).cpu()
+    del cache
+    # the chunked twin, from a cache holding the encoder's cross K/V
+    spec = dec.cache_view_specs(cfg, W, S_src)
+    twin = dec.init_cache(cfg, B, W, S_src)
+    twin["cross_k"].copy_(cross[0])
+    twin["cross_v"].copy_(cross[1])
+    del cross
+    C = 16
+    n = torch.full((B,), C, dtype=torch.int32, device="cuda")
+    reset_launches(torch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for c0 in range(0, P, C):
+        logits2, twin = dec.prefill_chunk_step(
+            params, cfg, spec, twin, prefix[:, c0:c0 + C],
+            torch.full((B,), c0, dtype=torch.int32, device="cuda"), n,
+            chunk_kernel="blocked")
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t
+    ring, ring_wgmma, _ = kernel_launches(torch)
+    cflash, cflash_wgmma = flash_counts(torch)
+    ticks = P // C
+    if (ring != cfg.dec_layers * ticks or ring_wgmma != ring
+            or cflash != cfg.dec_layers * ticks or cflash_wgmma != cflash
+            or not torch.isfinite(logits2).all()):
+        raise AssertionError(f"{tag} chunked prefix: ring {ring} "
+                             f"({ring_wgmma} tensor-core), cross flash "
+                             f"{cflash} ({cflash_wgmma}), want "
+                             f"{cfg.dec_layers * ticks} each")
+    first2 = logits2.argmax(-1).to(torch.int32)[:, None]
+    # the verify step's input: the state after the prefix, and 4 drafted
+    # tokens (the first and the twin's greedy continuation's first three)
+    after = _to_device(twin, "cuda")
+    toks2, _, _ = generate(params, twin, first2, pos)
+    run2 = torch.cat([first2, toks2], 1).cpu()
+    del twin
+    draft = torch.cat([first2, toks2[:, :3]], 1)
+    serve_step = make_serve_step(cfg)
+    seq, state = [], _to_device(after, "cuda")
+    for i in range(4):
+        lg, state = serve_step(params, state, draft[:, i:i + 1], pos + i)
+        seq.append(lg.argmax(-1))
+    del state
+    seq = torch.stack(seq, 1)
+    four = torch.full((B,), 4, dtype=torch.int32, device="cuda")
+    verify, _ = make_spec_verify_step(cfg, spec)(
+        params, _to_device(after, "cuda"), draft, pos, four)
+    if not torch.equal(verify.argmax(-1), seq):
+        raise AssertionError(f"{tag} the verify step's argmax differs from "
+                             "4 sequential decode steps")
+    reset_launches(torch)
+    fused, _ = make_spec_verify_step(cfg, spec, mode="parallel",
+                                     chunk_kernel="blocked")(
+        params, after, draft, pos, four)
+    torch.cuda.synchronize()
+    vring, vring_wgmma, _ = kernel_launches(torch)
+    vflash, vflash_wgmma = flash_counts(torch)
+    if (vring != cfg.dec_layers or vring_wgmma != vring
+            or vflash != cfg.dec_layers or vflash_wgmma != vflash
+            or not torch.isfinite(fused).all()):
+        raise AssertionError(f"{tag} fused verify: ring {vring} "
+                             f"({vring_wgmma} tensor-core), cross flash "
+                             f"{vflash} ({vflash_wgmma}), want "
+                             f"{cfg.dec_layers} each; logits finite "
+                             f"{bool(torch.isfinite(fused).all())}")
+    fused_agree = float((fused.argmax(-1) == seq).float().mean())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    agree = float((run1 == run2).float().mean())
+    log(f"{tag} prefill of {B} streams x {S_src} frames + {P}-token "
+        f"prefixes: {prefill_s:.4f} s, flash launches {flash} (all on the "
+        f"tensor-core route: {cfg.enc_layers} encoder, {cfg.dec_layers} "
+        f"decoder, {cfg.dec_layers} cross at Sq={P}, Skv={S_src}); "
+        f"{GENERATE_STEPS} make_generate steps {gen_s:.4f} s "
+        f"({B * GENERATE_STEPS / gen_s:.1f} tokens/s, "
+        f"{gen_s / GENERATE_STEPS * 1e3:.3f} ms a step)")
+    log(f"{tag} chunked twin: {ticks} prefill_chunk_step calls (C={C}, "
+        f"blocked) {chunk_s:.4f} s, ring launches {ring} and cross flash "
+        f"launches {cflash}, all on the tensor-core route; tokens agree "
+        f"with the whole-prompt run on {agree:.4f} of {run1.numel()} "
+        f"(bf16: not gated); the scan verify of 4 drafted tokens gives 4 "
+        f"sequential decode steps' argmax at every position; the fused "
+        f"verify (ring {vring}, cross flash {vflash} launches, all on the "
+        f"tensor-core route) agrees with them on {fused_agree:.4f} of "
+        f"{seq.numel()} positions (bf16: not gated); peak {peak:.2f} GiB")
+    log(f"{tag} " + json.dumps({
+        "arch": cfg.name, "streams": B, "src_len": S_src, "prefix": P,
+        "prefill_s": prefill_s, "generate_s": gen_s,
+        "generate_tokens_per_s": B * GENERATE_STEPS / gen_s,
+        "chunk_prefix_s": chunk_s, "prefill_flash_launches": flash,
+        "chunk_ring_launches": ring, "chunk_flash_launches": cflash,
+        "chunked_agreement": agree, "fused_verify_agreement": fused_agree,
+        "peak_gib": peak}))
+    del params, after, verify, fused
+    free_card(torch)
+    return {"prefill_flash": flash, "ring": ring, "chunk_flash": cflash}
+
+
+def phase_encdec_reference(torch):
+    """Phase 14 (e), the encoder-decoder part: reduced
+    seamless-m4t-large-v2 in float32 on the CPU and the card, the same
+    weights: ``make_prefill`` from source frames then ``make_generate``,
+    and the chunked twin (``prefill_chunk_step``, blocked, 4 tokens a
+    chunk, then ``make_generate``); the card's prefill logits within 1e-4
+    of the CPU's and every token equal."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY, reduced_config
+    from repro_torch.launch.steps import make_generate, make_prefill
+    from repro_torch.models import decode as dec
+    from repro_torch.models.params import init_params
+    cfg = reduced_config(REGISTRY[ENCDEC_ARCH])
+    base = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    B, P, S_src, W, C = 2, 12, 24, 32, 4
+    rng = np.random.default_rng(6)
+    frames = torch.from_numpy((rng.standard_normal((B, S_src, cfg.d_model))
+                               * 0.02).astype(np.float32))
+    prefix = torch.from_numpy(rng.integers(2, cfg.vocab, size=(B, P))
+                              .astype(np.int32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = _to_device(base, device)
+        fr, pre = frames.to(device), prefix.to(device)
+        pos = torch.full((B,), P, dtype=torch.int32, device=device)
+        logits, cache = make_prefill(cfg, W)(params, {"tokens": pre,
+                                                      "frame_embeds": fr})
+        first = logits.argmax(-1).to(torch.int32)[:, None]
+        twin = dec.init_cache(cfg, B, W, S_src, device=device)
+        twin["cross_k"].copy_(cache["cross_k"])
+        twin["cross_v"].copy_(cache["cross_v"])
+        toks, _, _ = make_generate(cfg, 11)(params, cache, first, pos)
+        spec = dec.cache_view_specs(cfg, W, S_src)
+        n = torch.full((B,), C, dtype=torch.int32, device=device)
+        for c0 in range(0, P, C):
+            lg2, twin = dec.prefill_chunk_step(
+                params, cfg, spec, twin, pre[:, c0:c0 + C],
+                torch.full((B,), c0, dtype=torch.int32, device=device), n,
+                chunk_kernel="blocked")
+        first2 = lg2.argmax(-1).to(torch.int32)[:, None]
+        toks2, _, _ = make_generate(cfg, 11)(params, twin, first2, pos)
+        out[device] = (logits.cpu(), torch.cat([first, toks], 1).cpu(),
+                       torch.cat([first2, toks2], 1).cpu())
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    equal = all(torch.equal(out["cuda"][i], out["cpu"][i]) for i in (1, 2))
+    log(f"[encdec {cfg.name}] float32, make_prefill + make_generate and the "
+        f"chunked twin (B={B}, {S_src} frames, {P}-token prefixes, 12 "
+        f"tokens): card logits max abs err {err:.3e} against the CPU (tol "
+        f"1e-4); tokens " + ("equal" if equal else "DIFFER"))
+    if err > 1e-4 or not equal:
+        raise AssertionError(f"reduced {cfg.name} float32: the card is not "
+                             "the CPU")
+
+
+def phase_vlm_encdec(torch, rows):
+    """Phase 14, the VLM and encoder-decoder families at full width and
+    depth: (a) qwen2-vl-2b served, (b) its vision frontend prefilled and
+    generated from, and trained, (c) seamless-m4t-large-v2 trained, (d)
+    served at model level, (e) the reduced float32 configs on the card
+    against the CPU.  Adds the paths' launches to the kernel rows and
+    prints the phase's seconds."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    t0 = time.perf_counter()
+    free_card(torch)
+    served = phase_vlm_serve(torch)
+    rows[0]["vlm_launches"] = served["ring"]
+    rows[1]["vlm_prefill_launches"] = phase_vlm_vision(torch,
+                                                       served["params"])
+    del served
+    free_card(torch)
+    n_vlm = REGISTRY[VLM_ARCH].n_layers
+    trained = phase_train(
+        torch, VLM_ARCH, VLM_B, "none",
+        {"flash_attention_fwd": (fa_ops.flash_attention, n_vlm),
+         "flash_attention_bwd": (fa_ops.flash_attention_bwd, n_vlm)},
+        {"wq[0]": lambda p: p["layers"]["attn"]["wq"][0],
+         "embed[:4096]": lambda p: p["embed"][:4096]}, S=VLM_S)
+    rows[1]["vlm_launches"] = trained["flash_attention_fwd"]
+    rows[2]["vlm_launches"] = trained["flash_attention_bwd"]
+    trained = phase_encdec_train(torch)
+    rows[1]["encdec_launches"] = trained["flash_attention_fwd"]
+    rows[2]["encdec_launches"] = trained["flash_attention_bwd"]
+    free_card(torch)
+    enc = phase_encdec_serve(torch)
+    rows[0]["encdec_launches"] = enc["ring"]
+    rows[1]["encdec_prefill_launches"] = enc["prefill_flash"]
+    rows[1]["encdec_chunk_launches"] = enc["chunk_flash"]
+    free_card(torch)
+    phase_engine_reference(torch, VLM_ARCH, [
+        ("CPU", "cpu", "blocked", None),
+        ("kernel", "cuda", "blocked", None),
+        ("plain attention", "cuda", "dense", None)] + CARD_VARIANTS["vlm"])
+    phase_trainer(torch, VLM_ARCH, fa_ops.flash_attention)
+    phase_trainer(torch, ENCDEC_ARCH, fa_ops.flash_attention)
+    phase_encdec_reference(torch)
+    log(f"[vlm/encdec] phase 14: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3070,6 +3638,7 @@ def main() -> int:
             ("CPU", "cpu", "blocked", None),
             ("card", "cuda", "blocked", None)] + CARD_VARIANTS["hybrid"])
         phase_moe(torch, rows)              # phase 13
+        phase_vlm_encdec(torch, rows)       # phase 14
     ring_device_times(torch, rows[0])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

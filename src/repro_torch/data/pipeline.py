@@ -132,9 +132,30 @@ def make_batch(cfg: ModelConfig, block: np.ndarray, *, pad_id: int = 0
     tokens = block[:, :-1]
     targets = block[:, 1:].astype(np.int32)
     mask = np.ones((B, S), np.float32)
-    if cfg.family in ("vlm", "encdec"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} batch "
-                                  "(vision or frame embeddings) is not "
-                                  "ported yet (ROADMAP A8)")
+    if cfg.family == "vlm":
+        # the stub frontend's patch embeddings fill the first vision_frac
+        # of the sequence; text-only M-RoPE ids (all three components
+        # equal)
+        sv = int(S * cfg.vision_frac)
+        rng = np.random.default_rng(int(block[0, 0]) + 17)
+        return {
+            "tokens": tokens[:, :S - sv].astype(np.int32),
+            "vision_embeds": (rng.standard_normal((B, sv, cfg.d_model))
+                              * 0.02).astype(np.float32),
+            "position_ids": np.broadcast_to(np.arange(S, dtype=np.int32),
+                                            (3, B, S)).copy(),
+            "targets": targets, "mask": mask,
+        }
+    if cfg.family == "encdec":
+        # S // 2 source frames from the stub frontend, S // 2 target
+        # tokens
+        st = S // 2
+        rng = np.random.default_rng(int(block[0, 0]) + 29)
+        return {
+            "frame_embeds": (rng.standard_normal((B, st, cfg.d_model))
+                             * 0.02).astype(np.float32),
+            "tokens": tokens[:, :st].astype(np.int32),
+            "targets": targets[:, :st], "mask": mask[:, :st],
+        }
     return {"tokens": tokens.astype(np.int32), "targets": targets,
             "mask": mask}

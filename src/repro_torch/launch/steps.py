@@ -21,8 +21,9 @@ def _grad_tree(cfg: ModelConfig, params):
     """(tree to differentiate, gradient buffers).  Every leaf becomes a
     detached leaf view of its storage whose ``.grad`` is preset to a zero
     buffer, so backward accumulates straight into the buffer; the stacked
-    layer (or hybrid group) leaves become a list of per-layer dicts of
-    views whose grads are the matching slices of one stacked buffer.
+    layer (or hybrid group, or encoder and decoder layer) leaves become a
+    list of per-layer dicts of views whose grads are the matching slices
+    of one stacked buffer.
     (Slicing a stacked leaf that requires grad would instead make every
     layer's backward write a full-size zero tensor.)"""
 
@@ -68,18 +69,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     as 0-d tensors on the device.
 
     ``microbatches > 1`` splits the batch (microbatch j takes rows j,
-    j + m, ..., as the JAX reshape does) and accumulates the gradients in
-    float32; the optimizer sees their mean.  ``grad_transform`` hooks in a
-    stateless gradient transform."""
+    j + m, ..., as the JAX reshape does: ``_microbatch``) and accumulates
+    the gradients in float32; the optimizer sees their mean.
+    ``grad_transform`` hooks in a stateless gradient transform."""
     if opt_impl == "adamw8bit":
         raise NotImplementedError("the 8-bit AdamW (optim/quantized.py) is "
-                                  "not ported yet (ROADMAP A9)")
+                                  "not ported yet (ROADMAP A item 10)")
     if opt_impl != "adamw":
         raise ValueError(f"unknown opt_impl {opt_impl!r}")
     if ef_transform is not None:
         raise NotImplementedError("error-feedback gradient compression "
                                   "(compression/) is not ported yet "
-                                  "(ROADMAP A9)")
+                                  "(ROADMAP A item 10)")
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
@@ -90,8 +91,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                 p.shape, dtype=torch.float32, device=p.device), params)
             loss = ce = aux = 0.0
             for j in range(m):
-                l, p, g = value_and_grad(
-                    cfg, params, {k: v[j::m] for k, v in batch.items()})
+                l, p, g = value_and_grad(cfg, params,
+                                         _microbatch(batch, j, m))
                 _tree_zip(lambda a, b: a.add_(b), grads, g)
                 loss, ce, aux = loss + l, ce + p["ce"], aux + p["aux"]
                 del g
@@ -106,6 +107,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _microbatch(batch, j: int, m: int):
+    """Microbatch ``j`` of ``m``: rows j, j + m, ... of every batch tensor
+    (the batch axis of M-RoPE's ``position_ids`` (3, B, S) is its
+    second)."""
+    return {k: v[:, j::m] if k == "position_ids" else v[j::m]
+            for k, v in batch.items()}
 
 
 def _tree_zip(fn, a, b):
@@ -130,24 +139,23 @@ def make_eval_step(cfg: ModelConfig):
 def make_prefill(cfg: ModelConfig, max_len: int):
     """(params, batch) -> (last-token logits (B, V), cache): whole-prompt
     prefill of ``batch["tokens"]`` (B, S) into a decode cache of capacity
-    ``max_len``."""
+    ``max_len``; every other key of ``batch`` goes to ``decode.prefill``
+    as its extras (a VLM's ``vision_embeds`` and ``position_ids``, an
+    encoder-decoder model's ``frame_embeds``)."""
 
     def serve_prefill(params, batch):
-        extra = sorted(k for k in batch if k != "tokens")
-        if extra:
-            raise NotImplementedError(
-                f"prefill extras {extra} (VLM and encoder-decoder inputs) "
-                "are not ported yet (ROADMAP A items 8 and 9)")
-        return dec.prefill(params, cfg, batch["tokens"], max_len=max_len)
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
+        return dec.prefill(params, cfg, batch["tokens"], extras,
+                           max_len=max_len)
 
     return serve_prefill
 
 
 def make_serve_step(cfg: ModelConfig):
-    """(params, cache, tokens, pos) -> (logits, cache')."""
+    """(params, cache, tokens, pos[, extras]) -> (logits, cache')."""
 
-    def serve_step(params, cache, tokens, pos):
-        return dec.decode_step(params, cfg, cache, tokens, pos)
+    def serve_step(params, cache, tokens, pos, extras=None):
+        return dec.decode_step(params, cfg, cache, tokens, pos, extras)
 
     return serve_step
 
@@ -161,47 +169,47 @@ def _check_chunk_mode(mode: str, chunk_kernel: str):
 
 def make_serve_chunk_step(cfg: ModelConfig, spec, mode: str = "scan",
                           chunk_kernel: str = "dense"):
-    """(params, cache, tokens (B, C), pos, n_tokens) -> (last-active-token
-    logits, cache').  The continuous-batching mixed step: prefill chunks
-    and decode streams share one batched call with per-stream lengths.
-    ``mode="scan"`` (the default, as in the JAX package) is the per-token
-    reference, C single-token steps (``chunk_decode_step``);
-    ``mode="parallel"`` one fused multi-token forward per tick, whose
-    attention ``chunk_kernel`` picks: "blocked" (the CUDA kernel on the
-    card) or "dense" (the plain masked softmax).  The scan path ignores
-    ``chunk_kernel``."""
+    """(params, cache, tokens (B, C), pos, n_tokens[, extras]) ->
+    (last-active-token logits, cache').  The continuous-batching mixed
+    step: prefill chunks and decode streams share one batched call with
+    per-stream lengths.  ``mode="scan"`` (the default, as in the JAX
+    package) is the per-token reference, C single-token steps
+    (``chunk_decode_step``); ``mode="parallel"`` one fused multi-token
+    forward per tick, whose attention ``chunk_kernel`` picks: "blocked"
+    (the CUDA kernel on the card) or "dense" (the plain masked softmax).
+    The scan path ignores ``chunk_kernel``."""
     _check_chunk_mode(mode, chunk_kernel)
 
-    def serve_chunk_step(params, cache, tokens, pos, n_tokens):
+    def serve_chunk_step(params, cache, tokens, pos, n_tokens, extras=None):
         if mode == "parallel":
             return dec.prefill_chunk_step(params, cfg, spec, cache, tokens,
-                                          pos, n_tokens,
+                                          pos, n_tokens, extras,
                                           chunk_kernel=chunk_kernel)
         return dec.chunk_decode_step(params, cfg, spec, cache, tokens, pos,
-                                     n_tokens)
+                                     n_tokens, extras)
 
     return serve_chunk_step
 
 
 def make_spec_verify_step(cfg: ModelConfig, spec, mode: str = "scan",
                           chunk_kernel: str = "dense"):
-    """(params, cache, tokens (B, C), pos, n_tokens) -> (per-position
-    logits (B, C, V), cache').  The speculative-decode VERIFY step: the
-    masked chunk step of ``make_serve_chunk_step`` (same ``mode`` and
-    ``chunk_kernel``) returning the logits after EVERY fed token, so
-    greedy acceptance can compare each draft token with the argmax one
-    position earlier.  Positions at or past ``n_tokens`` come back
-    NEG_INF."""
+    """(params, cache, tokens (B, C), pos, n_tokens[, extras]) ->
+    (per-position logits (B, C, V), cache').  The speculative-decode
+    VERIFY step: the masked chunk step of ``make_serve_chunk_step`` (same
+    ``mode`` and ``chunk_kernel``) returning the logits after EVERY fed
+    token, so greedy acceptance can compare each draft token with the
+    argmax one position earlier.  Positions at or past ``n_tokens`` come
+    back NEG_INF."""
     _check_chunk_mode(mode, chunk_kernel)
 
-    def spec_verify_step(params, cache, tokens, pos, n_tokens):
+    def spec_verify_step(params, cache, tokens, pos, n_tokens, extras=None):
         if mode == "parallel":
             return dec.prefill_chunk_step(params, cfg, spec, cache, tokens,
-                                          pos, n_tokens,
+                                          pos, n_tokens, extras,
                                           chunk_kernel=chunk_kernel,
                                           all_logits=True)
         return dec.chunk_decode_step(params, cfg, spec, cache, tokens, pos,
-                                     n_tokens, all_logits=True)
+                                     n_tokens, extras, all_logits=True)
 
     return spec_verify_step
 

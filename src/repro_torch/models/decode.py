@@ -1,7 +1,7 @@
-"""Serving path of the dense, MoE, SSM and hybrid families: cache layout,
-the paged block pool's storage ops, the single-token decode step, the
-fused multi-token chunk step, its per-token scan reference
-(``chunk_decode_step``) and whole-prompt ``prefill``.
+"""Serving path of every family: cache layout, the paged block pool's
+storage ops, the single-token decode step, the fused multi-token chunk
+step, its per-token scan reference (``chunk_decode_step``), whole-prompt
+``prefill`` and the encoder-decoder's ``encdec_prefill``.
 
 Caches are nested dicts of tensors shaped like the JAX package's cache
 pytrees.  The dense and MoE families keep ring buffers of width W =
@@ -15,11 +15,15 @@ local_window)) and the RG-LRU state of its recurrent layers (``h``
 float32, ``conv`` in the compute type): ``{"groups": {"b0_rec": {"conv":
 (G, B, K-1, W), "h": (G, B, W)}, ..., "b2_attn": {"k", "v": (G, B, W,
 Hkv, dh)}}, "tail": {"t0_rec": {"conv": (B, K-1, W), "h": (B, W)},
-...}}``.  The layer stack is a Python loop over the stacked layer (or
-group) weights.  An MoE layer's experts run dropless in every serving
-step (capacity = the step's tokens, as the JAX steps call them); whole-
-prompt ``prefill`` goes through ``forward`` and so keeps the configured
-capacity, as in the JAX package.
+...}}``.  A VLM keeps the dense layout.  The encoder-decoder family keeps
+its decoder's self-attention rings (width max_len) and, per stream, the
+cross-attention keys and values of its encoded source: ``{"cross_k",
+"cross_v": (L_dec, B, S_src, H, dh), "self": {"k", "v": (L_dec, B, W, H,
+dh)}}``; the steps read the cross leaves and never write them.  The layer
+stack is a Python loop over the stacked layer (or group) weights.  An MoE
+layer's experts run dropless in every serving step (capacity = the step's
+tokens, as the JAX steps call them); whole-prompt ``prefill`` goes through
+``forward`` and so keeps the configured capacity, as in the JAX package.
 
 Where the JAX package updates arrays functionally (``.at[].set``) under
 buffer donation, the port writes in place and says so: the pool storage
@@ -37,10 +41,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.params import PORTED_FAMILIES, hybrid_structure
+from repro_torch.models.params import hybrid_structure
 from repro_torch.models.transformer import (
-    _attn_out, _attn_proj, _ffn, _window, cdt, embed_tokens, forward,
-    head_logits, layer_params, rope_for, tail_layers)
+    _attn_out, _attn_proj, _cross_proj, _ffn, _window, attn_block, cdt,
+    decoder_forward, embed_tokens, encode, forward, head_logits,
+    layer_params, rope_for, tail_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -99,8 +104,8 @@ def _hybrid_spec(cfg: ModelConfig, max_len: int) -> CacheViewSpec:
                         lead + tuple(state[k].shape), state[k].dtype)
                        for k in sorted(state)]
         else:
-            raise NotImplementedError(f"{t!r} layers in a hybrid model are "
-                                      "not ported (ROADMAP A8)")
+            raise ValueError(f"{t!r} layers in a hybrid model: its "
+                             "pattern holds attn and rec layers")
         for k, leaf, shape, dtype in entries:
             leaves.append(leaf)
             paths.append((top, name, k))
@@ -112,17 +117,37 @@ def _hybrid_spec(cfg: ModelConfig, max_len: int) -> CacheViewSpec:
                          width=W if has_ring else 0)
 
 
-def cache_view_specs(cfg: ModelConfig, max_len: int) -> CacheViewSpec:
+def _encdec_spec(cfg: ModelConfig, max_len: int,
+                 src_len: int) -> CacheViewSpec:
+    """The encoder-decoder cache's leaves in the JAX leaf order (sorted
+    keys): ``cross_k``, ``cross_v`` (state leaves: no token axis), then
+    the self-attention rings ``self.k``, ``self.v`` (token axis 2)."""
+    L_, H, dh = cfg.dec_layers, cfg.n_kv_heads, cfg.head_dim
+    cross = CacheLeafSpec(batch_axis=1, token_axis=None, width=0)
+    ring = CacheLeafSpec(batch_axis=1, token_axis=2, width=max_len)
+    return CacheViewSpec(
+        leaves=(cross, cross, ring, ring),
+        paths=(("cross_k",), ("cross_v",), ("self", "k"), ("self", "v")),
+        shapes=((L_, 1, src_len, H, dh),) * 2
+        + ((L_, 1, max_len, H, dh),) * 2,
+        dtypes=(cdt(cfg),) * 4, width=max_len)
+
+
+def cache_view_specs(cfg: ModelConfig, max_len: int,
+                     src_len: int = 0) -> CacheViewSpec:
     """The serving cache's layout, declared per family (the JAX package
-    finds the same layout by probing ``init_cache`` shapes).  Dense and
-    MoE: per layer a K and a V ring, stream axis 1, token axis 2.  SSM:
-    per layer the three conv tails and the SSD state, stream axis 1, no
-    token axis (width 0), in the JAX leaf order (sorted keys).  Hybrid:
-    see ``_hybrid_spec``."""
+    finds the same layout by probing ``init_cache`` shapes).  Dense, MoE
+    and VLM: per layer a K and a V ring, stream axis 1, token axis 2.
+    SSM: per layer the three conv tails and the SSD state, stream axis 1,
+    no token axis (width 0), in the JAX leaf order (sorted keys).  Hybrid:
+    see ``_hybrid_spec``; encoder-decoder (``src_len`` source frames):
+    ``_encdec_spec``."""
     L_ = cfg.n_layers
+    if cfg.family == "encdec":
+        return _encdec_spec(cfg, max_len, src_len)
     if cfg.block_pattern:
         return _hybrid_spec(cfg, max_len)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         W = _attn_cache_width(cfg, max_len)
         leaf = CacheLeafSpec(batch_axis=1, token_axis=2, width=W)
         shape = (L_, 1, W, cfg.n_kv_heads, cfg.head_dim)
@@ -139,8 +164,7 @@ def cache_view_specs(cfg: ModelConfig, max_len: int) -> CacheViewSpec:
             paths=tuple(("layers", k) for k in names),
             shapes=tuple((L_,) + tuple(one[k].shape) for k in names),
             dtypes=tuple(one[k].dtype for k in names), width=0)
-    raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} cache "
-                              "layout is not ported yet (ROADMAP A8)")
+    raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 def _get(tree, path):
@@ -163,10 +187,11 @@ def tree_from_leaves(spec: CacheViewSpec, leaves) -> Dict:
     return out
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int = 0,
                device="cuda") -> Dict:
-    """Zero cache for ``batch`` streams with context capacity ``max_len``."""
-    spec = cache_view_specs(cfg, max_len)
+    """Zero cache for ``batch`` streams with context capacity ``max_len``
+    (and, encoder-decoder, ``src_len`` source frames)."""
+    spec = cache_view_specs(cfg, max_len, src_len)
     leaves = []
     for s, shape, dtype in zip(spec.leaves, spec.shapes, spec.dtypes):
         shape = list(shape)
@@ -391,16 +416,12 @@ def next_token_ids(logits, n_tokens):
 # Steps
 # ---------------------------------------------------------------------------
 
-def _check_family(cfg: ModelConfig):
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: {cfg.family!r} steps are "
-                                  "not ported yet (ROADMAP A8)")
-
-
 def _layer_stack(params, cfg: ModelConfig, cache, x, step):
     """One serving step's layer stack: ``step(x, layer params, layer
     cache, layer type) -> (x, new layer cache)`` per layer in order — the
-    layers, or a hybrid model's groups then tail — each layer's new cache
+    layers, a hybrid model's groups then tail, or an encoder-decoder
+    model's decoder layers (type ``"dec"``; the layer cache is its ring
+    ``k``, ``v`` and its cross ``ck``, ``cv``) — each layer's new cache
     written back into ``cache`` in place.  Counts one walk in
     ``_layer_stack.walks``."""
 
@@ -412,6 +433,12 @@ def _layer_stack(params, cfg: ModelConfig, cache, x, step):
 
     _layer_stack.walks += 1
 
+    if cfg.family == "encdec":
+        for l in range(cfg.dec_layers):
+            lc = {"k": cache["self"]["k"][l], "v": cache["self"]["v"][l],
+                  "ck": cache["cross_k"][l], "cv": cache["cross_v"][l]}
+            x = run(x, layer_params(params["dec_layers"], l), lc, "dec")
+        return x
     if cfg.block_pattern:
         pattern, n_groups, _ = hybrid_structure(cfg)
         for g in range(n_groups):
@@ -459,12 +486,21 @@ def _slot_index(leaf, s: CacheLeafSpec, pos):
     return slot.expand(shape)
 
 
-def _save_rows(leaves, spec: CacheViewSpec, pos):
+def _step_leaves(cache, spec: CacheViewSpec):
+    """The cache leaves a serving step writes, with their specs: all but
+    an encoder-decoder model's cross-attention keys and values."""
+    pairs = [(leaf, s) for leaf, s, p in zip(tree_leaves(cache, spec),
+                                             spec.leaves, spec.paths)
+             if p[0] not in ("cross_k", "cross_v")]
+    return [leaf for leaf, _ in pairs], [s for _, s in pairs]
+
+
+def _save_rows(leaves, specs, pos):
     """What one single-token step can write for each stream: the ring
     slot at ``pos % W`` of every token leaf, the whole of every state
     leaf."""
     out = []
-    for leaf, s in zip(leaves, spec.leaves):
+    for leaf, s in zip(leaves, specs):
         if s.token_axis is None:
             out.append(leaf.clone())
         else:
@@ -473,13 +509,13 @@ def _save_rows(leaves, spec: CacheViewSpec, pos):
     return out
 
 
-def _restore_rows(leaves, spec: CacheViewSpec, saved, pos, active):
+def _restore_rows(leaves, specs, saved, pos, active):
     """Put back ``saved`` (``_save_rows`` at the same ``pos``) for the
     streams where ``active`` (B,) is False, in place — the port's
     counterpart of the JAX package's ``select_streams``, touching only
     what the step wrote.  No boolean indexing and no host sync, so a CUDA
     graph can hold it."""
-    for leaf, s, old in zip(leaves, spec.leaves, saved):
+    for leaf, s, old in zip(leaves, specs, saved):
         keep = active.reshape(_row_shape(leaf, s))
         if s.token_axis is None:
             leaf.copy_(torch.where(keep, leaf, old))
@@ -490,7 +526,7 @@ def _restore_rows(leaves, spec: CacheViewSpec, saved, pos, active):
 
 
 def chunk_decode_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
-                      tokens, pos, n_tokens, all_logits=False):
+                      tokens, pos, n_tokens, extras=None, all_logits=False):
     """One continuous-batching tick as C single-token steps: the
     per-token reference of ``prefill_chunk_step`` (``prefill_mode=
     "scan"``), bit-identical to feeding each stream its tokens one a tick.
@@ -503,18 +539,19 @@ def chunk_decode_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
     ``cache`` in place; returns (logits (B, V) after each stream's last
     active token, NEG_INF for idle streams, cache), or with ``all_logits``
     the logits after every fed token (B, C, V), NEG_INF at and past
-    ``n_tokens``.  Counts C layer-stack walks."""
-    _check_family(cfg)
+    ``n_tokens``.  ``extras`` goes to every ``decode_step``, as in the
+    JAX package.  Counts C layer-stack walks."""
     B, C = tokens.shape
-    leaves = tree_leaves(cache, spec)
+    leaves, specs = _step_leaves(cache, spec)
     n = n_tokens.long()
     pos_c = pos
     logits, per = None, []
     for t in range(C):
         active = t < n
-        saved = _save_rows(leaves, spec, pos_c)
-        lg, _ = decode_step(params, cfg, cache, tokens[:, t:t + 1], pos_c)
-        _restore_rows(leaves, spec, saved, pos_c, active)
+        saved = _save_rows(leaves, specs, pos_c)
+        lg, _ = decode_step(params, cfg, cache, tokens[:, t:t + 1], pos_c,
+                            extras)
+        _restore_rows(leaves, specs, saved, pos_c, active)
         if logits is None:
             logits = torch.full_like(lg, L.NEG_INF)
         logits = torch.where(active[:, None], lg, logits)
@@ -528,11 +565,43 @@ def chunk_decode_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
     return logits, cache
 
 
-def _ffn_out(h, lp, cfg: ModelConfig):
+def _ffn_out(h, lp, cfg: ModelConfig, ln="ln2"):
     """The residual feed-forward of a serving step: MoE layers dropless."""
-    f, _ = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg,
+    f, _ = _ffn(L.rms_norm(h, lp[ln], cfg.norm_eps), lp, cfg,
                 dropless=True)
     return h + f
+
+
+def _step_rope(cfg: ModelConfig, q_pos, extras):
+    """RoPE tables of a serving step's queries at positions ``q_pos`` (B,
+    C): M-RoPE reads ``extras["position_ids"]`` (3, B, C) when given and
+    otherwise broadcasts ``q_pos`` to all three components (where M-RoPE
+    is RoPE), as the JAX steps do."""
+    if cfg.rope_type == "mrope":
+        pid = (extras or {}).get("position_ids")
+        if pid is None:
+            pid = q_pos[None].expand(3, *q_pos.shape)
+        return rope_for(cfg, q_pos, {"position_ids": pid})
+    return rope_for(cfg, q_pos)
+
+
+def _cross_attention(h, lp, lc, cfg: ModelConfig, decode: bool):
+    """A decoder layer's residual cross-attention over its static encoder
+    keys and values ``lc["ck"]``, ``lc["cv"]`` (B, S_src, H, dh): a
+    single-token step's by ``decode_attention`` with every source frame
+    visible (``q_pos`` 2**30), as in the JAX package; a chunk's by the
+    flash kernel, non-causal, Sq = C."""
+    xin = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
+    if not decode:
+        c, _ = attn_block(xin, lp["cross"], cfg, None, causal=False,
+                          kv=(lc["ck"], lc["cv"]))
+        return h + c
+    B, S_src = h.shape[0], lc["ck"].shape[1]
+    cq = _cross_proj(xin, lp["cross"]["wq"])
+    src_pos = torch.arange(S_src, device=h.device)[None].expand(B, S_src)
+    co = L.decode_attention(cq, lc["ck"], lc["cv"], src_pos,
+                            torch.full((B,), 2 ** 30, device=h.device))
+    return h + _attn_out(co, lp["cross"], h.dtype)
 
 
 def _decode_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos):
@@ -551,16 +620,19 @@ def _decode_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos):
     kv_pos = L.cache_positions(pos, kc.shape[1])
     o = L.decode_attention(q, kc, vc, kv_pos, pos, window=_window(cfg, t))
     h = x + _attn_out(o, lp["attn"], x.dtype)
+    if t == "dec":
+        h = _cross_attention(h, lp, lc, cfg, decode=True)
+        return _ffn_out(h, lp, cfg, "ln3"), {"k": kc, "v": vc}
     return _ffn_out(h, lp, cfg), {"k": kc, "v": vc}
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, pos):
-    """One token for every stream.  tokens: (B, 1); pos: (B,) absolute.
-    Writes each layer's ring or state in ``cache`` in place and returns
-    (logits (B, V) f32, cache)."""
-    _check_family(cfg)
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos, extras=None):
+    """One token for every stream.  tokens: (B, 1); pos: (B,) absolute;
+    ``extras``: a VLM's ``position_ids`` (3, B, 1), else M-RoPE takes
+    ``pos``.  Writes each layer's ring or state in ``cache`` in place and
+    returns (logits (B, V) f32, cache)."""
     x = embed_tokens(params, cfg, tokens)
-    rope = rope_for(cfg, pos[:, None])
+    rope = _step_rope(cfg, pos[:, None], extras)
     x = _layer_stack(params, cfg, cache, x,
                      lambda x, lp, lc, t: _decode_layer(x, lp, lc, cfg, t,
                                                         rope, pos))
@@ -587,12 +659,15 @@ def _chunk_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos, n_tokens,
                           window=_window(cfg, t), kernel=chunk_kernel)
     kc, vc = L.cache_update_chunk(lc["k"], lc["v"], k, v, pos, n_tokens)
     h = x + _attn_out(o, lp["attn"], x.dtype)
+    if t == "dec":
+        h = _cross_attention(h, lp, lc, cfg, decode=False)
+        return _ffn_out(h, lp, cfg, "ln3"), {"k": kc, "v": vc}
     return _ffn_out(h, lp, cfg), {"k": kc, "v": vc}
 
 
 def prefill_chunk_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
-                       tokens, pos, n_tokens, chunk_kernel="dense",
-                       all_logits=False):
+                       tokens, pos, n_tokens, extras=None,
+                       chunk_kernel="dense", all_logits=False):
     """One continuous-batching tick as ONE fused multi-token forward.
 
     tokens: (B, C); pos: (B,) absolute position of tokens[:, 0]; n_tokens:
@@ -606,12 +681,13 @@ def prefill_chunk_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
     past ``n_tokens`` set to NEG_INF.  SSM and RG-LRU layers run their
     chunk scans from the carried state (``ssd.ssd_chunk_step``,
     ``rglru.rglru_chunk_step``); an inactive token leaves the state as it
-    was."""
-    _check_family(cfg)
+    was.  An encoder-decoder layer's chunk then attends over its encoded
+    source (``_cross_attention``).  ``extras``: a VLM's ``position_ids``
+    (3, B, C), else M-RoPE takes the chunk's positions."""
     B, C = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     q_pos = pos[:, None] + torch.arange(C, device=pos.device)[None, :]
-    rope = rope_for(cfg, q_pos)
+    rope = _step_rope(cfg, q_pos, extras)
     x = _layer_stack(params, cfg, cache, x,
                      lambda x, lp, lc, t: _chunk_layer(
                          x, lp, lc, cfg, t, rope, pos, n_tokens,
@@ -658,20 +734,45 @@ def _state_to_cache(cfg: ModelConfig, st, lt: str, max_len: int):
             for k, v in st.items()}
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, max_len: int):
+def prefill(params, cfg: ModelConfig, tokens, extras=None, *, max_len: int):
     """Process whole prompts: (logits (B, V) after the last token, the
     decode cache shaped like ``init_cache(cfg, B, max_len)``).  tokens:
-    (B, S).  The forward runs every layer over the whole sequence — flash
-    attention, the SSD scan and the RG-LRU scan through their kernels on
-    the card — and ring-arranges each layer's keys and values as the
-    layer finishes, so a windowed cache never holds (L, B, S, ...)."""
+    (B, S); ``extras`` the forward's (a VLM's ``vision_embeds`` and
+    ``position_ids``), or an encoder-decoder model's ``frame_embeds``
+    (``encdec_prefill``).  The forward runs every layer over the whole
+    sequence — flash attention, the SSD scan and the RG-LRU scan through
+    their kernels on the card — and ring-arranges each layer's keys and
+    values as the layer finishes, so a windowed cache never holds (L, B,
+    S, ...)."""
+    extras = extras or {}
     if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: encdec_prefill is not ported "
-                                  "yet (ROADMAP A item 9)")
-    _check_family(cfg)
-    x, states, _ = forward(params, cfg, tokens, return_states=True,
+        return encdec_prefill(params, cfg, extras["frame_embeds"], tokens,
+                              max_len=max_len)
+    x, states, _ = forward(params, cfg, tokens, extras, return_states=True,
                            state_fn=lambda st, t: _state_to_cache(
                                cfg, st, t, max_len))
     with torch.no_grad():
         logits = head_logits(params, cfg, x[:, -1])
     return logits, states
+
+
+def encdec_prefill(params, cfg: ModelConfig, frame_embeds, tokens, *,
+                   max_len: int):
+    """Encode the source ``frame_embeds`` (B, S_src, D), run the decoder
+    over the target prefix ``tokens`` (B, S), and build the decode cache
+    (``init_cache(cfg, B, max_len, S_src)``'s layout): each layer's
+    cross-attention keys and values, and its self-attention keys and
+    values ring-arranged to ``max_len`` as the layer finishes.  Returns
+    (logits (B, V) after the last token, cache)."""
+    def state_fn(st):
+        return {"k": _ring_arrange(st["k"], max_len),
+                "v": _ring_arrange(st["v"], max_len),
+                "ck": st["ck"], "cv": st["cv"]}
+
+    with torch.no_grad():
+        enc_out = encode(params, cfg, frame_embeds)
+        x, states = decoder_forward(params, cfg, tokens, enc_out,
+                                    return_states=True, state_fn=state_fn)
+        logits = head_logits(params, cfg, x[:, -1])
+    return logits, {"cross_k": states["ck"], "cross_v": states["cv"],
+                    "self": {"k": states["k"], "v": states["v"]}}

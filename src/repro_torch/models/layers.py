@@ -1,5 +1,5 @@
-"""Shared layers of the serving path: norms, RoPE, MLPs, decode and chunk
-attention, and the ring-buffer KV cache helpers.
+"""Shared layers of the serving path: norms, RoPE and M-RoPE, MLPs,
+decode and chunk attention, and the ring-buffer KV cache helpers.
 
 Layouts follow the JAX package at every public function — attention
 tensors are (B, S, H, dh), ring caches (B, W, Hkv, dh) — so the tests
@@ -123,6 +123,27 @@ def rope_tables(positions, head_dim: int, theta: float):
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                    device=positions.device) / half)
     ang = positions.float()[..., None] * freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_tables(position_ids, head_dim: int, theta: float, sections):
+    """M-RoPE (Qwen2-VL): position_ids (3, ..., S) int, the temporal,
+    height and width components; ``sections`` sum to head_dim // 2 ->
+    cos/sin tables (..., S, head_dim // 2), float32.  Component c gives
+    its angle to ``sections[c]`` frequency slots, in order; with three
+    equal components this is ``rope_tables``.  No host data reaches the
+    device, so a CUDA graph can hold it."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim // 2 = {half}")
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=position_ids.device) / half)
+    parts, lo = [], 0
+    for c, n in enumerate(sections):
+        parts.append(position_ids[c].float()[..., None] * freq[lo:lo + n])
+        lo += n
+    ang = torch.cat(parts, dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 

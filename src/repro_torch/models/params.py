@@ -1,5 +1,5 @@
-"""Parameter definitions and initialisers for the dense, MoE, SSM and
-hybrid families.
+"""Parameter definitions and initialisers for every model family: dense,
+MoE, SSM, hybrid, VLM and encoder-decoder.
 
 ``model_def`` yields the same tree paths and shapes as the JAX package's
 ``models/params.py``: a nested dict whose layer leaves are stacked on a
@@ -7,13 +7,15 @@ leading layer axis.  Parameters are plain dicts of tensors, so a tree of
 JAX arrays converts leaf by leaf (``from_reference``) and the tests can
 drive both packages with the same weights.
 
-The dense, MoE, SSM and hybrid families are ported; the other families
-raise ``NotImplementedError`` until their slice lands (ROADMAP A8).  An
-MoE model's attention layers hold ``moe`` (router and stacked experts) in
-place of ``mlp``.  A hybrid model (``cfg.block_pattern``) stacks its
+An MoE model's attention layers hold ``moe`` (router and stacked experts)
+in place of ``mlp``.  A hybrid model (``cfg.block_pattern``) stacks its
 repeating groups under ``groups`` (``b{i}_{type}``, stacked over the
 groups) and keeps the remainder layers under ``tail`` (``t{i}_{type}``,
-unstacked), as the JAX tree does.
+unstacked), as the JAX tree does.  A VLM is the dense tree (qwen2-vl-2b
+ties its embeddings).  An encoder-decoder model stacks its encoder layers
+under ``enc_layers`` (self-attention and MLP) and its decoder layers under
+``dec_layers`` (self-attention, ``cross`` attention over the encoder's
+output, MLP), with ``enc_norm`` after the encoder.
 """
 from __future__ import annotations
 
@@ -41,16 +43,6 @@ class ParamDef:
 
     def stacked(self, n: int) -> "ParamDef":
         return ParamDef((n,) + self.shape, self.init)
-
-
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _check_family(cfg: ModelConfig):
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(ROADMAP A8)")
 
 
 def _attn_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
@@ -119,8 +111,14 @@ def layer_def(cfg: ModelConfig, layer_type: str) -> Dict:
                 "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
     if layer_type == "ssd":
         return {"ln": ParamDef((D,), "ones"), "ssd": _ssd_def(cfg)}
-    raise NotImplementedError(f"{layer_type!r} layers are not ported yet "
-                              "(ROADMAP A8)")
+    if layer_type == "enc":
+        return {"ln1": ParamDef((D,), "ones"), "attn": _attn_def(cfg),
+                "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
+    if layer_type == "dec":
+        return {"ln1": ParamDef((D,), "ones"), "attn": _attn_def(cfg),
+                "ln2": ParamDef((D,), "ones"), "cross": _attn_def(cfg),
+                "ln3": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
+    raise ValueError(layer_type)
 
 
 def hybrid_structure(cfg: ModelConfig):
@@ -133,12 +131,18 @@ def hybrid_structure(cfg: ModelConfig):
 
 
 def model_def(cfg: ModelConfig) -> Dict:
-    _check_family(cfg)
     D, V, L = cfg.d_model, cfg.vocab_padded, cfg.n_layers
     out: Dict = {"embed": ParamDef((V, D), "normal:0.02"),
                  "final_norm": ParamDef((D,), "ones")}
     if not cfg.tie_embeddings:
         out["head"] = ParamDef((D, V))
+    if cfg.family == "encdec":
+        out["enc_layers"] = tree_map(lambda p: p.stacked(cfg.enc_layers),
+                                     layer_def(cfg, "enc"))
+        out["dec_layers"] = tree_map(lambda p: p.stacked(cfg.dec_layers),
+                                     layer_def(cfg, "dec"))
+        out["enc_norm"] = ParamDef((D,), "ones")
+        return out
     if cfg.block_pattern:
         pattern, n_groups, tail = hybrid_structure(cfg)
         group = {f"b{i}_{t}": layer_def(cfg, t) for i, t in enumerate(pattern)}
@@ -152,7 +156,7 @@ def model_def(cfg: ModelConfig) -> Dict:
 
 
 # top-level trees whose leaves are stacked on a leading layer (or group) axis
-STACKED = ("layers", "groups")
+STACKED = ("layers", "groups", "enc_layers", "dec_layers")
 
 
 def tree_map(fn, tree):
@@ -195,11 +199,12 @@ def _const(init: str) -> Optional[float]:
 def _std(path: Tuple[str, ...], shape: Tuple[int, ...], init: str) -> float:
     """Init scale of one (unstacked) leaf: the fixed std of ``normal:``
     leaves, else 1/sqrt(fan-in) over the dims the projection contracts —
-    the first, (heads, head_dim) for the attention output, the second
-    (after the expert axis) for an expert's ``wi`` and ``wo``."""
+    the first, (heads, head_dim) for the attention outputs (self and
+    cross), the second (after the expert axis) for an expert's ``wi`` and
+    ``wo``."""
     if init.startswith("normal:"):
         return float(init.split(":")[1])
-    if path[-2:] == ("attn", "wo"):
+    if path[-2:] in (("attn", "wo"), ("cross", "wo")):
         fan_in = shape[0] * shape[1]
     elif path[-2:] in (("moe", "wi"), ("moe", "wo")):
         fan_in = shape[1]

@@ -1,11 +1,11 @@
 """Transformer blocks, the full-sequence forward and the chunked loss.
 
 Counterparts of the same-named functions in the JAX package's
-``models/transformer.py``, for the dense decoder, MoE, SSM and hybrid
-families: the helpers the serving steps use (embedding, output head,
-attention projections, the feed-forward block) and the training path
-(``attn_block``, ``apply_layer``, ``forward``, ``chunked_ce_loss``,
-``loss_fn``).
+``models/transformer.py``, for every family: the helpers the serving
+steps use (embedding, output head, attention projections, the
+feed-forward block) and the training path (``attn_block``,
+``apply_layer``, ``forward``, ``encode``, ``decoder_forward``,
+``encdec_forward``, ``chunked_ce_loss``, ``loss_fn``).
 
 What differs from the JAX forward:
 
@@ -14,13 +14,18 @@ What differs from the JAX forward:
   ``rglru_scan.ops.lru``: on the card their CUDA kernels, on the CPU
   their plain versions.  ``cfg.use_pallas`` is not
   read, and ``cfg.attn_block_q/kv`` (TPU tile sizes) are not used: the
-  CUDA kernels choose their own tiles.
+  CUDA kernels choose their own tiles.  That includes the decoder's
+  cross-attention, which the JAX package computes with the plain
+  ``blocked_attention`` whatever ``use_pallas`` says: here it is the
+  flash kernel, non-causal, with the decoder's length for Sq and the
+  source's for Skv.
 * The layer stack is a Python loop over the layer slices of the stacked
   parameters (``lax.scan`` in JAX); a hybrid model loops over its groups
-  (``params["groups"]``), then its tail layers.  ``params["layers"]`` and
-  ``params["groups"]`` may also be lists of per-layer (per-group) dicts —
-  the train step hands them in so each gradient lands in its slice
-  without a copy.
+  (``params["groups"]``), then its tail layers.  ``params["layers"]``,
+  ``params["groups"]``, ``params["enc_layers"]`` and
+  ``params["dec_layers"]`` may also be lists of per-layer (per-group)
+  dicts — the train step hands them in so each gradient lands in its
+  slice without a copy.
 * ``cfg.remat != "none"`` recomputes each layer — for a hybrid model each
   group, as the JAX forward remats ``group_body`` — in the backward pass
   (``torch.utils.checkpoint``, which saves only the input, as JAX's
@@ -28,14 +33,14 @@ What differs from the JAX forward:
 * ``head_pad_to`` and the sharding pins (``_shard_padded_heads``,
   ``_seq_gather``, ``_wsc_tree``) do nothing on one card and are not
   ported.
-* The other families (VLM, encoder-decoder) raise
-  ``NotImplementedError`` (ROADMAP A items 8 and 9).
 * An MoE layer's feed-forward is ``moe.moe_apply`` at the configured
   capacity here (the serving steps call it dropless); each layer's
   ``lb_loss`` is summed into the aux that ``forward`` returns.
 * ``forward(..., return_states=True)`` (the prefill path) runs the layer
   stack without gradients and without recomputation and returns each
-  layer's decode state, stacked as the JAX layer scan stacks it.
+  layer's decode state, stacked as the JAX layer scan stacks it;
+  ``decoder_forward(..., return_states=True)`` does the same for the
+  decoder, with the cross-attention keys and values.
 """
 from __future__ import annotations
 
@@ -50,13 +55,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.params import (PORTED_FAMILIES, hybrid_structure,
-                                       torch_dtype)
+from repro_torch.models.params import hybrid_structure, torch_dtype
 
 LOSS_CHUNK = 1024
-
-# the ROADMAP A item that ports each family not ported yet
-_FAMILY_ITEM = {"vlm": 8, "encdec": 9}
 
 
 def cdt(cfg: ModelConfig) -> torch.dtype:
@@ -94,6 +95,16 @@ def _attn_proj(x, p, rope, *, cfg: ModelConfig):
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
+def _cross_proj(x, w):
+    """x (B, S, D) @ w (D, H, dh) -> (B, S, H, dh) in x's type, from the
+    float32 product (``matmul_f32``; the JAX einsum's
+    ``preferred_element_type``) rounded once: the cross-attention
+    projections."""
+    B, S, D = x.shape
+    return L.matmul_f32(x, w.reshape(D, -1)).to(x.dtype) \
+        .reshape(B, S, w.shape[1], w.shape[2])
+
+
 def _attn_out(o, p, dtype):
     B, S, H, dh = o.shape
     wo = p["wo"]
@@ -110,13 +121,15 @@ def _ffn(x, lp, cfg: ModelConfig, dropless=False):
     return L.mlp_apply(x, lp["mlp"], cfg.activation), {}
 
 
-def rope_for(cfg: ModelConfig, positions):
-    """RoPE tables for absolute ``positions`` (B, S), or None."""
+def rope_for(cfg: ModelConfig, positions, extras=None):
+    """RoPE tables for absolute ``positions`` (B, S), or None; M-RoPE
+    reads ``extras["position_ids"]`` (3, B, S) instead (a ``KeyError``
+    without them, as in the JAX package)."""
     if cfg.rope_type == "none":
         return None
-    if cfg.rope_type != "rope":
-        raise NotImplementedError(f"rope_type {cfg.rope_type!r} is not "
-                                  "ported yet (ROADMAP A8)")
+    if cfg.rope_type == "mrope":
+        return L.mrope_tables(extras["position_ids"], cfg.head_dim,
+                              cfg.rope_theta, cfg.mrope_sections)
     return L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
 
 
@@ -126,12 +139,17 @@ def rope_for(cfg: ModelConfig, positions):
 
 def attn_block(x, p, cfg: ModelConfig, rope, *, causal=True, window=0,
                kv=None):
-    """Self-attention over the whole sequence.  Returns (out (B, S, D),
+    """Self-attention over the whole sequence (``kv`` None), or
+    cross-attention of x's queries over precomputed ``kv`` = (K, V)
+    (B, Skv, Hkv, dh), RoPE on the queries only.  Returns (out (B, S, D),
     (k, v))."""
-    if kv is not None:
-        raise NotImplementedError("cross-attention (encoder-decoder) is not "
-                                  "ported yet (ROADMAP A8)")
-    q, k, v = _attn_proj(x, p, rope, cfg=cfg)
+    if kv is None:
+        q, k, v = _attn_proj(x, p, rope, cfg=cfg)
+    else:
+        q = _cross_proj(x, p["wq"])
+        if rope is not None:
+            q = L.apply_rope(q, *rope)
+        k, v = kv
     o = ops.flash_attention(q, k, v, causal, window)
     return _attn_out(o, p, x.dtype), (k, v)
 
@@ -150,9 +168,8 @@ def apply_layer(x, lp, cfg: ModelConfig, layer_type: str, rope, *,
         h = x + r
         f, aux = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
         return h + f, state, aux
-    if layer_type != "attn":
-        raise NotImplementedError(f"{layer_type!r} blocks are not ported "
-                                  "yet (ROADMAP A8)")
+    if layer_type not in ("attn", "enc"):
+        raise ValueError(layer_type)
     a, (k, v) = attn_block(L.rms_norm(x, lp["ln1"], cfg.norm_eps),
                            lp["attn"], cfg, rope, causal=causal,
                            window=window)
@@ -250,25 +267,40 @@ def _walk(params, cfg: ModelConfig, x, rope, run, keep):
     return x, {"layers": _stack_states(states)}, total
 
 
+def _positions(x):
+    B, S = x.shape[0], x.shape[1]
+    return torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+
+def _merge_vlm(params, cfg: ModelConfig, tokens, extras):
+    """The VLM's stub frontend: the precomputed patch embeddings (B, Sv,
+    D), in the compute type, ahead of the text's token embeddings."""
+    ve = extras["vision_embeds"].to(cdt(cfg))
+    return torch.cat([ve, embed_tokens(params, cfg, tokens)], dim=1)
+
+
 def forward(params, cfg: ModelConfig, tokens, extras=None, *,
             return_states=False, state_fn=None):
     """Full-sequence forward to the final hidden states: (x (B, S, D),
     aux loss: the sum of the MoE layers' ``lb_loss``).  ``extras`` carries
-    nothing for the dense, MoE, SSM and hybrid families.
+    a VLM's ``vision_embeds`` (B, Sv, D), which go ahead of the text
+    tokens (S = Sv + the tokens), and its M-RoPE ``position_ids`` (3, B,
+    S); the other families read nothing from it.  An encoder-decoder
+    model runs ``encdec_forward``.
 
     With ``return_states`` (the prefill path) returns (x, states, aux):
     the stack runs without gradients and without recomputation, and
     ``state_fn(state, layer_type)`` transforms each layer's decode state
     before it is stacked — prefill ring-arranges there, so a windowed
     cache never holds the full sequence for every layer at once."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family's "
-                                  "forward is not ported yet (ROADMAP A "
-                                  f"item {_FAMILY_ITEM[cfg.family]})")
-    x = embed_tokens(params, cfg, tokens)
-    B, S = x.shape[0], x.shape[1]
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    rope = rope_for(cfg, positions)
+    extras = extras or {}
+    if cfg.family == "encdec":
+        raise ValueError("use encdec_forward")
+    if cfg.family == "vlm":
+        x = _merge_vlm(params, cfg, tokens, extras)
+    else:
+        x = embed_tokens(params, cfg, tokens)
+    rope = rope_for(cfg, _positions(x), extras)
     if return_states:
         with torch.no_grad():
             x, states, aux = _walk(params, cfg, x, rope,
@@ -280,6 +312,79 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
                       None)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder
+# ---------------------------------------------------------------------------
+
+def encode(params, cfg: ModelConfig, frame_embeds):
+    """frame_embeds: (B, S_src, D), precomputed by the stub frontend ->
+    the encoder's output (B, S_src, D): non-causal self-attention layers,
+    then ``enc_norm``."""
+    x = frame_embeds.to(cdt(cfg))
+    rope = rope_for(cfg, _positions(x))
+
+    def layer(x, lp):
+        return apply_layer(x, lp, cfg, "enc", rope, causal=False)[0]
+
+    for i in range(cfg.enc_layers):
+        x = _run(layer, x, layer_params(params["enc_layers"], i), cfg)
+    return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_layer(x, lp, cfg: ModelConfig, rope, enc_out):
+    """One decoder layer over the whole target sequence: causal
+    self-attention, cross-attention over the encoder's output, the MLP.
+    Returns (x, {"k", "v": self-attention, "ck", "cv": cross})."""
+    a, (k, v) = attn_block(L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                           lp["attn"], cfg, rope, causal=True)
+    h = x + a
+    ck = _cross_proj(enc_out, lp["cross"]["wk"])
+    cv = _cross_proj(enc_out, lp["cross"]["wv"])
+    c, _ = attn_block(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp["cross"],
+                      cfg, None, causal=False, kv=(ck, cv))
+    h = h + c
+    f, _ = _ffn(L.rms_norm(h, lp["ln3"], cfg.norm_eps), lp, cfg)
+    return h + f, {"k": k, "v": v, "ck": ck, "cv": cv}
+
+
+def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
+                    return_states=False, state_fn=None):
+    """The decoder over target ``tokens`` (B, S) attending to ``enc_out``
+    (B, S_src, D): the final hidden states (B, S, D).  With
+    ``return_states`` (the prefill path) returns (x, states), the layers
+    run without gradients and without recomputation, and ``states`` holds
+    each layer's ``k``, ``v`` (B, S, H, dh) and ``ck``, ``cv`` (B, S_src,
+    H, dh), stacked over the layers after ``state_fn`` (if given) maps
+    each layer's dict."""
+    x = embed_tokens(params, cfg, tokens)
+    rope = rope_for(cfg, _positions(x))
+    layers = params["dec_layers"]
+    if return_states:
+        states = []
+        with torch.no_grad():
+            for i in range(cfg.dec_layers):
+                x, st = _dec_layer(x, layer_params(layers, i), cfg, rope,
+                                   enc_out)
+                states.append(state_fn(st) if state_fn else st)
+            x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x, _stack_states(states)
+
+    def layer(x, lp):
+        return _dec_layer(x, lp, cfg, rope, enc_out)[0]
+
+    for i in range(cfg.dec_layers):
+        x = _run(layer, x, layer_params(layers, i), cfg)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def encdec_forward(params, cfg: ModelConfig, tokens, extras):
+    """``extras["frame_embeds"]`` through the encoder, then the decoder
+    over ``tokens``: (x (B, S, D), aux 0)."""
+    enc_out = encode(params, cfg, extras["frame_embeds"])
+    x = decoder_forward(params, cfg, tokens, enc_out)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -309,10 +414,13 @@ def chunked_ce_loss(params, cfg: ModelConfig, x, targets, mask):
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
-    """batch: tokens / targets / mask tensors.  Returns (loss, {"ce",
-    "aux"})."""
+    """batch: tokens / targets / mask tensors and the family's extras.
+    Returns (loss, {"ce", "aux"})."""
     extras = {k: v for k, v in batch.items()
               if k not in ("tokens", "targets", "mask")}
-    x, aux = forward(params, cfg, batch["tokens"], extras)
+    if cfg.family == "encdec":
+        x, aux = encdec_forward(params, cfg, batch["tokens"], extras)
+    else:
+        x, aux = forward(params, cfg, batch["tokens"], extras)
     ce = chunked_ce_loss(params, cfg, x, batch["targets"], batch["mask"])
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}

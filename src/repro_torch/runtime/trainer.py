@@ -6,12 +6,12 @@
   failure injection / straggler detection.
 
 The counterpart of the JAX package's ``runtime/trainer.py`` on one card.
-There is no device mesh yet (ROADMAP A10): the ``mesh`` argument is gone,
-the per-step collective feed — parsed from the compiled step's HLO in
+There is no device mesh yet (ROADMAP A item 10): the ``mesh`` argument is
+gone, the per-step collective feed — parsed from the compiled step's HLO in
 JAX — is zero remote and zero local bytes, which is what a single device
 gives the JAX Trainer too, so the counters of the two agree, and a
 relayout is logical: recorded, with the state left on its card.
-``compress_cross_pod`` raises (ROADMAP A9).
+``compress_cross_pod`` raises (ROADMAP A item 10).
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ class Trainer:
         if tcfg.compress_cross_pod:
             raise NotImplementedError("cross-pod gradient compression "
                                       "(compression/) is not ported yet "
-                                      "(ROADMAP A9)")
+                                      "(ROADMAP A item 10)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer runs on CUDA by default and no CUDA "
@@ -104,7 +104,7 @@ class Trainer:
         Logical on one card, as the JAX Trainer's is on hosts with fewer
         devices than the layout's chips: recorded and logged, the state
         stays put.  Resharding across cards waits for a device mesh
-        (ROADMAP A10)."""
+        (ROADMAP A item 10)."""
         self.counters.add("relayouts", 1)
         self.log(f"[trainer] relayout s={decision.old_spread}->"
                  f"{decision.new_spread} ({decision.reason})")

@@ -44,14 +44,19 @@ storage, the port writes the storage in place.  ``warm_steps`` is the
 port's counterpart of the JAX package's compile warm-up: on the card it
 captures each paged step — gather, model step, scatter, greedy token — as
 a CUDA graph per (kind, width, batch bucket), and the steps replay a
-graph when one was captured for their shape.  The dense, SSM and hybrid
-families are served; an SSM model's streams hold a state slot and no
-ring pages, so they take the pool's state-slot paths and never share a
-prompt prefix (the JAX engine shares prefixes only for models with ring
-pages).  A hybrid model's streams hold ring pages for its local-attention
-layers and a state slot for its recurrent layers: a prompt prefix is
-shared through the state checkpoints the pool snaps at page boundaries,
-and a spill carries the state leaves with the pages.
+graph when one was captured for their shape.  The dense, MoE, SSM and
+hybrid families are served in every mode, and a VLM text-only on the lazy
+paged path (its steps broadcast each token's position to the three M-RoPE
+components), as the JAX engine serves them; the construction raises for a
+VLM with ``lazy=False`` or ``paged=False`` (their whole-prompt prefill has
+no vision extras) and for an encoder-decoder model (no serving path takes
+source frames), where the JAX engine fails later.  An SSM model's streams
+hold a state slot and no ring pages, so they take the pool's state-slot
+paths and never share a prompt prefix (the JAX engine shares prefixes only
+for models with ring pages).  A hybrid model's streams hold ring pages for
+its local-attention layers and a state slot for its recurrent layers: a
+prompt prefix is shared through the state checkpoints the pool snaps at
+page boundaries, and a spill carries the state leaves with the pages.
 
 The JAX package's other modes ride the same token loop:
 
@@ -95,7 +100,7 @@ from repro_torch.core.topology import ChipletTopology
 from repro_torch.launch.steps import make_prefill, make_serve_chunk_step, \
     make_serve_step, make_spec_verify_step
 from repro_torch.models import decode as dec
-from repro_torch.models.params import PORTED_FAMILIES, init_params
+from repro_torch.models.params import init_params
 from repro_torch.serving.kvpool import KVBlockPool, KVTable, kv_bytes_exact
 from repro_torch.serving.spec import make_drafter
 
@@ -342,9 +347,16 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, topology: ChipletTopology,
                  ecfg: EngineConfig = EngineConfig(), *, seed: int = 0,
                  spread_rate: int = 1, params=None, device="cuda"):
-        if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family "
-                                      "is not ported yet (ROADMAP A8)")
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: the engine has no encoder-decoder "
+                             "serving path (its steps take no source "
+                             "frames); serve it at model level with "
+                             "launch.steps.make_prefill and make_generate")
+        if cfg.family == "vlm" and not (ecfg.paged and ecfg.lazy):
+            raise ValueError(f"{cfg.name}: the engine serves a VLM text-only "
+                             "on the lazy paged path; the whole-prompt "
+                             "prefill of lazy=False and paged=False has no "
+                             "vision extras (vision_embeds, position_ids)")
         if ecfg.evict_mode not in ("swap", "restart"):
             raise ValueError(f"unknown evict_mode {ecfg.evict_mode!r}")
         if ecfg.prefill_mode not in ("parallel", "scan"):

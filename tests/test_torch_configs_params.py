@@ -1,12 +1,10 @@
 """The port's configs and parameter trees against the JAX package.
 
 Every architecture's config (full and reduced) equals the JAX package's
-field by field; for the dense, SSM and hybrid families the port's
-parameter tree
-has the JAX tree's paths, shapes and dtype, ``from_reference`` carries
-JAX weights across exactly, and the constant leaves (zeros, ones,
-``const:<v>``) hold the JAX package's values.  The families not ported
-yet raise ``NotImplementedError``."""
+field by field; for every family the port's parameter tree has the JAX
+tree's paths, shapes and dtype, ``from_reference`` carries JAX weights
+across exactly, and the constant leaves (zeros, ones, ``const:<v>``) hold
+the JAX package's values."""
 import dataclasses
 
 import jax
@@ -19,9 +17,7 @@ from repro.models import params as JP
 from repro_torch.configs import REGISTRY as T_REGISTRY
 from repro_torch.configs import SHAPES as T_SHAPES
 from repro_torch.configs import reduced_config as t_reduced
-from repro_torch.core.topology import ChipletTopology
 from repro_torch.models import params as TP
-from repro_torch.serving.engine import EngineConfig, ServeEngine
 
 ARCHS = sorted(REGISTRY)
 
@@ -48,32 +44,19 @@ def test_config_fields_match(arch):
         assert t.layer_types() == j.layer_types()
 
 
-PORTED = ("dense", "moe", "ssm", "hybrid")
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_or_not_ported(arch):
-    """Dense, MoE, SSM and hybrid: same paths and shapes as
-    ``repro.models.params`` at
-    full size, same bytes and count.  Other families: NotImplementedError
-    from every entry point, naming the ROADMAP item."""
+    """Every family, the VLM and encoder-decoder ones among them: same
+    paths and shapes as ``repro.models.params`` at full size, same bytes
+    and count (qwen2-vl-2b 1,543,853,568 parameters, seamless-m4t-large-v2
+    1,632,233,472)."""
     cfg = T_REGISTRY[arch]
-    if cfg.family not in PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            TP.param_shapes(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            TP.init_params(t_reduced(cfg), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            ServeEngine(t_reduced(cfg), ChipletTopology(1, 1, 1),
-                        EngineConfig(max_len=32), device="cpu")
-        return
     assert TP.param_shapes(cfg) == _jax_shapes(REGISTRY[arch])
     assert TP.param_bytes(cfg) == JP.param_bytes(REGISTRY[arch])
     assert TP.n_params(cfg) == JP.n_params(REGISTRY[arch])
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if REGISTRY[a].family in PORTED])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_and_from_reference(arch):
     """Reduced size: ``init_params`` fills every leaf of the JAX tree's
     shape in the config's dtype, seeded (same seed, same weights), and

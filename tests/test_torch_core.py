@@ -95,12 +95,12 @@ def test_cost_estimates_match_on_the_same_hardware(arch, shape):
 
 def test_cost_estimate_of_unported_family_raises():
     """The estimate prices parameters from the port's own parameter tree,
-    which holds the dense, MoE, SSM and hybrid families so far: the VLM
-    family still raises."""
-    _, tt = _topos(1, 16, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TM.estimate(t_get_config("qwen2-vl-2b"), SHAPES["train_4k"],
-                    TL.Layout(tt, 1))
+    which now holds the VLM and encoder-decoder families too: for
+    qwen2-vl-2b and seamless-m4t-large-v2, on every shape of ``SHAPES``
+    and every layout, equal to the JAX package's."""
+    for arch in ("qwen2-vl-2b", "seamless-m4t-large-v2"):
+        for shape in SHAPES:
+            _estimates_match(arch, shape)
 
 
 def _estimates_match(arch, shape):

@@ -26,6 +26,9 @@ import repro_torch.data.pipeline, repro_torch.checkpoint.manager
 import repro_torch.models.ssd, repro_torch.kernels.ssd_scan.ops
 import repro_torch.models.rglru, repro_torch.kernels.rglru_scan.ops
 import repro_torch.serving.spec, repro_torch.core.api
+import repro_torch.models.transformer, repro_torch.models.decode
+import repro_torch.models.layers, repro_torch.models.params
+import repro_torch.models.moe, repro_torch.serving.kvpool
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(",".join(bad))
@@ -143,8 +146,11 @@ def test_lru_wrappers_have_no_fallback():
 def test_unported_options_raise(option, value):
     """The slot monolith, the eager allocator and the scan chunk path,
     which raised until they were ported, build an engine that serves a
-    request to its budget; with them a family still unported (VLM) raises
-    naming its ROADMAP item, as the default engine does."""
+    request to its budget.  With them a VLM builds only on the lazy
+    paged path (the scan chunk path), and the other two raise a
+    ``ValueError`` naming the missing vision extras; an
+    encoder-decoder model raises a ``ValueError`` in every mode (the JAX
+    engine fails on both later: ``test_torch_vlm_engine.py``)."""
     import numpy as np
     from repro_torch.configs import REGISTRY, reduced_config
     from repro_torch.core.topology import ChipletTopology
@@ -155,6 +161,15 @@ def test_unported_options_raise(option, value):
     req = eng.submit(np.arange(2, 22, dtype=np.int32), max_new=3)
     eng.run_until_done()
     assert req.done and len(req.generated) == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        ServeEngine(reduced_config(REGISTRY["qwen2-vl-2b"]),
+    vlm = reduced_config(REGISTRY["qwen2-vl-2b"])
+    if option == "prefill_mode":
+        eng = ServeEngine(vlm, ChipletTopology(1, 1, 1), ecfg, device="cpu")
+        req = eng.submit(np.arange(2, 22, dtype=np.int32), max_new=3)
+        eng.run_until_done()
+        assert req.done and len(req.generated) == 3
+    else:
+        with pytest.raises(ValueError, match="no vision extras"):
+            ServeEngine(vlm, ChipletTopology(1, 1, 1), ecfg, device="cpu")
+    with pytest.raises(ValueError, match="no encoder-decoder serving path"):
+        ServeEngine(reduced_config(REGISTRY["seamless-m4t-large-v2"]),
                     ChipletTopology(1, 1, 1), ecfg, device="cpu")

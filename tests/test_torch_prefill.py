@@ -2,11 +2,18 @@
 ``transformer.forward(return_states=True)``, ``decode.prefill`` (with its
 ring arrangement), ``steps.make_prefill`` and ``steps.make_generate``, on
 reduced llama3-8b, mamba2-780m and recurrentgemma-9b in float32 with the
-JAX weights carried across by ``from_reference``.
+JAX weights carried across by ``from_reference``; the VLM and
+encoder-decoder prefills through ``make_prefill``'s extras; prefill,
+decode and both chunk steps on reduced nemotron-4-15b and starcoder2-15b;
+and bf16 prefill and decode on mamba2-780m and recurrentgemma-9b (2e-2 of
+the logits' scale).
 
 Tolerances: last-token logits within 1e-4, every cache leaf within 2e-4
 (absolute and relative: keys and values pass through more float32 sums
 than the logits' last row), greedy tokens identical."""
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +30,7 @@ from repro_torch.launch import steps as TS
 from repro_torch.models import decode as TD
 from repro_torch.models import transformer as TT
 from repro_torch.models.params import from_reference
+from repro_torch.models.params import init_params as t_init_params
 
 FAMILIES = ("llama3-8b", "mamba2-780m", "recurrentgemma-9b")
 LOGIT_TOL, CACHE_TOL = 1e-4, 2e-4
@@ -168,13 +176,143 @@ def test_generate_with_temperature_follows_its_generator():
 
 
 def test_prefill_of_unported_families_raises():
-    """The encoder-decoder prefill (``encdec_prefill``) and the VLM inputs
-    wait for their families, naming their ROADMAP items."""
-    cfg = t_reduced(T_REGISTRY["seamless-m4t-large-v2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 9"):
-        TD.prefill({}, cfg, torch.zeros((1, 4), dtype=torch.int32),
-                   max_len=8)
-    dense = t_reduced(T_REGISTRY["llama3-8b"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A items 8"):
-        TS.make_prefill(dense, 8)({}, {"tokens": None,
-                                       "vision_embeds": None})
+    """``make_prefill`` hands every batch key but ``tokens`` to
+    ``decode.prefill`` as extras, as the JAX package does: the
+    encoder-decoder prefill (``encdec_prefill``, from ``frame_embeds``)
+    and the VLM's (``vision_embeds`` ahead of the text, M-RoPE
+    ``position_ids``) give the JAX package's logits and cache leaves."""
+    rng = np.random.default_rng(5)
+    for name in ("seamless-m4t-large-v2", "qwen2-vl-2b"):
+        jcfg = reduced_config(REGISTRY[name])
+        tcfg = t_reduced(T_REGISTRY[name])
+        jp = j_init_params(jcfg, jax.random.PRNGKey(0))
+        tp = from_reference(jax.tree.map(np.asarray, jp), device="cpu")
+        toks = _tokens(jcfg, 2, 6, seed=9)
+        emb = (rng.standard_normal((2, 5, jcfg.d_model)) * 0.02) \
+            .astype(np.float32)
+        if jcfg.family == "encdec":
+            batch = {"tokens": toks, "frame_embeds": emb}
+        else:
+            batch = {"tokens": toks, "vision_embeds": emb,
+                     "position_ids": np.stack([
+                         np.arange(11), np.arange(11) // 2,
+                         np.arange(11) % 3])[:, None].repeat(2, 1)
+                     .astype(np.int32)}
+        jl, jc = jax.jit(JS.make_prefill(jcfg, 16))(
+            jp, {k: jnp.asarray(v) for k, v in batch.items()})
+        tl, tc = TS.make_prefill(tcfg, 16)(
+            tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                   rtol=LOGIT_TOL, atol=LOGIT_TOL,
+                                   err_msg=name)
+        spec = TD.cache_view_specs(tcfg, 16, 5)
+        jleaves = jax.tree.leaves(jc)
+        assert len(jleaves) == len(spec.paths)
+        for a, b in zip(jleaves, TD.tree_leaves(tc, spec)):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                       rtol=CACHE_TOL, atol=CACHE_TOL,
+                                       err_msg=name)
+
+
+def jitted(fn, **static):
+    """A JAX step with its config (and cache layout) bound, compiled once:
+    the JAX package runs its steps jitted, and on the CPU one compile
+    costs less than the op-by-op dispatch of an eager call."""
+    return jax.jit(functools.partial(fn, **static))
+
+
+@pytest.mark.parametrize("arch", ["nemotron-4-15b", "starcoder2-15b"])
+def test_dense_configs_prefill_decode_and_chunk_steps(arch):
+    """The dense configs beside llama3-8b — nemotron-4-15b (squared_relu)
+    and starcoder2-15b (gelu, 4 kv heads) — through ``prefill`` into a
+    ring the prompt overruns, 6 ``decode_step``s, then
+    ``prefill_chunk_step`` (blocked and dense) and ``chunk_decode_step``
+    with a prefill, a decode and an idle row: logits and every cache leaf
+    equal the JAX package's."""
+    jcfg = reduced_config(REGISTRY[arch])
+    tcfg = t_reduced(T_REGISTRY[arch])
+    jp = j_init_params(jcfg, jax.random.PRNGKey(0))
+    tp = from_reference(jax.tree.map(np.asarray, jp), device="cpu")
+    max_len, P = 24, 30
+    spec = TD.cache_view_specs(tcfg, max_len)
+    jspec = JD.cache_view_specs(jcfg, max_len)
+
+    def same(jl, jc, tl, tc, live=slice(None)):
+        np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live],
+                                   rtol=LOGIT_TOL, atol=LOGIT_TOL)
+        for a, b in zip(jax.tree.leaves(jc), TD.tree_leaves(tc, spec)):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a),
+                                       rtol=CACHE_TOL, atol=CACHE_TOL)
+
+    toks = _tokens(jcfg, 3, P, seed=21)
+    jl, jc = jitted(JD.prefill, cfg=jcfg, max_len=max_len)(
+        jp, tokens=jnp.asarray(toks))
+    tl, tc = TD.prefill(tp, tcfg, torch.from_numpy(toks), max_len=max_len)
+    same(jl, jc, tl, tc)
+    pos = np.full((3,), P, np.int32)
+    decode = jitted(JD.decode_step, cfg=jcfg)
+    for _ in range(6):
+        nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)[:, None]
+        jl, jc = decode(jp, cache=jc, tokens=jnp.asarray(nxt),
+                        pos=jnp.asarray(pos))
+        tl, tc = TD.decode_step(tp, tcfg, tc, torch.from_numpy(nxt),
+                                torch.from_numpy(pos))
+        same(jl, jc, tl, tc)
+        pos = pos + 1
+    chunk = _tokens(jcfg, 3, 5, seed=22)
+    n = np.array([5, 1, 0], np.int32)
+    args = dict(tokens=jnp.asarray(chunk), pos=jnp.asarray(pos),
+                n_tokens=jnp.asarray(n))
+    targs = (torch.from_numpy(chunk), torch.from_numpy(pos),
+             torch.from_numpy(n))
+    clone = lambda: jax.tree.map(lambda t: t.clone(), tc)  # noqa: E731
+    for kernel in ("blocked", "dense"):
+        jl2, jc2 = jitted(JD.prefill_chunk_step, cfg=jcfg, spec=jspec,
+                          chunk_kernel=kernel)(jp, cache=jc, **args)
+        tl2, tc2 = TD.prefill_chunk_step(tp, tcfg, spec, clone(), *targs,
+                                         chunk_kernel=kernel)
+        same(jl2, jc2, tl2, tc2, n > 0)
+    jl3, jc3 = jitted(JD.chunk_decode_step, cfg=jcfg, spec=jspec)(
+        jp, cache=jc, **args)
+    tl3, tc3 = TD.chunk_decode_step(tp, tcfg, spec, clone(), *targs)
+    same(jl3, jc3, tl3, tc3, n > 0)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_bf16_prefill_and_decode(arch):
+    """bf16 weights and compute: ``prefill`` of two 40-token prompts, then
+    8 greedy ``decode_step``s fed the JAX package's tokens, every step's
+    logits within 2e-2 of the JAX logits' scale (the JAX package's bf16
+    kernel tolerance).  The weights are the port's seeded draw, rounded
+    to bf16 in both packages."""
+    kw = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jcfg = dataclasses.replace(reduced_config(REGISTRY[arch]), **kw)
+    tcfg = dataclasses.replace(t_reduced(T_REGISTRY[arch]), **kw)
+    drawn = t_init_params(tcfg, torch.Generator().manual_seed(5),
+                          device="cpu")
+    jp = jax.tree.map(lambda w: jnp.asarray(w.float().numpy())
+                      .astype(jnp.bfloat16), drawn)
+    tp = from_reference(jax.tree.map(np.asarray, jp), device="cpu")
+    real = slice(0, jcfg.vocab)
+
+    def within(jl, tl):
+        want = np.asarray(jl, np.float32)[:, real]
+        scale = float(np.abs(want).max())
+        np.testing.assert_allclose(tl.float().numpy()[:, real] / scale,
+                                   want / scale, rtol=0, atol=2e-2)
+
+    toks = _tokens(jcfg, 2, 40, seed=31)
+    jl, jc = jitted(JD.prefill, cfg=jcfg, max_len=64)(
+        jp, tokens=jnp.asarray(toks))
+    tl, tc = TD.prefill(tp, tcfg, torch.from_numpy(toks), max_len=64)
+    within(jl, tl)
+    pos = np.full((2,), 40, np.int32)
+    decode = jitted(JD.decode_step, cfg=jcfg)
+    for _ in range(8):
+        nxt = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)[:, None]
+        jl, jc = decode(jp, cache=jc, tokens=jnp.asarray(nxt),
+                        pos=jnp.asarray(pos))
+        tl, tc = TD.decode_step(tp, tcfg, tc, torch.from_numpy(nxt),
+                                torch.from_numpy(pos))
+        within(jl, tl)
+        pos = pos + 1

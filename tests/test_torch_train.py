@@ -223,5 +223,5 @@ def test_unported_step_options_raise(what):
     tcfg = t_reduced(T_REGISTRY["llama3.2-3b"])
     kw = ({"opt_impl": "adamw8bit"} if what == "adamw8bit"
           else {"ef_transform": lambda g, e: (g, e)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
         TS.make_train_step(tcfg, TAdamW(), **kw)

@@ -26,6 +26,7 @@ from repro.data.pipeline import SyntheticCorpus as JCorpus
 from repro.data.pipeline import make_batch as j_make_batch
 from repro.data.pipeline import write_corpus_shards as j_write
 from repro.optim.adamw import AdamWConfig as JAdamW
+from repro.optim.adamw import init_opt_state as j_init_opt_state
 from repro.runtime.trainer import Trainer as JTrainer
 from repro.runtime.trainer import TrainerConfig as JTrainerConfig
 from repro_torch.checkpoint.manager import (CheckpointManager, load_pytree,
@@ -59,10 +60,11 @@ def t_trainer(cfg, files, ckpt_dir, params, steps=4, ckpt_every=100, **kw):
                    log=lambda s: None, params=params, device="cpu", **kw)
 
 
-def _jax_trainer_run(tmp, arch):
+def _jax_trainer_run(tmp, arch, params=None):
     """The JAX Trainer, 4 steps on reduced ``arch`` with the adaptive
     controller at threshold 0 (a relayout every second step, logical on
-    one device): its starting weights, losses and counters."""
+    one device), from its own initial weights or ``params`` (a tree of
+    arrays): its starting weights, losses and counters."""
     cfg = reduced_config(REGISTRY[arch])
     files = j_write(str(tmp / "data"), JCorpus(cfg.vocab, seed=3),
                     n_shards=2, tokens_per_shard=4000)
@@ -74,6 +76,10 @@ def _jax_trainer_run(tmp, arch):
                        controller_cfg=JControllerConfig(
                            scheduler_timer=2, threshold=0.0, min_dwell=0),
                        log=lambda s: None)
+    if params is not None:
+        trainer.params = jax.device_put(params, trainer.psh)
+        trainer.opt_state = jax.device_put(
+            j_init_opt_state(trainer.params), trainer.osh)
     params0 = jax.tree.map(np.array, trainer.params)
     out = trainer.run()
     return params0, out
@@ -277,18 +283,22 @@ def test_loader_sharding_and_resume(tmp_path):
 
 
 def test_make_batch_dense_and_unported_families():
-    cfg = t_reduced(T_REGISTRY["llama3-8b"])
+    """Every family's batch equals the JAX package's key by key, element
+    for element: the dense one; the VLM's text tokens, patch embeddings
+    (a quarter of the sequence) and M-RoPE ids; the encoder-decoder's
+    frame embeddings and target half."""
     block = np.random.default_rng(0).integers(
-        0, cfg.vocab, size=(2, 33)).astype(np.int32)
-    b = make_batch(cfg, block)
-    assert b["tokens"].dtype == np.int32
-    assert b["targets"].shape == b["mask"].shape
-    want = j_make_batch(reduced_config(REGISTRY["llama3-8b"]), block)
-    for k in want:
-        np.testing.assert_array_equal(b[k], want[k])
-    for name in ("qwen2-vl-2b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            make_batch(t_reduced(T_REGISTRY[name]), block)
+        0, 512, size=(2, 33)).astype(np.int32)
+    for name in ("llama3-8b", "qwen2-vl-2b", "seamless-m4t-large-v2"):
+        cfg = t_reduced(T_REGISTRY[name])
+        b = make_batch(cfg, block)
+        want = j_make_batch(reduced_config(REGISTRY[name]), block)
+        assert b.keys() == want.keys(), name
+        for k in want:
+            assert b[k].dtype == want[k].dtype, (name, k)
+            np.testing.assert_array_equal(b[k], want[k], err_msg=name)
+        assert b["tokens"].dtype == np.int32
+        assert b["targets"].shape == b["mask"].shape
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -349,5 +359,5 @@ def test_heartbeat_monitor():
 def test_compress_cross_pod_raises(tmp_path):
     cfg = t_reduced(T_REGISTRY[ARCH])
     tcfg = TrainerConfig(ckpt_dir=str(tmp_path), compress_cross_pod=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
         Trainer(cfg, None, tcfg, device="cpu")
