@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ring-splits  # the bf16 ring kernel by split width
     python3 chip_smoke.py --ssd-head-sets  # the bf16 SSD kernel by head set
     python3 chip_smoke.py --lru-tiles  # the RG-LRU scan kernel by tile
+    python3 chip_smoke.py --training-state  # phase 15 alone
 
 Phases (any error fails the run with a non-zero exit):
 
@@ -219,6 +220,27 @@ Phases (any error fails the run with a non-zero exit):
    and 2b hold the ring and flash kernels at these shapes (``vlm_*``,
    ``encdec_*`` and ``ragged_sq_over_skv`` rows, bf16 and float32).  The
    phase prints its seconds.
+15. The rest of the training path.  (a) recurrentgemma-9b at full width
+   and all 38 layers, bf16, random weights from seed 0, B=1, S=4096
+   (2048 if 4096 runs out of memory: both attempts' peaks print), remat
+   "full", ``make_train_step(opt_impl="adamw8bit")``, 4 steps: losses
+   and grad norms finite, parameters changed, moments int8 / uint8, a
+   step's launches gated (the scan forward and its VJP in each of the 26
+   rec layers, the 24 in groups forward twice: 76; flash forward twice
+   and backward once in each of the 12 attn layers); seconds a step,
+   tokens/s, peak GiB and the 8-bit update's own seconds (a spy
+   synchronises around it).  (b) Phase 7's 14 layers and shape with the
+   8-bit AdamW: peak and seconds a step beside phase 7's.  (c)
+   mamba2-780m at phase 5's shape with int8 error-feedback compression
+   (``ef_transform``): the SSD kernel's launches, finite losses, non-zero
+   buffers after step 1, seconds a step beside phase 5's; the reduced
+   float32 ``Trainer(compress_cross_pod=True)`` on the card against the
+   CPU (1e-4).  (d) An NCCL process group of one rank and a (1, 1) mesh:
+   ``make_train_step_smap`` against ``make_train_step`` on reduced
+   float32 llama3-8b with both optimizers (parameters after 3 steps
+   within 1e-5), the Trainer on the mesh against the one-card Trainer,
+   the 8-bit state through a sharded save and restore.  The phase prints
+   its seconds.
 The reduced float32 reference runs of phases 3, 6 and 8 include card runs
 with speculative decoding (a partial drafter), warmed steps and (phase
 12 (f)) the eager engine, the slot monolith and the scan chunk path, and
@@ -237,7 +259,8 @@ and 8; ``eager_prefill_launches`` and ``hybrid_eager_prefill_launches``
 phase 12's, over the eager engine's 9 prefills; ``moe_launches`` phase
 13's serving (ring) and training (flash), ``moe_eager_prefill_launches``
 its eager prefills; ``vlm_*`` and ``encdec_*`` phase 14's launches and
-errors), error and times.
+errors; ``hybrid38_launches`` and ``ef_launches`` phase 15's), error
+and times.
 """
 from __future__ import annotations
 
@@ -2531,36 +2554,66 @@ def free_card(torch):
 
 
 def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
-                S=TRAIN_S, layers=0):
+                S=TRAIN_S, layers=0, opt_impl="adamw", ef=False,
+                stats=None, time_update=False):
     """4 steps of the port's train step on ``arch`` at full width and
     depth (``layers`` cuts the depth when given), bf16, sequence ``S``.
     ``kernels``: name -> (wrapper with a ``launches`` count, launches
     expected per step); ``probes``: name -> a parameter slice that must
-    change.  Returns name -> launches over the 4 steps."""
+    change.  ``opt_impl``: the step's optimizer ("adamw8bit": int8 /
+    uint8 moments, gated); ``ef``: the step threads int8 error-feedback
+    compression (``compression.int8_compress_transform``), whose buffers
+    must be non-zero after the first step.  ``stats``, when given, gets
+    the step's record (steady seconds a step, tokens/s, peak GiB);
+    ``time_update`` adds the optimizer update's own seconds, timed by a
+    spy that synchronises the card around it.
+    Returns name -> launches over the 4 steps."""
     import dataclasses
     import math
     import shutil
     import tempfile
+    from repro_torch.compression import (init_compression,
+                                         int8_compress_transform)
     from repro_torch.configs import REGISTRY
     from repro_torch.data.pipeline import (ShardedLoader, SyntheticCorpus,
                                            make_batch, write_corpus_shards)
-    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch import steps as steps_mod
     from repro_torch.models.params import init_params, n_params
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.optim.quantized import init_opt_state_8bit
 
     cfg = dataclasses.replace(REGISTRY[arch], remat=remat,
                               n_layers=layers or REGISTRY[arch].n_layers)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(cfg, gen, device="cuda")
-    opt = init_opt_state(params)
-    # warmup of one step so bf16 weights move from the first update
-    step = make_train_step(cfg, AdamWConfig(warmup_steps=1))
+    opt = (init_opt_state_8bit if opt_impl == "adamw8bit"
+           else init_opt_state)(params)
+    efs = init_compression(params)["ef"] if ef else None
+    update_s = []
+    inner = steps_mod.UPDATES[opt_impl]
+    if time_update:
+        def timed_update(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            update_s.append(time.perf_counter() - t)
+            return out
+        steps_mod.UPDATES[opt_impl] = timed_update
+    try:
+        # warmup of one step so bf16 weights move from the first update
+        step = steps_mod.make_train_step(
+            cfg, AdamWConfig(warmup_steps=1), opt_impl=opt_impl,
+            ef_transform=int8_compress_transform if ef else None)
+    finally:
+        steps_mod.UPDATES[opt_impl] = inner
     torch.cuda.synchronize()
     tag = f"[train {cfg.name}]"
     log(f"{tag} layers={cfg.n_layers} d_model={cfg.d_model} "
         f"family={cfg.family} vocab={cfg.vocab} {n_params(cfg)} params "
-        f"{cfg.param_dtype}, remat={cfg.remat}; B={B} S={S}; set-up "
+        f"{cfg.param_dtype}, remat={cfg.remat}; B={B} S={S}; {opt_impl}"
+        + (", int8 error feedback" if ef else "") + "; set-up "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card")
     before = {k: f(params).clone() for k, f in probes.items()}
@@ -2585,7 +2638,10 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        params, opt, m = step(params, opt, batches[i])
+        if ef:
+            params, opt, m, efs = step(params, opt, batches[i], efs)
+        else:
+            params, opt, m = step(params, opt, batches[i])
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         aux = float(m["aux"])
         torch.cuda.synchronize()
@@ -2597,6 +2653,10 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
             f"aux {aux:.6f} lr {float(m['lr']):.3e} {secs[-1]:.6f} s"
             + (f", peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
                "GiB after the first step" if i == 0 else ""))
+        if ef and i == 0 and not any(
+                bool(e.any()) for e in _tree_leaves(efs)):
+            raise AssertionError("the error-feedback buffers are all zero "
+                                 "after the first step")
     launches = {name: fn.launches for name, (fn, _) in kernels.items()}
     want = {name: TRAIN_STEPS * per for name, (_, per) in kernels.items()}
     if launches != want:
@@ -2613,6 +2673,12 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
         if torch.equal(f(params), before[k]):
             raise AssertionError(f"{k} did not change in {TRAIN_STEPS} "
                                  "steps")
+    if opt_impl == "adamw8bit":
+        for k, want in (("m", torch.int8), ("v", torch.uint8)):
+            kinds = {q.dtype for q in _tree_leaves(opt[k]) if q.dim()
+                     and q.dtype != torch.float32}
+            if kinds != {want}:
+                raise AssertionError(f"8-bit {k}: moments of {kinds}")
     steady = sum(secs[1:]) / len(secs[1:])
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{tag} launches {launches} ("
@@ -2622,16 +2688,31 @@ def phase_train(torch, arch, B, remat, kernels, probes, profile=False,
            "route"
            if any(hasattr(fn, "wgmma_launches") for fn, _ in kernels.values())
            else ""))
-    log(f"{tag} " + json.dumps({
+    record = {
         "arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S,
-        "remat": cfg.remat, "step_s": secs, "steady_step_s": steady,
-        "tokens_per_s": B * S / steady, "peak_gib": peak}))
+        "remat": cfg.remat, "opt_impl": opt_impl, "ef": ef, "step_s": secs,
+        "steady_step_s": steady, "tokens_per_s": B * S / steady,
+        "peak_gib": peak}
+    if update_s:
+        record["update_s"] = update_s
+        record["steady_update_s"] = sum(update_s[1:]) / len(update_s[1:])
+    log(f"{tag} " + json.dumps(record))
+    if stats is not None:
+        stats.update(record)
     if profile:
         profile_train_step(torch, step, params, opt, batches[-1],
                            KERNEL_SYMBOLS[arch])
-    del params, opt, batches, before
+    del params, opt, batches, before, efs
     free_card(torch)
     return launches
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
 
 
 # the device symbols of each training path's hand-written kernels
@@ -3500,6 +3581,311 @@ def phase_vlm_encdec(torch, rows):
     log(f"[vlm/encdec] phase 14: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the training path — the 8-bit AdamW, error-feedback
+# compression, meshes and the data-parallel step
+# ---------------------------------------------------------------------------
+
+# recurrentgemma-9b at full width and all 38 layers: 9,396,195,328
+# parameters hold 6 bytes each of state with the 8-bit AdamW (bf16 weights
+# and gradients, int8 m, uint8 sqrt(v)): 52.5 GiB, where float32 moments
+# would need 105 GiB.  remat "full" keeps one group's activations at a
+# time; if S = 4096 does not fit, the phase runs S = 2048 and prints both
+# attempts' peaks
+HYBRID_FULL_REMAT = "full"
+HYBRID_FULL_S = (4096, 2048)
+
+
+def hybrid_kernels(layers, remat):
+    """The RG-LRU scan and flash wrappers with their launches a step on
+    recurrentgemma-9b's first ``layers`` layers: a rec layer launches the
+    scan forward and its fused VJP, an attn layer each flash kernel once;
+    under remat a group's forward runs twice (the tail, not recomputed,
+    once)."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru_scan import ops as lru_ops
+    cfg = REGISTRY[HYBRID_ARCH]
+    types = cfg.layer_types()[:layers]
+    period = len(cfg.block_pattern)
+    grouped = types[:layers // period * period]
+    again = 0 if remat == "none" else 1
+    n_rec, n_attn = types.count("rec"), types.count("attn")
+    return {"lru_scan": (lru_ops.lru_scan,
+                         2 * n_rec + again * grouped.count("rec")),
+            "flash_attention_fwd": (fa_ops.flash_attention,
+                                    n_attn + again * grouped.count("attn")),
+            "flash_attention_bwd": (fa_ops.flash_attention_bwd, n_attn)}
+
+
+HYBRID_PROBES = {
+    "w_a[0]": lambda p: p["groups"]["b0_rec"]["rec"]["w_a"][0],
+    "w_in[0]": lambda p: p["groups"]["b0_rec"]["rec"]["w_in"][0],
+    "wq[0]": lambda p: p["groups"]["b2_attn"]["attn"]["wq"][0],
+    "tail w_out": lambda p: p["tail"]["t1_rec"]["rec"]["w_out"],
+    "embed[:4096]": lambda p: p["embed"][:4096]}
+
+
+def phase_hybrid_8bit(torch, rows):
+    """Phase 15 (a) and (b): recurrentgemma-9b with the 8-bit AdamW, at
+    all 38 layers (remat "full", S = 4096, else 2048) and at phase 7's
+    14 layers and shape."""
+    from repro_torch.configs import REGISTRY
+    n = REGISTRY[HYBRID_ARCH].n_layers
+    full, peaks = {}, {}
+    for S in HYBRID_FULL_S:
+        free_card(torch)
+        failed = None
+        try:
+            launches = phase_train(
+                torch, HYBRID_ARCH, HYBRID_B, HYBRID_FULL_REMAT,
+                hybrid_kernels(n, HYBRID_FULL_REMAT), HYBRID_PROBES, S=S,
+                opt_impl="adamw8bit", stats=full, time_update=True)
+        except torch.cuda.OutOfMemoryError as e:
+            failed = str(e).splitlines()[0][:160]
+        peaks[S] = torch.cuda.max_memory_allocated() / 2**30
+        if failed is None:
+            break
+        log(f"[8bit] recurrentgemma-9b, 38 layers, S={S}: out of memory "
+            f"at a peak of {peaks[S]:.3f} GiB ({failed})")
+    else:
+        raise AssertionError("recurrentgemma-9b at 38 layers fits at no "
+                             f"sequence of {HYBRID_FULL_S}")
+    rows[4]["hybrid38_launches"] = launches["lru_scan"]
+    rows[1]["hybrid38_launches"] = launches["flash_attention_fwd"]
+    rows[2]["hybrid38_launches"] = launches["flash_attention_bwd"]
+    log(f"[8bit] recurrentgemma-9b at all {n} layers, 8-bit AdamW, remat "
+        f"{HYBRID_FULL_REMAT}: S={full['seq']}, "
+        f"{full['steady_step_s']:.6f} s a step, "
+        f"{full['tokens_per_s']:.1f} tokens/s, peak {full['peak_gib']:.3f} "
+        f"GiB of the card's "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; "
+        f"the 8-bit update {full['steady_update_s']:.6f} s a step (the "
+        f"step's seconds include the spy's synchronisations around it); "
+        f"peaks by S: {json.dumps({str(k): v for k, v in peaks.items()})}")
+    free_card(torch)
+    short = {}
+    phase_train(torch, HYBRID_ARCH, HYBRID_B, HYBRID_REMAT,
+                hybrid_kernels(HYBRID_LAYERS, HYBRID_REMAT), HYBRID_PROBES,
+                S=HYBRID_S, layers=HYBRID_LAYERS, opt_impl="adamw8bit",
+                stats=short)
+    log(f"[8bit] phase 7's {HYBRID_LAYERS} layers with the 8-bit AdamW: "
+        f"peak {short['peak_gib']:.3f} GiB (phase 7, float32 moments: "
+        f"{PHASE7.get('peak_gib', float('nan')):.3f}), "
+        f"{short['steady_step_s']:.6f} s a step (phase 7: "
+        f"{PHASE7.get('steady_step_s', float('nan')):.6f})")
+
+
+# phase 7's record (its steady seconds and peak), kept for phase 15 (b)
+PHASE7 = {}
+
+
+def phase_ef(torch, rows):
+    """Phase 15 (c): error-feedback compression — mamba2-780m at phase 5's
+    shape with ``ef_transform``, then the reduced float32
+    ``Trainer(compress_cross_pod=True)`` on the card against the CPU."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.configs import REGISTRY, reduced_config
+    from repro_torch.data.pipeline import (ShardedLoader, SyntheticCorpus,
+                                           write_corpus_shards)
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    free_card(torch)
+    stats = {}
+    launches = phase_train(
+        torch, SSM_ARCH, SSM_B, SSM_REMAT,
+        {"ssd_scan": (ssd_ops.ssd_scan, REGISTRY[SSM_ARCH].n_layers)},
+        {"wx[0]": lambda p: p["layers"]["ssd"]["wx"][0],
+         "embed[:4096]": lambda p: p["embed"][:4096]}, ef=True, stats=stats)
+    rows[3]["ef_launches"] = launches["ssd_scan"]
+    log(f"[ef] mamba2-780m with int8 error feedback: "
+        f"{stats['steady_step_s']:.6f} s a step (phase 5: "
+        f"{PHASE5.get('steady_step_s', float('nan')):.6f}), peak "
+        f"{stats['peak_gib']:.3f} GiB")
+
+    cfg = reduced_config(REGISTRY[SSM_ARCH])
+    base = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ef_")
+    try:
+        files = write_corpus_shards(os.path.join(tmp, "data"),
+                                    SyntheticCorpus(cfg.vocab, seed=1),
+                                    n_shards=2, tokens_per_shard=2000)
+
+        def run(device):
+            tcfg = TrainerConfig(steps=6, ckpt_every=100, log_every=100,
+                                 ckpt_dir=os.path.join(tmp, device),
+                                 compress_cross_pod=True,
+                                 opt=AdamWConfig(peak_lr=1e-3,
+                                                 warmup_steps=2,
+                                                 total_steps=20))
+            t = Trainer(cfg, ShardedLoader(files, seq_len=64, batch=2),
+                        tcfg, log=lambda s: None,
+                        params=_to_device(base, device), device=device)
+            return t.run()["losses"], t
+
+        f0 = ssd_ops.ssd_scan.launches
+        card, trainer = run("cuda")
+        if ssd_ops.ssd_scan.launches == f0:
+            raise AssertionError("the compressed Trainer on the card "
+                                 "launched no SSD kernel")
+        if not all(bool(e.any()) for e in _tree_leaves(trainer._ef)):
+            raise AssertionError("an error-feedback buffer stayed zero")
+        cpu, _ = run("cpu")
+    finally:
+        shutil.rmtree(tmp)
+    err = max(abs(a - b) for a, b in zip(card, cpu))
+    log(f"[ef] reduced {cfg.name} Trainer(compress_cross_pod=True), float32: "
+        f"card {[round(x, 6) for x in card]}, CPU max abs err {err:.3e} "
+        "(tol 1e-4)")
+    if err > 1e-4:
+        raise AssertionError("the compressed Trainer's card losses differ "
+                             "from the CPU's")
+
+
+# phase 5's record, kept for phase 15 (c)
+PHASE5 = {}
+
+
+def phase_dist(torch):
+    """Phase 15 (d): ``torch.distributed`` on the card — an NCCL process
+    group of one rank (a ``FileStore``) and a (1, 1) mesh.
+    ``make_train_step_smap`` on reduced float32 llama3-8b against
+    ``make_train_step`` (parameters after 3 steps within 1e-5) with both
+    optimizers, the Trainer on the mesh against the one-card Trainer, and
+    the 8-bit state through the checkpoint manager (sharded save and
+    restore)."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import REGISTRY, reduced_config
+    from repro_torch.data.pipeline import (ShardedLoader, SyntheticCorpus,
+                                           write_corpus_shards)
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_train_step, make_train_step_smap
+    from repro_torch.models.params import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.optim.quantized import init_opt_state_8bit
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        cfg = reduced_config(REGISTRY[DIST_ARCH])
+        base = init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+        mesh = Mesh(np.array([[0]]), ("data", "model"))
+        pspecs = sh.param_specs(cfg, mesh)
+        opt_cfg = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20)
+        g = torch.Generator().manual_seed(1)
+        batches = []
+        for _ in range(3):
+            blk = torch.randint(2, cfg.vocab, (4, 65), generator=g,
+                                dtype=torch.int32)
+            batches.append({"tokens": blk[:, :-1].cuda(),
+                            "targets": blk[:, 1:].cuda(),
+                            "mask": torch.ones(4, 64).cuda()})
+        for impl in ("adamw", "adamw8bit"):
+            init = init_opt_state_8bit if impl == "adamw8bit" \
+                else init_opt_state
+            one, ranked = _to_device(base, "cuda"), _to_device(base, "cuda")
+            s1, s2 = init(one), init(ranked)
+            step = make_train_step(cfg, opt_cfg, opt_impl=impl)
+            smap = make_train_step_smap(cfg, opt_cfg, mesh, pspecs,
+                                        sh.batch_specs(cfg, None, mesh),
+                                        opt_impl=impl)
+            secs = {"make_train_step": [], "make_train_step_smap": []}
+            for b in batches:
+                for name, fn, p, s in (("make_train_step", step, one, s1),
+                                       ("make_train_step_smap", smap,
+                                        ranked, s2)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn(p, s, b)
+                    torch.cuda.synchronize()
+                    secs[name].append(time.perf_counter() - t)
+            err = max(float((a - b).abs().max()) for a, b in zip(
+                _tree_leaves(one), _tree_leaves(ranked)))
+            log(f"[dist] {dist.get_backend()} world 1, mesh {mesh.shape}: "
+                f"make_train_step_smap against make_train_step, {impl}, "
+                f"reduced {cfg.name} float32, 3 steps: params max abs err "
+                f"{err:.3e} (tol 1e-5); seconds a step "
+                + json.dumps(secs))
+            if err > 1e-5:
+                raise AssertionError(f"the smap step ({impl}) differs")
+        # the 8-bit state of the smap run through the checkpoint manager
+        state = {"params": ranked, "opt": s2}
+        shd = {"params": sh.named(mesh, pspecs),
+               "opt": sh.named(mesh, sh.opt_specs_8bit(cfg, mesh, pspecs))}
+        ckpt = CheckpointManager(os.path.join(tmp, "ckpt8"))
+        ckpt.save(3, state, shardings=shd)
+        like = _tree_apply(torch.zeros_like, state)
+        back, meta = ckpt.restore(like, shardings=shd)
+        same = all(torch.equal(a, b) for a, b in zip(
+            _tree_leaves(back), _tree_leaves(state)))
+        kinds = {t.dtype for t in _tree_leaves(back["opt"])}
+        log(f"[dist] 8-bit state through the checkpoint manager (sharded "
+            f"save and restore): step {meta['step']}, equal {same}, moment "
+            f"types {sorted(str(k) for k in kinds)}")
+        if not same or not {torch.int8, torch.uint8} <= kinds:
+            raise AssertionError("the 8-bit state did not round-trip")
+        files = write_corpus_shards(os.path.join(tmp, "data"),
+                                    SyntheticCorpus(cfg.vocab, seed=1),
+                                    n_shards=2, tokens_per_shard=2000)
+        runs = {}
+        for name, kw in (("one card", {}), ("mesh", {"mesh": mesh})):
+            tcfg = TrainerConfig(steps=3, ckpt_every=100, log_every=100,
+                                 ckpt_dir=os.path.join(tmp, name),
+                                 opt=opt_cfg)
+            t = Trainer(cfg, ShardedLoader(files, seq_len=64, batch=2),
+                        tcfg, log=lambda s: None,
+                        params=_to_device(base, "cuda"), device="cuda", **kw)
+            runs[name] = (t.run()["losses"], t.params)
+        lerr = max(abs(a - b) for a, b in zip(runs["one card"][0],
+                                              runs["mesh"][0]))
+        perr = max(float((a - b).abs().max()) for a, b in zip(
+            _tree_leaves(runs["one card"][1]), _tree_leaves(runs["mesh"][1])))
+        log(f"[dist] Trainer(mesh={mesh.shape}) against the one-card "
+            f"Trainer, 3 steps: losses max abs err {lerr:.3e}, params "
+            f"{perr:.3e} (tol 1e-5)")
+        if max(lerr, perr) > 1e-5:
+            raise AssertionError("the Trainer on a mesh differs")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp)
+
+
+DIST_ARCH = "llama3-8b"
+
+
+def _tree_apply(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_apply(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def phase_training_state(torch, rows):
+    """Phase 15: (a), (b) the 8-bit AdamW on recurrentgemma-9b; (c)
+    error-feedback compression; (d) the data-parallel step, the Trainer
+    on a mesh and the sharded checkpoint on NCCL.  Prints its seconds."""
+    t0 = time.perf_counter()
+    phase_hybrid_8bit(torch, rows)
+    phase_ef(torch, rows)
+    free_card(torch)
+    phase_dist(torch)
+    log(f"[phase 15] {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3515,6 +3901,10 @@ def main() -> int:
     ap.add_argument("--lru-tiles", action="store_true",
                     help="phase 1, then time the RG-LRU scan kernel at the "
                          "training shape over tiles, and stop")
+    ap.add_argument("--training-state", action="store_true",
+                    help="phase 1, then phase 15 (the 8-bit AdamW, "
+                         "error-feedback compression and the data-parallel "
+                         "step on NCCL), and stop")
     ap.add_argument("--profile", action="store_true",
                     help="time phases 3's, 6's and 8's two step kinds, "
                          "then replay each on a fresh engine under "
@@ -3544,6 +3934,9 @@ def main() -> int:
         return 0
     if args.lru_tiles:
         lru_tile_sweep(torch)
+        return 0
+    if args.training_state:
+        phase_training_state(torch, [{} for _ in range(5)])
         return 0
     rows = [phase_ring_kernel(torch)]
     flash = phase_flash_kernels(torch)
@@ -3589,7 +3982,7 @@ def main() -> int:
             {"wx[0]": lambda p: p["layers"]["ssd"]["wx"][0],
              "A_log": lambda p: p["layers"]["ssd"]["A_log"],
              "embed[:4096]": lambda p: p["embed"][:4096]},
-            args.profile)["ssd_scan"]
+            args.profile, stats=PHASE5)["ssd_scan"]
         phase_trainer(torch, SSM_ARCH, ssd_ops.ssd_scan)
         free_card(torch)
         ssm = phase_engine(torch, SSM_ARCH, args.profile)
@@ -3618,7 +4011,7 @@ def main() -> int:
              "wq[0]": lambda p: p["groups"]["b2_attn"]["attn"]["wq"][0],
              "tail w_out": lambda p: p["tail"]["t1_rec"]["rec"]["w_out"],
              "embed[:4096]": lambda p: p["embed"][:4096]},
-            args.profile, S=HYBRID_S, layers=HYBRID_LAYERS)
+            args.profile, S=HYBRID_S, layers=HYBRID_LAYERS, stats=PHASE7)
         rows[4]["launches"] = hybrid["lru_scan"]
         rows[1]["hybrid_launches"] = hybrid["flash_attention_fwd"]
         rows[2]["hybrid_launches"] = hybrid["flash_attention_bwd"]
@@ -3639,6 +4032,7 @@ def main() -> int:
             ("card", "cuda", "blocked", None)] + CARD_VARIANTS["hybrid"])
         phase_moe(torch, rows)              # phase 13
         phase_vlm_encdec(torch, rows)       # phase 14
+        phase_training_state(torch, rows)   # phase 15
     ring_device_times(torch, rows[0])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -13,7 +13,16 @@ blocking=False)`` serializes on a writer thread and ``wait()`` joins it.
 Trees are nested dicts (and lists/tuples) of tensors; ``load_pytree``
 restores each leaf onto the device and into the dtype of the matching
 leaf of ``like``.  bf16 crosses as an int16 view in torch: no
-``ml_dtypes`` is needed.
+``ml_dtypes`` is needed; the 8-bit AdamW's int8 and uint8 moments are
+numpy's own types.
+
+Elastic restore (reshard-on-load): with ``shardings`` (a matching tree of
+``launch.sharding.NamedSharding``) each rank reads, of every leaf, only
+the slice its target spec gives it (a memory-mapped ``.npy``), whatever
+mesh wrote the checkpoint — a (data=4, model=2) layout restores onto
+(data=1, model=8), a different spread_rate or a degraded sub-mesh.
+``save(..., shardings=)`` gathers every leaf from the ranks' parts (a
+collective: every rank calls it) and the mesh's first rank writes.
 """
 from __future__ import annotations
 
@@ -100,26 +109,45 @@ def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def load_pytree(path: str, like):
+def load_pytree(path: str, like, *, shardings=None):
     """Restore into the structure of ``like`` (values replaced), each leaf
-    on its ``like`` leaf's device and in its dtype.  Returns (tree,
+    on its ``like`` leaf's device and in its dtype.  ``shardings``: a
+    matching tree of ``NamedSharding`` — each leaf is then this rank's
+    slice under its spec (read from a memory map).  Returns (tree,
     metadata)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
 
-    def restore(node, prefix):
+    def sub(t, k):
+        return t[k] if t is not None else None
+
+    def restore(node, prefix, shd):
         if isinstance(node, dict):
-            return {k: restore(v, f"{prefix}/{k}" if prefix else str(k))
-                    for k, v in node.items()}
+            return {k: restore(v, f"{prefix}/{k}" if prefix else str(k),
+                               sub(shd, k)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return type(node)(restore(v, f"{prefix}/{i}" if prefix else str(i))
+            return type(node)(restore(v, f"{prefix}/{i}" if prefix else
+                                      str(i), sub(shd, i))
                               for i, v in enumerate(node))
         e = by_path[prefix]
-        t = _from_numpy(np.load(os.path.join(path, e["file"])), e["dtype"])
+        arr = np.load(os.path.join(path, e["file"]),
+                      mmap_mode="r" if shd is not None else None)
+        if shd is not None:
+            from repro_torch.launch.sharding import local_slices
+            arr = np.array(arr[local_slices(arr.shape, shd.spec,
+                                            shd.mesh.comm())])
+        t = _from_numpy(arr, e["dtype"])
         return t.to(device=node.device, dtype=node.dtype)
 
-    return restore(like, ""), manifest["metadata"]
+    return restore(like, "", shardings), manifest["metadata"]
+
+
+def _first_sharding(shardings):
+    while isinstance(shardings, (dict, list, tuple)):
+        shardings = (next(iter(shardings.values())) if isinstance(
+            shardings, dict) else shardings[0])
+    return shardings
 
 
 class CheckpointManager:
@@ -146,13 +174,28 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree, *, metadata: Optional[Dict] = None,
-             blocking: bool = True):
+             blocking: bool = True, shardings=None):
+        """Write ``tree`` as step ``step``.  ``shardings``: ``tree`` holds
+        this rank's parts — every rank calls ``save``, the leaves are
+        gathered, the mesh's first rank writes and (``blocking``) the
+        others wait for it."""
         meta = dict(metadata or {}, step=step)
+        comm = None
+        if shardings is not None:
+            from repro_torch.launch.sharding import gather_tree
+            comm = _first_sharding(shardings).mesh.comm()
+            tree = gather_tree(tree, shardings)
+            if comm.rank != comm.mesh.devices.flat[0]:
+                if blocking:
+                    comm.barrier()
+                return
         # copy to the host before handing to the writer thread
         host_tree = _host_tree(tree)
         if blocking:
             save_pytree(self._step_dir(step), host_tree, metadata=meta)
             self._gc()
+            if comm is not None:
+                comm.barrier()
         else:
             self.wait()
 
@@ -168,12 +211,12 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore(self, like, *, step: Optional[int] = None):
+    def restore(self, like, *, step: Optional[int] = None, shardings=None):
         self.wait()
         step = step if step is not None else self.latest()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        return load_pytree(self._step_dir(step), like)
+        return load_pytree(self._step_dir(step), like, shardings=shardings)
 
     def _gc(self):
         steps = self.steps()

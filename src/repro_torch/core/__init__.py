@@ -6,7 +6,7 @@ controller — Algorithm 1 + approaches/policies (§4.1-4.3)
 layout     — Algorithm 2 + device-grid synthesis
 costmodel  — three-term roofline objective
 tasks      — §4.4 coroutines + chiplet-first work stealing
-scheduler  — global scheduler (migration via ``Tensor.to``)
+scheduler  — global scheduler (migration by ``Tensor.to`` or onto shardings)
 """
 from repro_torch.core.topology import ChipletTopology, HardwareSpec, production_topology
 from repro_torch.core.counters import PerfCounters

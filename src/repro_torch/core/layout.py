@@ -3,8 +3,8 @@
 The paper's placement function maps a task ``rank`` to a (chiplet, slot,
 core) under the current ``spread_rate`` and binds memory to the matching
 NUMA node.  Here the same arithmetic produces the device permutation from
-which the (replica, model) grid of torch devices for the chosen layout is
-built:
+which the (replica, model) grid of ranks for the chosen layout is built
+(``Layout.make_mesh``, a ``launch.mesh.Mesh``):
 
   spread_rate s = chiplet groups per model replica
     -> model-parallel degree  m = s * chips_per_group
@@ -110,15 +110,14 @@ class Layout:
         return out
 
     def make_mesh(self, devices=None):
-        """The layout's device grid: a nested list of torch devices shaped
-        (replicas, model) — or (pods, replicas_per_pod, model) with the pod
-        axis — in Algorithm 2's placement order.  ``devices`` defaults to
-        every visible CUDA device."""
-        import torch
+        """The layout's ``launch.mesh.Mesh``: ``devices`` (by default the
+        ranks ``0 .. total_chips - 1``, one card each) in Algorithm 2's
+        placement order, axes (data, model) — or (pod, data, model) with
+        the pod axis."""
+        from repro_torch.launch.mesh import Mesh
 
         if devices is None:
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
+            devices = range(self.topology.total_chips)
         devices = list(devices)
         order = self.device_order()
         dev_arr = np.empty(len(devices), dtype=object)
@@ -128,7 +127,8 @@ class Layout:
             t = self.topology
             dev_arr = dev_arr.reshape(t.n_pods, self.replicas_per_pod,
                                       self.model_degree)
-        return dev_arr.tolist()
+            return Mesh(dev_arr, ("pod", "data", "model"))
+        return Mesh(dev_arr, ("data", "model"))
 
     # -- capacity (Fig. 5 working-set test) -----------------------------------
     def replica_hbm(self) -> float:

@@ -282,13 +282,29 @@ class TieredQueues:
         return None, None
 
 
-def migrate_pytree(tree: Any, device: Any) -> Any:
-    """Move a nested dict/list/tuple of tensors onto ``device`` (task
-    migration); non-tensor leaves pass through."""
+def migrate_pytree(tree: Any, target: Any, *, src: Any = None) -> Any:
+    """Move a nested dict/list/tuple of tensors (task migration).
+
+    ``target`` a device: every tensor moves there.  ``target`` a tree of
+    ``launch.sharding.NamedSharding`` (or one for every leaf): each leaf —
+    this rank's part under ``src``, a matching tree of the old shardings
+    (None: the leaf is whole) — is gathered over the old mesh and sliced
+    for the new one; every rank of both meshes takes part.  Non-tensor
+    leaves pass through."""
+    from repro_torch.launch import sharding as sh
+
+    def sub(t, k):
+        return t[k] if isinstance(t, (dict, list, tuple)) else t
+
     if isinstance(tree, torch.Tensor):
-        return tree.to(device)
+        if isinstance(target, sh.NamedSharding):
+            full = sh.gather(tree, src) if src is not None else tree
+            return sh.shard(full, target)
+        return tree.to(target)
     if isinstance(tree, dict):
-        return {k: migrate_pytree(v, device) for k, v in tree.items()}
+        return {k: migrate_pytree(v, sub(target, k), src=sub(src, k))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(migrate_pytree(v, device) for v in tree)
+        return type(tree)(migrate_pytree(v, sub(target, i), src=sub(src, i))
+                          for i, v in enumerate(tree))
     return tree

@@ -1,1 +1,1 @@
-"""Step factories the serving engine calls."""
+"""Step factories, meshes and sharding rules."""

@@ -8,13 +8,18 @@ steps update the pool in place, and each returns what it updated.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import sharding as sh
 from repro_torch.models import decode as dec
 from repro_torch.models import transformer as T
-from repro_torch.models.params import STACKED, tree_map
-from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.models.params import STACKED, model_def, tree_map
+from repro_torch.optim.adamw import (AdamWConfig, _leaves, _pieces,
+                                     adamw_update)
+from repro_torch.optim.quantized import adamw8bit_update
 
 
 def _grad_tree(cfg: ModelConfig, params):
@@ -51,19 +56,49 @@ def _grad_tree(cfg: ModelConfig, params):
     return tree, grads
 
 
-def value_and_grad(cfg: ModelConfig, params, batch):
+def value_and_grad(cfg: ModelConfig, params, batch, gather_specs=None):
     """``loss_fn``'s value and its gradient for every parameter leaf:
     (loss, {"ce", "aux"}, grads shaped like params, in the params'
     types)."""
     tree, grads = _grad_tree(cfg, params)
-    loss, parts = T.loss_fn(tree, cfg, batch)
+    loss, parts = T.loss_fn(tree, cfg, batch, gather_specs=gather_specs)
     loss.backward()
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
 
+UPDATES = {"adamw": adamw_update, "adamw8bit": adamw8bit_update}
+
+
+def _update_fn(opt_impl: str):
+    if opt_impl not in UPDATES:
+        raise ValueError(f"unknown opt_impl {opt_impl!r}")
+    return UPDATES[opt_impl]
+
+
+def _grads(cfg: ModelConfig, params, batch, microbatches: int,
+           value_and_grad_fn):
+    """(loss, parts, grads) of the batch: ``value_and_grad_fn(params,
+    batch)`` once, or over ``microbatches`` with the gradients summed in
+    float32 and every result divided by their count."""
+    if microbatches == 1:
+        return value_and_grad_fn(params, batch)
+    m = microbatches
+    grads = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    loss = ce = aux = 0.0
+    for j in range(m):
+        l, p, g = value_and_grad_fn(params, _microbatch(batch, j, m))
+        _tree_zip(lambda a, b: a.add_(b), grads, g)
+        loss, ce, aux = loss + l, ce + p["ce"], aux + p["aux"]
+        del g
+    grads = tree_map(lambda x: x.div_(m), grads)
+    return loss / m, {"ce": ce / m, "aux": aux / m}, grads
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     grad_transform=None, microbatches: int = 1,
-                    opt_impl: str = "adamw", ef_transform=None):
+                    opt_impl: str = "adamw", gather_specs=None,
+                    ef_transform=None):
     """(params, opt_state, batch) -> (params', opt_state', metrics), the
     first two updated in place; metrics ``loss, ce, aux, grad_norm, lr``
     as 0-d tensors on the device.
@@ -71,40 +106,206 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     ``microbatches > 1`` splits the batch (microbatch j takes rows j,
     j + m, ..., as the JAX reshape does: ``_microbatch``) and accumulates
     the gradients in float32; the optimizer sees their mean.
-    ``grad_transform`` hooks in a stateless gradient transform."""
-    if opt_impl == "adamw8bit":
-        raise NotImplementedError("the 8-bit AdamW (optim/quantized.py) is "
-                                  "not ported yet (ROADMAP A item 10)")
-    if opt_impl != "adamw":
-        raise ValueError(f"unknown opt_impl {opt_impl!r}")
-    if ef_transform is not None:
-        raise NotImplementedError("error-feedback gradient compression "
-                                  "(compression/) is not ported yet "
-                                  "(ROADMAP A item 10)")
+    ``grad_transform`` hooks in a stateless gradient transform.
+    ``opt_impl``: "adamw" (float32 moments, ``init_opt_state``) or
+    "adamw8bit" (int8 / uint8 moments, ``init_opt_state_8bit``).
+    ``gather_specs`` goes to ``loss_fn`` (the per-layer gather points;
+    specs without callables do nothing).  ``ef_transform`` hooks in
+    stateful gradient compression (``compression``): the step becomes
+    (params, opt_state, batch, ef) -> (params', opt_state', metrics,
+    ef')."""
+    update = _update_fn(opt_impl)
+    vg = lambda p, b: value_and_grad(cfg, p, b, gather_specs)
 
-    def train_step(params, opt_state, batch):
-        if microbatches == 1:
-            loss, parts, grads = value_and_grad(cfg, params, batch)
-        else:
-            m = microbatches
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            loss = ce = aux = 0.0
-            for j in range(m):
-                l, p, g = value_and_grad(cfg, params,
-                                         _microbatch(batch, j, m))
-                _tree_zip(lambda a, b: a.add_(b), grads, g)
-                loss, ce, aux = loss + l, ce + p["ce"], aux + p["aux"]
-                del g
-            grads = tree_map(lambda x: x.div_(m), grads)
-            loss, parts = loss / m, {"ce": ce / m, "aux": aux / m}
-        if grad_transform is not None:
+    def train_step(params, opt_state, batch, ef=None):
+        loss, parts, grads = _grads(cfg, params, batch, microbatches, vg)
+        if ef_transform is not None:
+            grads, ef = ef_transform(grads, ef)
+        elif grad_transform is not None:
             grads = grad_transform(grads)
-        params, opt_state, om = adamw_update(grads, opt_state, params,
-                                             opt_cfg)
+        params, opt_state, om = update(grads, opt_state, params, opt_cfg)
         metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"],
                    **om}
+        if ef_transform is not None:
+            return params, opt_state, metrics, ef
         return params, opt_state, metrics
+
+    if ef_transform is None:
+        # the 3-argument signature for stateless callers, as in JAX
+        stateful = train_step
+
+        def train_step(params, opt_state, batch):      # noqa: F811
+            return stateful(params, opt_state, batch)
+
+    return train_step
+
+
+def _zero_dim(pspec, ospec, ndim: int):
+    """The dim ZeRO-1 adds "data" to (a moment shard is a slice of the
+    param shard along it), or None."""
+    for i in range(ndim):
+        pa = sh.entry_axes(pspec[i]) if i < len(pspec) else ()
+        oa = sh.entry_axes(ospec[i]) if i < len(ospec) else ()
+        if "data" in oa and "data" not in pa:
+            return i
+    return None
+
+
+def make_train_step_smap(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
+                         pspecs, batch_specs, *, microbatches: int = 1,
+                         opt_impl: str = "adamw", compress_pod: bool = False,
+                         ef_transform=None):
+    """Data-parallel train step with ONE gradient sync a step, on
+    ``torch.distributed`` (the JAX package's ``make_train_step_smap``).
+
+    (params, opt_state, batch) -> (params', opt_state', metrics): this
+    rank's shards of the parameters (``pspecs``) and of the optimizer
+    state (``sharding.opt_specs`` or, for "adamw8bit",
+    ``sharding.opt_specs_8bit``: ZeRO-1), updated in place, and the
+    GLOBAL batch, of
+    which the rank takes its rows by ``batch_specs``.  Every rank of
+    ``mesh`` calls it; ``mesh.comm()`` needs an initialized process group
+    of at least ``mesh.size`` ranks (none for a mesh of one).
+
+    The batch axes ("pod", "data") are manual: every rank computes the
+    gradient of its rows' mean loss.  Each leaf its spec shards is
+    gathered on use (``sharding.gather_on_use``: the stacked layers'
+    leaves when their layer runs, through ``loss_fn``'s ``gather_specs``,
+    the others at the top), so a data-sharded (FSDP) leaf's gradient comes
+    back summed over "data" and sliced; a model-sharded leaf's is sliced
+    only (the ranks of "model" see the same rows and repeat the same
+    compute).  Then, as the JAX ``sync``: FSDP leaves are summed over
+    "pod", the others over ("pod", "data") — or, with ``compress_pod``,
+    over "data" and then sent as int8 over "pod" (each pod scales by the
+    max |g| of its own sum, and every rank multiplies the pods' summed
+    int8 values by its own pod's scale, as the JAX step's does) — and
+    every sum is divided by the number of batch shards.  Loss and parts
+    are averaged over the batch axes.  The gradient norm is the global
+    gradient's: each leaf's squares are summed over the ranks of a pod
+    that hold its distinct parts.  ``ef_transform(grads, ef, rows=...)``
+    (the Trainer's cross-pod compression) then runs on the synced shards,
+    and the step takes and returns ``ef``.  The update runs on each rank's
+    moment shards: where ZeRO-1 cut a moment along a dim the param shard
+    keeps whole, the rank updates that slice and the slices are gathered
+    over "data"; a row the mesh cuts reduces its 8-bit scale over the
+    ranks that share it."""
+    update = _update_fn(opt_impl)
+    comm = mesh.comm()
+    manual = tuple(a for a in sh.BATCH_AXES if a in mesh.axis_names)
+    plane = tuple(a for a in mesh.axis_names if a != "pod")
+    nsh = comm.size(manual)
+    ospecs = (sh.opt_specs_8bit if opt_impl == "adamw8bit"
+              else sh.opt_specs)(cfg, mesh, pspecs)
+    qspecs = sh.q_specs(ospecs["m"])
+    pshard = sh.named(mesh, pspecs)
+    # as the JAX step's ``manualize``: a batch entry that is one manual
+    # axis is split over it; a tuple of axes — ("pod", "data") on a mesh
+    # with a pod axis — is no manual axis, so every rank takes those rows
+    # whole (ROADMAP C)
+    bshard = {k: sh.NamedSharding(mesh, sh.P(*(
+        e if isinstance(e, str) and e in manual else None for e in spec)))
+        for k, spec in batch_specs.items()}
+
+    # per-layer gather callables for the stacked subtrees (specs without
+    # the layer axis); the other top-level leaves are gathered in loss_of
+    gtree = {}
+    for key in STACKED:
+        if key in pspecs:
+            gtree[key] = tree_map(
+                lambda s: functools.partial(
+                    sh.gather_on_use,
+                    sharding=sh.NamedSharding(mesh, sh.P(*s[1:]))),
+                pspecs[key])
+
+    def loss_of(tree, b):
+        tree = dict(tree)
+        for k in tree:
+            if k not in STACKED:
+                tree[k] = tree_map(sh.gather_on_use, tree[k], pshard[k])
+        return T.loss_fn(tree, cfg, b, gather_specs=gtree)
+
+    def vg(params, b):
+        tree, grads = _grad_tree(cfg, params)
+        loss, parts = loss_of(tree, b)
+        loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
+            grads
+
+    def sync(g, spec):
+        axes = {a for _, ax in sh.sharded_dims(spec, g.dim()) for a in ax}
+        if "data" in axes:                       # FSDP: summed over data
+            if "pod" in manual:
+                comm.all_reduce(g, ("pod",))
+            return g.div_(nsh)
+        if compress_pod and "pod" in manual:
+            comm.all_reduce(g, ("data",))
+            amax = g.abs().amax().reshape(1)
+            model = [a for a in sorted(axes) if a not in manual]
+            if model:                            # the leaf's other parts
+                comm.all_reduce(amax, model, "max")
+            scale = amax / 127.0 + 1e-12
+            q = torch.round(g / scale).clamp_(-127, 127).to(torch.int8)
+            pods = comm.all_gather(q.reshape(1, -1), ("pod",), 0)
+            total = pods[0].to(g.dtype)
+            for row in pods[1:]:
+                total = total + row.to(g.dtype)
+            return total.reshape(g.shape).mul_(scale).div_(nsh)
+        comm.all_reduce(g, manual)
+        return g.div_(nsh)
+
+    def norm(grads):
+        total = None
+        for g, spec in zip(_leaves(grads), _leaves(pspecs)):
+            axes = {a for _, ax in sh.sharded_dims(spec, g.dim()) for a in ax}
+            rep = comm.size([a for a in plane if a not in axes])
+            sq = sum(p.float().square().sum() for p in _pieces(g)) / rep
+            total = sq if total is None else total + sq
+        return torch.sqrt(comm.all_reduce(total.reshape(1), plane))[0]
+
+    ndims = tree_map(lambda d: len(d.shape), model_def(cfg))
+    # the rows a mesh axis cuts: the 8-bit moments' and the compressed
+    # gradients' row groups
+    q_rows = sh.row_groups(qspecs, ndims, mesh)
+    g_rows = sh.row_groups(pspecs, ndims, mesh)
+    # ZeRO-1: each rank updates the slice of its param shard that its
+    # moment shard covers, then the slices are gathered over "data"
+    cut = tree_map(lambda ps, os_, nd: _zero_dim(ps, os_, nd), pspecs,
+                   qspecs, ndims)
+    j, n_data = comm.index(("data",)), comm.size(("data",))
+
+    def narrow(t, z):
+        if z is None:
+            return t
+        n = t.shape[z] // n_data
+        return t.narrow(z, j * n, n)
+
+    def train_step(params, opt_state, batch, ef=None):
+        lb = {k: sh.shard(v, bshard[k]) for k, v in batch.items()}
+        loss, parts, grads = _grads(cfg, params, lb, microbatches, vg)
+        grads = tree_map(sync, grads, pspecs)
+        loss = comm.all_reduce(loss.reshape(1).clone(), manual)[0] / nsh
+        parts = {k: comm.all_reduce(v.reshape(1).clone(), manual)[0] / nsh
+                 for k, v in parts.items()}
+        if ef_transform is not None:
+            grads, ef = ef_transform(grads, ef, rows=g_rows)
+        gnorm = norm(grads)
+        pv = tree_map(narrow, params, cut)
+        kw = {"rows": q_rows} if opt_impl == "adamw8bit" else {}
+        _, _, om = update(tree_map(narrow, grads, cut), opt_state, pv,
+                          opt_cfg, gnorm=gnorm, **kw)
+        tree_map(lambda p, v, z: z is not None and p.copy_(
+            comm.all_gather(v, ("data",), z)), params, pv, cut)
+        metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"],
+                   **om}
+        if ef_transform is not None:
+            return params, opt_state, metrics, ef
+        return params, opt_state, metrics
+
+    if ef_transform is None:
+        stateful = train_step
+
+        def train_step(params, opt_state, batch):      # noqa: F811
+            return stateful(params, opt_state, batch)
 
     return train_step
 

@@ -39,42 +39,51 @@ def torch_dtype(name: str) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "fan_in"       # fan_in | zeros | ones | const:<v> | normal:<std>
 
     def stacked(self, n: int) -> "ParamDef":
-        return ParamDef((n,) + self.shape, self.init)
+        return ParamDef((n,) + self.shape, ("layer",) + self.axes, self.init)
 
 
 def _attn_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
     D, Hq, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": ParamDef((D, Hq, dh)), "wk": ParamDef((D, Hkv, dh)),
-            "wv": ParamDef((D, Hkv, dh)), "wo": ParamDef((Hq, dh, D))}
+    return {"wq": ParamDef((D, Hq, dh), ("embed", "heads", None)),
+            "wk": ParamDef((D, Hkv, dh), ("embed", "kv_heads", None)),
+            "wv": ParamDef((D, Hkv, dh), ("embed", "kv_heads", None)),
+            "wo": ParamDef((Hq, dh, D), ("heads", None, "embed"))}
+
+
+def _glu(cfg: ModelConfig) -> bool:
+    return cfg.activation in ("swiglu", "gelu_glu", "relu_glu")
 
 
 def _mlp_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
     D, F = cfg.d_model, cfg.d_ff
-    glu = cfg.activation in ("swiglu", "gelu_glu", "relu_glu")
-    wi = ParamDef((D, 2, F)) if glu else ParamDef((D, F))
-    return {"wi": wi, "wo": ParamDef((F, D))}
+    wi = ParamDef((D, 2, F), ("embed", None, "ff")) if _glu(cfg) else \
+        ParamDef((D, F), ("embed", "ff"))
+    return {"wi": wi, "wo": ParamDef((F, D), ("ff", "embed"))}
 
 
 def _moe_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
     D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    glu = cfg.activation in ("swiglu", "gelu_glu", "relu_glu")
-    wi = ParamDef((E, D, 2, F)) if glu else ParamDef((E, D, F))
-    return {"router": ParamDef((D, E)), "wi": wi, "wo": ParamDef((E, F, D))}
+    wi = ParamDef((E, D, 2, F), ("expert", "embed", None, "ff")) \
+        if _glu(cfg) else ParamDef((E, D, F), ("expert", "embed", "ff"))
+    return {"router": ParamDef((D, E), ("embed", None)), "wi": wi,
+            "wo": ParamDef((E, F, D), ("expert", "ff", "embed"))}
 
 
 def _rglru_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
     D, W, K = cfg.d_model, cfg.lru_width, cfg.conv_width
     return {
-        "w_gate": ParamDef((D, W)), "w_in": ParamDef((D, W)),
-        "conv_w": ParamDef((K, W), "normal:0.05"),
-        "conv_b": ParamDef((W,), "zeros"),
-        "w_a": ParamDef((W, W), "normal:0.01"),
-        "w_x": ParamDef((W, W), "normal:0.01"),
-        "lam": ParamDef((W,), "const:-5.0"),
-        "w_out": ParamDef((W, D)),
+        "w_gate": ParamDef((D, W), ("embed", "lru")),
+        "w_in": ParamDef((D, W), ("embed", "lru")),
+        "conv_w": ParamDef((K, W), (None, "lru"), "normal:0.05"),
+        "conv_b": ParamDef((W,), ("lru",), "zeros"),
+        "w_a": ParamDef((W, W), (None, "lru"), "normal:0.01"),
+        "w_x": ParamDef((W, W), (None, "lru"), "normal:0.01"),
+        "lam": ParamDef((W,), ("lru",), "const:-5.0"),
+        "w_out": ParamDef((W, D), ("lru", "embed")),
     }
 
 
@@ -82,42 +91,43 @@ def _ssd_def(cfg: ModelConfig) -> Dict[str, ParamDef]:
     D, di, K = cfg.d_model, cfg.d_inner, cfg.conv_width
     GN, H = cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
     return {
-        "wz": ParamDef((D, di)), "wx": ParamDef((D, di)),
-        "wB": ParamDef((D, GN)), "wC": ParamDef((D, GN)),
-        "wdt": ParamDef((D, H)),
-        "conv_x": ParamDef((K, di), "normal:0.05"),
-        "bx": ParamDef((di,), "zeros"),
-        "conv_B": ParamDef((K, GN), "normal:0.05"),
-        "bB": ParamDef((GN,), "zeros"),
-        "conv_C": ParamDef((K, GN), "normal:0.05"),
-        "bC": ParamDef((GN,), "zeros"),
-        "A_log": ParamDef((H,), "const:0.0"),
-        "dt_bias": ParamDef((H,), "const:-2.0"),
-        "D_skip": ParamDef((H,), "ones"),
-        "norm": ParamDef((di,), "ones"),
-        "out_proj": ParamDef((di, D)),
+        "wz": ParamDef((D, di), ("embed", "ssd_inner")),
+        "wx": ParamDef((D, di), ("embed", "ssd_inner")),
+        "wB": ParamDef((D, GN), ("embed", "ssd_bc")),
+        "wC": ParamDef((D, GN), ("embed", "ssd_bc")),
+        "wdt": ParamDef((D, H), ("embed", "ssd_heads")),
+        "conv_x": ParamDef((K, di), (None, "ssd_inner"), "normal:0.05"),
+        "bx": ParamDef((di,), ("ssd_inner",), "zeros"),
+        "conv_B": ParamDef((K, GN), (None, "ssd_bc"), "normal:0.05"),
+        "bB": ParamDef((GN,), ("ssd_bc",), "zeros"),
+        "conv_C": ParamDef((K, GN), (None, "ssd_bc"), "normal:0.05"),
+        "bC": ParamDef((GN,), ("ssd_bc",), "zeros"),
+        "A_log": ParamDef((H,), ("ssd_heads",), "const:0.0"),
+        "dt_bias": ParamDef((H,), ("ssd_heads",), "const:-2.0"),
+        "D_skip": ParamDef((H,), ("ssd_heads",), "ones"),
+        "norm": ParamDef((di,), ("ssd_inner",), "ones"),
+        "out_proj": ParamDef((di, D), ("ssd_inner", "embed")),
     }
 
 
 def layer_def(cfg: ModelConfig, layer_type: str) -> Dict:
     D = cfg.d_model
+    ln = lambda: ParamDef((D,), (None,), "ones")
     if layer_type == "attn":
         ffn = {"moe": _moe_def(cfg)} if cfg.n_experts else \
             {"mlp": _mlp_def(cfg)}
-        return {"ln1": ParamDef((D,), "ones"), "attn": _attn_def(cfg),
-                "ln2": ParamDef((D,), "ones"), **ffn}
+        return {"ln1": ln(), "attn": _attn_def(cfg), "ln2": ln(), **ffn}
     if layer_type == "rec":
-        return {"ln1": ParamDef((D,), "ones"), "rec": _rglru_def(cfg),
-                "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
+        return {"ln1": ln(), "rec": _rglru_def(cfg), "ln2": ln(),
+                "mlp": _mlp_def(cfg)}
     if layer_type == "ssd":
-        return {"ln": ParamDef((D,), "ones"), "ssd": _ssd_def(cfg)}
+        return {"ln": ln(), "ssd": _ssd_def(cfg)}
     if layer_type == "enc":
-        return {"ln1": ParamDef((D,), "ones"), "attn": _attn_def(cfg),
-                "ln2": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
+        return {"ln1": ln(), "attn": _attn_def(cfg), "ln2": ln(),
+                "mlp": _mlp_def(cfg)}
     if layer_type == "dec":
-        return {"ln1": ParamDef((D,), "ones"), "attn": _attn_def(cfg),
-                "ln2": ParamDef((D,), "ones"), "cross": _attn_def(cfg),
-                "ln3": ParamDef((D,), "ones"), "mlp": _mlp_def(cfg)}
+        return {"ln1": ln(), "attn": _attn_def(cfg), "ln2": ln(),
+                "cross": _attn_def(cfg), "ln3": ln(), "mlp": _mlp_def(cfg)}
     raise ValueError(layer_type)
 
 
@@ -132,16 +142,16 @@ def hybrid_structure(cfg: ModelConfig):
 
 def model_def(cfg: ModelConfig) -> Dict:
     D, V, L = cfg.d_model, cfg.vocab_padded, cfg.n_layers
-    out: Dict = {"embed": ParamDef((V, D), "normal:0.02"),
-                 "final_norm": ParamDef((D,), "ones")}
+    out: Dict = {"embed": ParamDef((V, D), ("vocab", None), "normal:0.02"),
+                 "final_norm": ParamDef((D,), (None,), "ones")}
     if not cfg.tie_embeddings:
-        out["head"] = ParamDef((D, V))
+        out["head"] = ParamDef((D, V), (None, "vocab"))
     if cfg.family == "encdec":
         out["enc_layers"] = tree_map(lambda p: p.stacked(cfg.enc_layers),
                                      layer_def(cfg, "enc"))
         out["dec_layers"] = tree_map(lambda p: p.stacked(cfg.dec_layers),
                                      layer_def(cfg, "dec"))
-        out["enc_norm"] = ParamDef((D,), "ones")
+        out["enc_norm"] = ParamDef((D,), (None,), "ones")
         return out
     if cfg.block_pattern:
         pattern, n_groups, tail = hybrid_structure(cfg)
@@ -159,11 +169,14 @@ def model_def(cfg: ModelConfig) -> Dict:
 STACKED = ("layers", "groups", "enc_layers", "dec_layers")
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a nested dict, same structure."""
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to every leaf of a nested dict (and the matching
+    leaves of the dicts ``rest``, of the same structure), same
+    structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def _leaves(tree, prefix=()):
@@ -172,6 +185,13 @@ def _leaves(tree, prefix=()):
             yield from _leaves(v, prefix + (k,))
     else:
         yield prefix, tree
+
+
+def logical_axes(cfg: ModelConfig) -> Dict:
+    """The parameter tree with each leaf's logical axis names (a tuple,
+    None for a replicated axis), mapped to mesh axes by
+    ``launch.sharding``."""
+    return tree_map(lambda p: p.axes, model_def(cfg))
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[Tuple[str, ...], Tuple[int, ...]]:

@@ -30,9 +30,15 @@ What differs from the JAX forward:
   group, as the JAX forward remats ``group_body`` — in the backward pass
   (``torch.utils.checkpoint``, which saves only the input, as JAX's
   ``"full"`` policy does).
-* ``head_pad_to`` and the sharding pins (``_shard_padded_heads``,
-  ``_seq_gather``, ``_wsc_tree``) do nothing on one card and are not
-  ported.
+* ``head_pad_to`` and the sharding pins ``_shard_padded_heads`` and
+  ``_seq_gather`` do nothing without GSPMD and are not ported.
+  ``gather_specs`` (``forward``, ``encode``, ``decoder_forward``,
+  ``loss_fn``) marks the points where the JAX forward constrains each
+  layer's leaves (``_wsc_tree``): a leaf given a callable there is
+  replaced by its result when its layer runs — the data-parallel train
+  step (``launch.steps.make_train_step_smap``) gathers a rank's shards
+  of the layer's weights there, inside the recomputed region under
+  remat; a leaf given a ``PartitionSpec`` (no mesh) is left as it is.
 * An MoE layer's feed-forward is ``moe.moe_apply`` at the configured
   capacity here (the serving steps call it dropless); each layer's
   ``lb_loss`` is summed into the aux that ``forward`` returns.
@@ -201,6 +207,24 @@ def tail_layers(tail):
     return [(n, n.split("_", 1)[1]) for n in names]
 
 
+def _wsc_tree(lp, specs):
+    """A layer's parameters with each leaf that ``specs`` gives a callable
+    replaced by its result (the gather of a rank's shards); a
+    ``PartitionSpec`` leaf, or no ``specs``, leaves the leaf as it is."""
+    if specs is None:
+        return lp
+    if isinstance(lp, dict):
+        return {k: _wsc_tree(v, specs[k]) for k, v in lp.items()}
+    return specs(lp) if callable(specs) else lp
+
+
+def _gathered(fn, specs):
+    """``fn(x, p)`` on ``p`` after ``_wsc_tree(p, specs)``."""
+    if specs is None:
+        return fn
+    return lambda x, p: fn(x, _wsc_tree(p, specs))
+
+
 def _run(fn, x, p, cfg: ModelConfig):
     """``fn(x, p)``, recomputed in the backward pass unless remat is off."""
     if cfg.remat == "none":
@@ -217,7 +241,7 @@ def _stack_states(states):
             for k in states[0]}
 
 
-def _walk(params, cfg: ModelConfig, x, rope, run, keep):
+def _walk(params, cfg: ModelConfig, x, rope, run, keep, gather_specs=None):
     """Every layer of the stack in the JAX package's order: a hybrid's
     groups (each its pattern's layers), then its tail; otherwise
     ``n_layers`` layers of one type.  ``run(fn, x, p)`` applies a group or
@@ -226,7 +250,10 @@ def _walk(params, cfg: ModelConfig, x, rope, run, keep):
     layer's decode state, or is None to drop the states.  Returns (x,
     states, aux): ``layers`` stacked, or a hybrid's ``groups`` stacked and
     ``tail`` by name, None without ``keep``; aux the sum of every layer's
-    ``lb_loss`` (float32, 0 without MoE layers)."""
+    ``lb_loss`` (float32, 0 without MoE layers).  ``gather_specs``: the
+    ``groups`` or ``layers`` subtree is applied to each group's or layer's
+    parameters inside ``run`` (``_wsc_tree``)."""
+    gs = gather_specs or {}
     def one(x, lp, t):
         x, s, aux = apply_layer(x, lp, cfg, t, rope, window=_window(cfg, t))
         lb = aux.get("lb_loss", torch.zeros((), device=x.device))
@@ -246,7 +273,8 @@ def _walk(params, cfg: ModelConfig, x, rope, run, keep):
         _, n_groups, _ = hybrid_structure(cfg)
         groups, tail = [], {}
         for g in range(n_groups):
-            x, st, lb = run(group, x, layer_params(params["groups"], g))
+            x, st, lb = run(_gathered(group, gs.get("groups")), x,
+                            layer_params(params["groups"], g))
             groups.append(st)
             total = total + lb
         for nm, t in tail_layers(params["tail"]):
@@ -256,10 +284,10 @@ def _walk(params, cfg: ModelConfig, x, rope, run, keep):
             return x, None, total
         return x, {"groups": _stack_states(groups), "tail": tail}, total
     lt = cfg.layer_types()[0]
+    layer = _gathered(lambda x_, lp: one(x_, lp, lt), gs.get("layers"))
     states = []
     for i in range(cfg.n_layers):
-        x, s, lb = run(lambda x_, lp: one(x_, lp, lt), x,
-                       layer_params(params["layers"], i))
+        x, s, lb = run(layer, x, layer_params(params["layers"], i))
         states.append(s)
         total = total + lb
     if keep is None:
@@ -280,7 +308,7 @@ def _merge_vlm(params, cfg: ModelConfig, tokens, extras):
 
 
 def forward(params, cfg: ModelConfig, tokens, extras=None, *,
-            return_states=False, state_fn=None):
+            return_states=False, state_fn=None, gather_specs=None):
     """Full-sequence forward to the final hidden states: (x (B, S, D),
     aux loss: the sum of the MoE layers' ``lb_loss``).  ``extras`` carries
     a VLM's ``vision_embeds`` (B, Sv, D), which go ahead of the text
@@ -305,11 +333,12 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
         with torch.no_grad():
             x, states, aux = _walk(params, cfg, x, rope,
                                    lambda fn, x_, p: fn(x_, p),
-                                   state_fn or (lambda s, t: s))
+                                   state_fn or (lambda s, t: s),
+                                   gather_specs)
             x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, states, aux
     x, _, aux = _walk(params, cfg, x, rope, functools.partial(_run, cfg=cfg),
-                      None)
+                      None, gather_specs)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
 
@@ -318,7 +347,7 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
 # Encoder-decoder
 # ---------------------------------------------------------------------------
 
-def encode(params, cfg: ModelConfig, frame_embeds):
+def encode(params, cfg: ModelConfig, frame_embeds, gather_specs=None):
     """frame_embeds: (B, S_src, D), precomputed by the stub frontend ->
     the encoder's output (B, S_src, D): non-causal self-attention layers,
     then ``enc_norm``."""
@@ -328,6 +357,7 @@ def encode(params, cfg: ModelConfig, frame_embeds):
     def layer(x, lp):
         return apply_layer(x, lp, cfg, "enc", rope, causal=False)[0]
 
+    layer = _gathered(layer, (gather_specs or {}).get("enc_layers"))
     for i in range(cfg.enc_layers):
         x = _run(layer, x, layer_params(params["enc_layers"], i), cfg)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
@@ -350,7 +380,7 @@ def _dec_layer(x, lp, cfg: ModelConfig, rope, enc_out):
 
 
 def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
-                    return_states=False, state_fn=None):
+                    return_states=False, state_fn=None, gather_specs=None):
     """The decoder over target ``tokens`` (B, S) attending to ``enc_out``
     (B, S_src, D): the final hidden states (B, S, D).  With
     ``return_states`` (the prefill path) returns (x, states), the layers
@@ -374,16 +404,19 @@ def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
     def layer(x, lp):
         return _dec_layer(x, lp, cfg, rope, enc_out)[0]
 
+    layer = _gathered(layer, (gather_specs or {}).get("dec_layers"))
     for i in range(cfg.dec_layers):
         x = _run(layer, x, layer_params(layers, i), cfg)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def encdec_forward(params, cfg: ModelConfig, tokens, extras):
+def encdec_forward(params, cfg: ModelConfig, tokens, extras,
+                   gather_specs=None):
     """``extras["frame_embeds"]`` through the encoder, then the decoder
     over ``tokens``: (x (B, S, D), aux 0)."""
-    enc_out = encode(params, cfg, extras["frame_embeds"])
-    x = decoder_forward(params, cfg, tokens, enc_out)
+    enc_out = encode(params, cfg, extras["frame_embeds"], gather_specs)
+    x = decoder_forward(params, cfg, tokens, enc_out,
+                        gather_specs=gather_specs)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -413,14 +446,17 @@ def chunked_ce_loss(params, cfg: ModelConfig, x, targets, mask):
     return total / count.clamp_min(1.0)
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01):
+def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01,
+            gather_specs=None):
     """batch: tokens / targets / mask tensors and the family's extras.
     Returns (loss, {"ce", "aux"})."""
     extras = {k: v for k, v in batch.items()
               if k not in ("tokens", "targets", "mask")}
     if cfg.family == "encdec":
-        x, aux = encdec_forward(params, cfg, batch["tokens"], extras)
+        x, aux = encdec_forward(params, cfg, batch["tokens"], extras,
+                                gather_specs)
     else:
-        x, aux = forward(params, cfg, batch["tokens"], extras)
+        x, aux = forward(params, cfg, batch["tokens"], extras,
+                         gather_specs=gather_specs)
     ce = chunked_ce_loss(params, cfg, x, batch["targets"], batch["mask"])
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}

@@ -54,13 +54,22 @@ def _leaves(tree) -> Iterator[torch.Tensor]:
         yield tree
 
 
-def _pieces(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Views of ``t`` along its first axis of at most ``PIECE`` elements
-    each (at least one row: a whole layer slice of a stacked leaf)."""
-    if t.dim() == 0 or t.numel() <= PIECE:
+def piece_rows(t: torch.Tensor) -> int:
+    """How many slices along its first axis one piece of ``t`` takes: at
+    most ``PIECE`` elements (at least one slice: a whole layer slice of a
+    stacked leaf).  A tensor of one axis or less is one piece, so a piece
+    never cuts a row (the last axis)."""
+    if t.dim() <= 1 or t.numel() <= PIECE:
+        return max(1, t.shape[0]) if t.dim() else 1
+    return max(1, PIECE // (t.numel() // t.shape[0]))
+
+
+def _pieces(t: torch.Tensor, rows: int = 0) -> Tuple[torch.Tensor, ...]:
+    """Views of ``t`` along its first axis, ``rows`` slices each
+    (``piece_rows(t)`` when 0)."""
+    if t.dim() == 0:
         return (t,)
-    rows = max(1, PIECE // (t.numel() // t.shape[0]))
-    return torch.split(t, rows, dim=0)
+    return torch.split(t, rows or piece_rows(t), dim=0)
 
 
 def init_opt_state(params) -> Dict[str, Any]:
@@ -90,13 +99,17 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, cfg: AdamWConfig
+def adamw_update(grads, state, params, cfg: AdamWConfig, *, gnorm=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step in place.  Returns (params, state, {"grad_norm",
-    "lr"}) — the same params and state objects, updated."""
+    "lr"}) — the same params and state objects, updated.  ``gnorm``: the
+    gradient's global norm when the caller computed it (over every rank's
+    shards, ``launch.steps.make_train_step_smap``), else
+    ``global_norm(grads)``."""
     count = int(state["count"]) + 1
     lr = lr_schedule(cfg, count)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1c = 1.0 - cfg.b1 ** count

@@ -1,6 +1,7 @@
 """The port's ``core/`` against the JAX package's: the runtime modules are
-copies with three changes (a device-list ``make_mesh``, ``.to(device)``
-migration, an H100 ``HardwareSpec``), so the same inputs must give the
+copies with three changes (``make_mesh`` returns the port's rank
+``Mesh``, migration by ``.to(device)`` or onto new shardings, an H100
+``HardwareSpec``), so the same inputs must give the
 same placements, layouts, controller decisions, cost estimates (priced
 with the same hardware constants) and task schedules."""
 import dataclasses
@@ -64,16 +65,22 @@ def test_layouts_and_device_grid_match(dims):
                 assert getattr(tl, attr) == getattr(jl, attr), attr
             order = tl.device_order()
             np.testing.assert_array_equal(order, jl.device_order())
-            # make_mesh: the same devices in Algorithm 2's order, as a
-            # nested list shaped like the JAX mesh's device array
+            # make_mesh: a Mesh of the same devices in Algorithm 2's
+            # order, shaped and named like the JAX mesh (by default the
+            # ranks 0 .. total_chips - 1)
             devs = [f"dev{i}" for i in range(tt.total_chips)]
-            grid = np.asarray(tl.make_mesh(devs), dtype=object)
+            mesh = tl.make_mesh(devs)
             want = np.asarray(devs, dtype=object)[order]
             if pod_axis:
                 want = want.reshape(dims[0], tl.replicas_per_pod,
                                     tl.model_degree)
-            assert grid.shape == want.shape
-            assert (grid == want).all()
+            assert mesh.devices.shape == want.shape
+            assert (mesh.devices == want).all()
+            assert mesh.axis_names == (("pod",) if pod_axis else ()) + (
+                "data", "model")
+            ranks = tl.make_mesh().devices
+            assert (ranks == np.arange(tt.total_chips)[order].reshape(
+                want.shape)).all()
 
 
 @pytest.mark.parametrize("arch,shape", [("llama3-8b", "train_4k"),

@@ -220,8 +220,31 @@ def test_remat_recomputes_the_same_gradients(setup):
 
 @pytest.mark.parametrize("what", ["adamw8bit", "ef_transform"])
 def test_unported_step_options_raise(what):
+    """The two step options that raised before the port had them now run:
+    ``opt_impl="adamw8bit"`` steps int8 / uint8 moments (an unknown
+    ``opt_impl`` still raises), ``ef_transform`` makes the step take and
+    return the error-feedback state (held against JAX in
+    ``test_torch_quantized.py`` and ``test_torch_grad_compress.py``)."""
+    from repro_torch.compression import (init_compression,
+                                         int8_compress_transform)
+    from repro_torch.optim.quantized import init_opt_state_8bit
     tcfg = t_reduced(T_REGISTRY["llama3.2-3b"])
-    kw = ({"opt_impl": "adamw8bit"} if what == "adamw8bit"
-          else {"ef_transform": lambda g, e: (g, e)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
-        TS.make_train_step(tcfg, TAdamW(), **kw)
+    tp = t_init_params(tcfg, torch.Generator().manual_seed(1), device="cpu")
+    rng = np.random.default_rng(2)
+    block = rng.integers(2, tcfg.vocab, size=(B, S + 1)).astype(np.int32)
+    batch = tbatch({"tokens": block[:, :-1], "targets": block[:, 1:],
+                    "mask": np.ones((B, S), np.float32)})
+    if what == "adamw8bit":
+        with pytest.raises(ValueError, match="opt_impl"):
+            TS.make_train_step(tcfg, TAdamW(), opt_impl="adamw4bit")
+        step = TS.make_train_step(tcfg, TAdamW(), opt_impl="adamw8bit")
+        _, opt, m = step(tp, init_opt_state_8bit(tp), batch)
+        assert opt["m"]["embed"]["q"].dtype == torch.int8
+        assert opt["v"]["embed"]["q"].dtype == torch.uint8
+    else:
+        step = TS.make_train_step(tcfg, TAdamW(),
+                                  ef_transform=int8_compress_transform)
+        ef = init_compression(tp)["ef"]
+        _, _, m, ef = step(tp, t_init_opt(tp), batch, ef)
+        assert float(ef["embed"].abs().max()) > 0
+    assert np.isfinite(float(m["loss"]))

@@ -357,7 +357,22 @@ def test_heartbeat_monitor():
 
 
 def test_compress_cross_pod_raises(tmp_path):
+    """``compress_cross_pod`` no longer raises: the Trainer threads float32
+    error-feedback buffers shaped like the parameters through its steps
+    (held against the JAX Trainer in ``test_torch_grad_compress.py``).  A
+    mesh of several ranks without a process group still raises."""
+    from repro_torch.launch.mesh import Mesh
     cfg = t_reduced(T_REGISTRY[ARCH])
-    tcfg = TrainerConfig(ckpt_dir=str(tmp_path), compress_cross_pod=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
-        Trainer(cfg, None, tcfg, device="cpu")
+    files = corpus_files(tmp_path, cfg.vocab)
+    tcfg = TrainerConfig(steps=1, ckpt_every=100, log_every=100,
+                         ckpt_dir=str(tmp_path / "ckpt"),
+                         compress_cross_pod=True)
+    trainer = Trainer(cfg, ShardedLoader(files, seq_len=SEQ, batch=BATCH),
+                      tcfg, log=lambda s: None, device="cpu")
+    assert trainer._ef["embed"].dtype == torch.float32
+    assert trainer._ef["embed"].shape == trainer.params["embed"].shape
+    assert np.isfinite(trainer.run()["losses"]).all()
+    assert float(trainer._ef["embed"].abs().max()) > 0
+    with pytest.raises(RuntimeError, match="process group"):
+        Trainer(cfg, None, tcfg, mesh=Mesh(np.arange(2).reshape(2, 1),
+                                           ("data", "model")), device="cpu")
