@@ -7,6 +7,7 @@
     python3 chip_smoke.py --ssd-head-sets  # the bf16 SSD kernel by head set
     python3 chip_smoke.py --lru-tiles  # the RG-LRU scan kernel by tile
     python3 chip_smoke.py --training-state  # phase 15 alone
+    python3 chip_smoke.py --dry-run    # phases 1, 4 and 16
 
 Phases (any error fails the run with a non-zero exit):
 
@@ -241,6 +242,18 @@ Phases (any error fails the run with a non-zero exit):
    within 1e-5), the Trainer on the mesh against the one-card Trainer,
    the 8-bit state through a sharded save and restore.  The phase prints
    its seconds.
+16. The dry run against the card (``repro_torch.launch.dryrun``: a
+   rank's step traced on fake ``cuda`` tensors, nothing launched).  (a)
+   Phase 4's own cell at world 1 (llama3.2-3b, B=2, S=2048, remat
+   "none", float32 AdamW, one microbatch, a (1, 1) mesh): each kernel's
+   dry launches a step must equal phase 4's launches a step, and the
+   dry run's peak bytes must lie within 10% of phase 4's
+   ``max_memory_allocated``; its flops beside ``model_flops`` and the
+   roofline's bound beside phase 4's seconds a step are printed.  (b)
+   llama3-8b's three single-pod production cells (``train_4k``,
+   ``prefill_32k``, ``decode_32k`` on the (16, 16) mesh), each in a
+   process of its own, started together: each must end "ok"; their
+   ``[dryrun]`` lines print.  The phase prints its seconds.
 The reduced float32 reference runs of phases 3, 6 and 8 include card runs
 with speculative decoding (a partial drafter), warmed steps and (phase
 12 (f)) the eager engine, the slot monolith and the scan chunk path, and
@@ -259,8 +272,8 @@ and 8; ``eager_prefill_launches`` and ``hybrid_eager_prefill_launches``
 phase 12's, over the eager engine's 9 prefills; ``moe_launches`` phase
 13's serving (ring) and training (flash), ``moe_eager_prefill_launches``
 its eager prefills; ``vlm_*`` and ``encdec_*`` phase 14's launches and
-errors; ``hybrid38_launches`` and ``ef_launches`` phase 15's), error
-and times.
+errors; ``hybrid38_launches`` and ``ef_launches`` phase 15's;
+``starcoder_*`` the errors at starcoder2-15b's G = 12), error and times.
 """
 from __future__ import annotations
 
@@ -395,6 +408,14 @@ RING_GEOMETRIES = [
      (16, 16, 1, 0), 0, 0.0, "float32"),
     ("encdec_verify", 4, 4, 256, 16, 16, 64, (32, 120, 300, 0),
      (4, 3, 4, 0), 0, 0.0, "float32"),
+    # starcoder2-15b: G = 12 (48 query heads over 4 kv heads) at dh 128,
+    # no window — 192 query rows a kv head at C = 16, three 64-row wgmma
+    # tiles — a chunk tick and its float32 twin
+    ("starcoder_chunk", 8, 16, 1024, 48, 4, 128,
+     (0, 16, 208, 1008, 1024, 1500, 3000, 64),
+     (16, 16, 16, 16, 1, 16, 9, 0), 0, 0.0, "bfloat16"),
+    ("starcoder_chunk_f32", 2, 16, 1024, 48, 4, 128, (700, 2100), (16, 11),
+     0, 0.0, "float32"),
 ]
 
 
@@ -542,7 +563,7 @@ def phase_ring_kernel(torch):
             elif name.startswith(("moe_", "verify_moe")) and dt == "bfloat16":
                 row["moe_max_abs_err"] = max(row.get("moe_max_abs_err", 0.0),
                                              max_err)
-            elif name.startswith(("vlm_", "encdec_")):
+            elif name.startswith(("vlm_", "encdec_", "starcoder_")):
                 key = name.split("_")[0] + ("_max_abs_err" if dt == "bfloat16"
                                             else "_f32_max_abs_err")
                 row[key] = max(row.get(key, 0.0), max_err)
@@ -748,6 +769,9 @@ FLASH_GEOMETRIES = [
     ("encdec_cross_chunk", 4, 16, 4096, 16, 16, 64, False, 0),
     ("encdec_cross_verify", 4, 4, 4096, 16, 16, 64, False, 0),
     ("ragged_sq_over_skv", 1, 300, 77, 16, 16, 64, False, 0),
+    # starcoder2-15b's G = 12 (48 query heads over 4 kv heads) at dh 128,
+    # causal, no window
+    ("starcoder_s2048", 1, 2048, 2048, 48, 4, 128, True, 0),
 ]
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/"
 # the plain versions hold several (B, Hq, S, S) float32 score tensors at
@@ -874,8 +898,8 @@ def phase_flash_kernels(torch):
             elif name == "moe_train" and dtype == "bfloat16":
                 rows["fwd"]["moe_max_abs_err"] = fwd_err
                 rows["bwd"]["moe_max_abs_err"] = bwd_err
-            elif name.startswith(("vlm_", "encdec_")):
-                # phase 14's rows, by family and route
+            elif name.startswith(("vlm_", "encdec_", "starcoder_")):
+                # phase 14's rows and starcoder2-15b's, by family and route
                 fam = name.split("_")[0]
                 key = (f"{fam}_max_abs_err" if dtype == "bfloat16"
                        else f"{fam}_f32_max_abs_err")
@@ -2765,6 +2789,23 @@ def profile_train_step(torch, step, params, opt, batch, symbols):
 # phase 4b
 # ---------------------------------------------------------------------------
 
+def phase_train_main(torch, fa_ops, profile):
+    """Phase 4: llama3.2-3b trained at full width and depth; its record
+    goes to ``PHASE4`` (phase 16 holds the dry run against it).  Returns
+    the flash kernels' launches over the steps."""
+    from repro_torch.configs import REGISTRY
+    n_dense = REGISTRY[TRAIN_ARCH].n_layers
+    return phase_train(
+        torch, TRAIN_ARCH, TRAIN_B, TRAIN_REMAT,
+        # the forward runs twice a layer under remat
+        {"flash_attention_fwd": (fa_ops.flash_attention, n_dense * (
+            1 if TRAIN_REMAT == "none" else 2)),
+         "flash_attention_bwd": (fa_ops.flash_attention_bwd, n_dense)},
+        {"wq[0]": lambda p: p["layers"]["attn"]["wq"][0],
+         "embed[:4096]": lambda p: p["embed"][:4096]}, profile,
+        stats=PHASE4)
+
+
 def phase_trainer(torch, arch, kernel):
     """The port's Trainer end to end on a reduced ``arch`` in float32:
     checkpoint and resume on the card, and the card's losses against the
@@ -3886,6 +3927,117 @@ def phase_training_state(torch, rows):
     log(f"[phase 15] {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------------
+
+DRY_ARCH = "llama3-8b"
+DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRY_PEAK_TOL = 0.10         # the dry peak against max_memory_allocated
+PHASE4 = {}
+
+
+def phase_dryrun(torch, phase4_launches, card):
+    """Phase 16: (a) the dry run of phase 4's cell held against what phase
+    4 measured; (b) llama3-8b's three production cells, one process each,
+    started before (a) and waited for after it.  ``card``: the card's name
+    and power limit (phase 1's)."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.costmodel import model_flops
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch import trace_analysis as ta
+    from repro_torch.launch.mesh import Mesh
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRY_ARCH, "--shape", shape, "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for shape in DRY_SHAPES}
+    try:
+        # (a) phase 4's cell, one rank of a (1, 1) mesh
+        cfg = dataclasses.replace(REGISTRY[TRAIN_ARCH], remat=TRAIN_REMAT)
+        shape = ShapeConfig("phase4", "train", TRAIN_S, TRAIN_B)
+        mesh = Mesh(np.arange(1).reshape(1, 1), ("data", "model"))
+        tr, _, secs = dryrun.trace_step(cfg, shape, mesh, fsdp=False,
+                                        microbatches=1, opt_impl="adamw")
+        want = {k: v // TRAIN_STEPS for k, v in phase4_launches.items()}
+        peak = PHASE4["peak_gib"] * 2 ** 30
+        rel = tr.peak_bytes / peak - 1.0
+        mf = model_flops(cfg, shape)
+        # the dry run's roofline: the trace's flops, the analytic HBM
+        # lower bound (``analysis.analytic_hbm_bytes``), no collective
+        hbm = analysis.analytic_hbm_bytes(cfg, shape, mesh, fsdp=False)
+        rl = ta.roofline(flops_per_dev=tr.flops, bytes_per_dev=hbm,
+                         coll_bytes_per_dev=0.0, model_flops_total=mf,
+                         chips=1)
+        step_s = PHASE4["steady_step_s"]
+        log(f"[dryrun 16a] {cfg.name} B={TRAIN_B} S={TRAIN_S} "
+            f"remat={cfg.remat} adamw, traced on "
+            f"{ta.trace_device('cuda')} in {secs:.2f} s; card {card}")
+        log(f"[dryrun 16a] launches a step: dry {tr.launches}, phase 4 "
+            f"{want}")
+        log(f"[dryrun 16a] peak: dry {tr.peak_bytes} bytes "
+            f"({tr.peak_bytes / 2 ** 30:.4f} GiB: arguments "
+            f"{tr.argument_bytes / 2 ** 30:.4f}), phase 4's "
+            f"max_memory_allocated {PHASE4['peak_gib']:.4f} GiB: "
+            f"{rel:+.4f} (tol {DRY_PEAK_TOL})")
+        log(f"[dryrun 16a] flops a step: dry {tr.flops:.6e} (kernels "
+            f"{sum(tr.kernel_flops.values()):.6e}), model_flops "
+            f"{mf:.6e} (ratio {tr.flops / mf:.4f}); bytes accessed "
+            f"{tr.bytes_accessed:.6e}")
+        log(f"[dryrun 16a] roofline bound {rl.bound_s:.6f} s "
+            f"({rl.dominant}: compute {rl.compute_s:.6f} s, memory "
+            f"{rl.memory_s:.6f} s of the {hbm:.6e}-byte lower bound; the "
+            f"trace's every-operand upper bound "
+            f"{tr.bytes_accessed / ta.HBM_BW:.6f} s) against phase 4's "
+            f"{step_s:.6f} s a step (ratio {step_s / rl.bound_s:.3f})")
+        if tr.launches != want:
+            raise AssertionError(f"dry launches a step {tr.launches}, phase "
+                                 f"4's {want}")
+        if abs(rel) > DRY_PEAK_TOL:
+            raise AssertionError(f"dry peak {tr.peak_bytes} bytes is "
+                                 f"{rel:+.4f} of phase 4's "
+                                 f"max_memory_allocated")
+        # (b) the production cells
+        for shape_name, proc in procs.items():
+            text, _ = proc.communicate(timeout=600)
+            name = f"{DRY_ARCH}__{shape_name}__pod1"
+            path = Path(out_dir) / f"{name}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            log(dryrun.summary(name, rec) if rec else text[-2000:])
+            if proc.returncode or rec.get("status") != "ok":
+                raise AssertionError(f"{name}: exit {proc.returncode}, "
+                                     f"status {rec.get('status')}: "
+                                     f"{text[-2000:]}")
+            mem = rec["memory"]
+            log(f"[dryrun 16b] {name}: peak {mem['peak_per_device']} bytes "
+                f"a rank, fits 80 GB {mem['fits_hbm_80gb']}, collectives "
+                f"{rec['collectives']['per_class_bytes']}, launches "
+                f"{rec['launches']}, flops ratio decomposed/full "
+                f"{rec['decomposed']['flops_ratio']:.6f}, roofline "
+                f"{rec['roofline']['dominant']} "
+                f"{rec['roofline']['compute_s']:.6f} / "
+                f"{rec['roofline']['memory_s']:.6f} / "
+                f"{rec['roofline']['collective_s']:.6f} s; card {card}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[dryrun] phase 16: {time.perf_counter() - t0:.1f} s; card {card}")
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3905,6 +4057,10 @@ def main() -> int:
                     help="phase 1, then phase 15 (the 8-bit AdamW, "
                          "error-feedback compression and the data-parallel "
                          "step on NCCL), and stop")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="phase 1, phase 4 (llama3.2-3b trained on the "
+                         "card), then phase 16 (the dry run held against "
+                         "it), and stop")
     ap.add_argument("--profile", action="store_true",
                     help="time phases 3's, 6's and 8's two step kinds, "
                          "then replay each on a fresh engine under "
@@ -3925,7 +4081,7 @@ def main() -> int:
     from repro_torch.kernels.rglru_scan import ops as lru_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     t0 = time.perf_counter()
-    phase_build(torch)
+    card = phase_build(torch)
     if args.ring_splits:
         ring_split_sweep(torch)
         return 0
@@ -3937,6 +4093,9 @@ def main() -> int:
         return 0
     if args.training_state:
         phase_training_state(torch, [{} for _ in range(5)])
+        return 0
+    if args.dry_run:
+        phase_dryrun(torch, phase_train_main(torch, fa_ops, False), card)
         return 0
     rows = [phase_ring_kernel(torch)]
     flash = phase_flash_kernels(torch)
@@ -3962,15 +4121,7 @@ def main() -> int:
         phase_warm(torch, dense)            # phase 11
         del dense
         free_card(torch)
-        n_dense = REGISTRY[TRAIN_ARCH].n_layers
-        flash_launches = phase_train(
-            torch, TRAIN_ARCH, TRAIN_B, TRAIN_REMAT,
-            # the forward runs twice a layer under remat
-            {"flash_attention_fwd": (fa_ops.flash_attention, n_dense * (
-                1 if TRAIN_REMAT == "none" else 2)),
-             "flash_attention_bwd": (fa_ops.flash_attention_bwd, n_dense)},
-            {"wq[0]": lambda p: p["layers"]["attn"]["wq"][0],
-             "embed[:4096]": lambda p: p["embed"][:4096]}, args.profile)
+        flash_launches = phase_train_main(torch, fa_ops, args.profile)
         rows[1]["launches"] = flash_launches["flash_attention_fwd"]
         rows[2]["launches"] = flash_launches["flash_attention_bwd"]
         phase_trainer(torch, TRAIN_ARCH, fa_ops.flash_attention)
@@ -4033,6 +4184,8 @@ def main() -> int:
         phase_moe(torch, rows)              # phase 13
         phase_vlm_encdec(torch, rows)       # phase 14
         phase_training_state(torch, rows)   # phase 15
+        free_card(torch)
+        phase_dryrun(torch, flash_launches, card)  # phase 16
     ring_device_times(torch, rows[0])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -17,7 +17,11 @@
 
 For tensors on the card each wrapper launches its hand-written CUDA kernel
 or raises; for tensors on the CPU it computes the plain version of
-``ref.py``.  There is no other fallback.  ``ring_chunk_attention.launches``
+``ref.py``.  There is no other fallback.  Fake tensors (the dry run's,
+``kernels/dry.py``), which hold no data, take the card's checks and
+route and launch nothing: the wrapper makes its outputs empty and notes
+the kernel's needed work (``ring_work``, ``flash_work``) as one dry launch,
+which ``launches`` does not count.  ``ring_chunk_attention.launches``
 (one a call: the split kernel and its merge on the bf16 route),
 ``flash_attention.launches`` (forward kernel) and
 ``flash_attention_bwd.launches`` (one per backward: delta, dq and dk/dv on
@@ -29,9 +33,10 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dry
 from repro_torch.kernels.flash_attention import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -125,7 +130,7 @@ def ring_chunk_attention(q, k_new, v_new, k_cache, v_cache, pos, n_tokens, *,
         return ref.ring_chunk_attention_ref(q, k_new, v_new, k_cache,
                                             v_cache, pos, n_tokens,
                                             window=window, softcap=softcap)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not dry.is_dry(q):
         raise ValueError(f"no ring_chunk_attention kernel for {q.device}")
     _check(q, k_new, v_new, k_cache, v_cache, pos, n_tokens)
     B, C, Hq, dh = q.shape
@@ -151,14 +156,18 @@ def ring_chunk_attention(q, k_new, v_new, k_cache, v_cache, pos, n_tokens, *,
     else:
         name, ptrs, strides = "ring_chunk_attention", head + (out,), ()
         tail = (int(window), float(softcap), float(dh ** -0.5))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _ring_kernel(name)(*(t.data_ptr() for t in ptrs), B, C, W, Hq,
-                                 Hkv, dh, *strides, *tail, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    ring_chunk_attention.launches += 1
-    ring_chunk_attention.wgmma_launches += route == "wgmma"
+    if dry.is_dry(q):
+        dry.note("ring_chunk_attention", *ring_work(
+            B, C, W, Hq, Hkv, dh, window, q.element_size()))
+    else:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = _ring_kernel(name)(*(t.data_ptr() for t in ptrs), B, C, W,
+                                     Hq, Hkv, dh, *strides, *tail, stream)
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        ring_chunk_attention.launches += 1
+        ring_chunk_attention.wgmma_launches += route == "wgmma"
     return out
 
 
@@ -222,8 +231,9 @@ def tma_strides(name, shape, strides, data_ptr, itemsize=2):
 
 
 def _tma(name, t):
-    return tma_strides(name, tuple(t.shape), t.stride(), t.data_ptr(),
-                       t.element_size())
+    # a fake tensor has no address: its strides are checked, its base not
+    return tma_strides(name, tuple(t.shape), t.stride(),
+                       0 if dry.is_dry(t) else t.data_ptr(), t.element_size())
 
 
 def ring_tma_strides(q, k_new, v_new, k_cache, v_cache):
@@ -267,7 +277,7 @@ def _strides(t):
 
 
 def _flash_device(q, name):
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not dry.is_dry(q):
         raise ValueError(f"no {name} kernel for {q.device}")
 
 
@@ -297,17 +307,21 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     else:
         name, extra = "flash_attention_fwd", (_DTYPES[q.dtype],)
         strides = _strides(q) + _strides(k) + _strides(v)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _flash_kernel(name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, Sq, Skv, Hq, Hkv, dh, *strides,
-            int(bool(causal)), int(window), float(dh ** -0.5), *extra,
-            stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    flash_attention.launches += 1
-    flash_attention.wgmma_launches += route == "wgmma"
+    if dry.is_dry(q):
+        dry.note("flash_attention_fwd", *flash_work(
+            B, Sq, Skv, Hq, Hkv, dh, causal, window, q.element_size())["fwd"])
+    else:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = _flash_kernel(name)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), B, Sq, Skv, Hq, Hkv, dh, *strides,
+                int(bool(causal)), int(window), float(dh ** -0.5), *extra,
+                stream)
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        flash_attention.launches += 1
+        flash_attention.wgmma_launches += route == "wgmma"
     return out, lse
 
 
@@ -360,21 +374,61 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0):
         ptrs = (q, k, v, do, lse, delta, dq, dk, dv)
         args = _strides(q) + _strides(k) + _strides(v) + _strides(do)
         extra = (_DTYPES[q.dtype],)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _flash_kernel(name)(
-            *(t.data_ptr() for t in ptrs), B, Sq, Skv, Hq, Hkv, dh, *args,
-            int(bool(causal)), int(window), float(dh ** -0.5), *extra,
-            stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    flash_attention_bwd.launches += 1
-    flash_attention_bwd.wgmma_launches += route == "wgmma"
+    if dry.is_dry(q):
+        dry.note("flash_attention_bwd", *flash_work(
+            B, Sq, Skv, Hq, Hkv, dh, causal, window, q.element_size())["bwd"])
+    else:
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = _flash_kernel(name)(
+                *(t.data_ptr() for t in ptrs), B, Sq, Skv, Hq, Hkv, dh,
+                *args, int(bool(causal)), int(window), float(dh ** -0.5),
+                *extra, stream)
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.wgmma_launches += route == "wgmma"
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.wgmma_launches = 0
+
+
+def flash_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """Visible (query, key) pairs of ``ref.attention_mask`` for one head
+    of one sequence."""
+    t = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(t, Skv - 1) if causal else np.full_like(t, Skv - 1)
+    lo = np.maximum(t - window + 1, 0) if window else np.zeros_like(t)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_work(B, Sq, Skv, Hq, Hkv, dh, causal, window, itemsize):
+    """{"fwd", "bwd": (bytes, flops)} that the flash kernels need: every
+    input read once and every output written once; 4 * dh flops per
+    visible (query, key) pair forward and five products of 2 * dh backward
+    (s recomputed, dp, dv, dq, dk) — ``chip_smoke.py``'s bounds."""
+    pairs = float(flash_pairs(Sq, Skv, causal, window)) * B * Hq
+    q_bytes = B * Sq * Hq * dh * itemsize
+    kv_bytes = 2 * B * Skv * Hkv * dh * itemsize
+    lse_bytes = B * Hq * Sq * 4
+    return {"fwd": (2 * q_bytes + kv_bytes + lse_bytes, 4.0 * dh * pairs),
+            "bwd": (4 * q_bytes + 2 * kv_bytes + lse_bytes,
+                    10.0 * dh * pairs)}
+
+
+def ring_work(B, C, W, Hq, Hkv, dh, window, itemsize):
+    """(bytes, flops) the ring kernel can need at these shapes — every
+    chunk token active and the ring full, the most ``chip_smoke.py``'s
+    data-dependent count gives: q read and the output written, the ring's
+    and the chunk's keys and values read once, ``pos`` and ``n_tokens``;
+    4 * dh flops per visible pair, at most min(W, window) keys a row (the
+    ring's band)."""
+    keys = min(W, window) if window else W
+    n_bytes = (2 * B * C * Hq * dh * itemsize
+               + 2 * B * (W + C) * Hkv * dh * itemsize + 8 * B)
+    return n_bytes, 4.0 * dh * Hq * B * C * keys
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -5,7 +5,10 @@
   reverse flag (the JAX package's ``kernels/rglru_scan/kernel.py:57`` plus
   the ``h0`` of its oracle).  For tensors on the card it launches the CUDA
   kernel or raises; for tensors on the CPU it computes the plain version
-  of ``ref.py``.  There is no other fallback.  ``lru_scan.launches``
+  of ``ref.py``.  There is no other fallback.  Fake tensors (the dry
+  run's, ``kernels/dry.py``) take the card's checks, launch
+  nothing and note the needed work (``lru_work``) as a dry launch, which
+  ``launches`` does not count.  ``lru_scan.launches``
   counts launches, one per call of ``lru_scan`` or ``_lru_vjp``.
 * ``lru``: the sequence output with its gradient, a
   ``torch.autograd.Function`` — the custom VJP of the JAX package's
@@ -37,7 +40,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dry
 from repro_torch.kernels.rglru_scan import ref
 
 # (T steps a chunk, Wt channels a tile): one of LRU_TILE_SWEEP, the tiles
@@ -105,6 +108,16 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def lru_work(B, S, W, vjp=False, h0=False):
+    """(bytes, flops) a call needs — ``chip_smoke.py``'s byte bound: a and
+    b (or a, g and h) read, h (or db and da) written, the (B, W) state
+    read (h0) and written (h_final); a multiply and an add an element
+    (and da's multiply in the VJP)."""
+    if vjp:
+        return 5 * B * S * W * 4, 3.0 * B * S * W
+    return 3 * B * S * W * 4 + (2 if h0 else 1) * B * W * 4, 2.0 * B * S * W
+
+
 def _launch(a, b, h0, hin, h, da, h_final, reverse):
     B, S, W = a.shape
     T, Wt = LRU_TILE
@@ -113,6 +126,10 @@ def _launch(a, b, h0, hin, h, da, h_final, reverse):
     words = lru_workspace(B, S, W, T, Wt)
     ws = (torch.empty((words,), dtype=torch.int32, device=a.device)
           if words else None)
+    if dry.is_dry(a):
+        dry.note("lru_scan", *lru_work(B, S, W, vjp=hin is not None,
+                                       h0=h0 is not None))
+        return
     ptrs = (a.data_ptr(), b.data_ptr(), _ptr(h0), _ptr(hin), h.data_ptr(),
             _ptr(da), _ptr(h_final))
     dev = a.device.index
@@ -135,7 +152,7 @@ def lru_scan(a, b, h0=None, reverse=False):
     from the end: h_t = a_t h_{t+1} + b_t with h_S = h0, h_final = h_0."""
     if a.device.type == "cpu":
         return ref.lru_scan_plain(a, b, h0, reverse=reverse)
-    if a.device.type != "cuda":
+    if a.device.type != "cuda" and not dry.is_dry(a):
         raise ValueError(f"no lru_scan kernel for {a.device}")
     _check([("a", a, a.shape), ("b", b, a.shape)]
            + ([("h0", h0, (a.shape[0], a.shape[2]))] if h0 is not None
@@ -161,7 +178,7 @@ def _lru_vjp(a, g, h):
     (B, S, W) float32.  On the CPU: ``ref.lru_vjp_plain``."""
     if a.device.type == "cpu":
         return ref.lru_vjp_plain(a, g, h)
-    if a.device.type != "cuda":
+    if a.device.type != "cuda" and not dry.is_dry(a):
         raise ValueError(f"no lru_scan kernel for {a.device}")
     _check([("a", a, a.shape), ("g", g, a.shape), ("h", h, a.shape)],
            a.shape, "a / g / h")

@@ -7,7 +7,10 @@
   float32 operands split in two bf16 parts), float32 to the FMA kernel
   (``csrc/ssd_scan.cu``).  For tensors on the card it launches its
   route's kernel or raises; for tensors on the CPU it computes the plain
-  version of ``ref.py``.  There is no other fallback.
+  version of ``ref.py``.  There is no other fallback.  Fake tensors (the
+  dry run's, ``kernels/dry.py``) take the card's checks
+  and route, launch nothing and note the needed work (``ssd_work``) as a
+  dry launch, which ``launches`` does not count.
   ``ssd_scan.launches`` counts launches and ``ssd_scan.wgmma_launches``
   those of them on the tensor-core route; reset both together.
 * ``ssd_with_state``: the model-layout wrapper with its gradient, a
@@ -25,7 +28,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dry
 from repro_torch.kernels.ssd_scan import ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -118,6 +121,20 @@ def _check(xdt, a, B_, C_, Q, hq_per_group):
                          f"most {MAX_WGMMA_CHUNK}")
 
 
+def ssd_work(BH, S, P, N, BG, Q, itemsize):
+    """(bytes, flops) ``ssd_scan`` needs — ``chip_smoke.py``'s bound:
+    xdt, a, B and C read once, y and h_final written once; per (group,
+    chunk) the Q(Q+1)/2 visible (query, key) pairs of C B^T (N products
+    each), per (head, chunk) those pairs of the intra product (P each) and
+    the inter-chunk and state products (Q N P each)."""
+    nc = S // Q
+    tri = nc * Q * (Q + 1) / 2
+    n_bytes = (2 * BH * S * P * 4 + BH * S * 4 + 2 * BG * S * N * itemsize
+               + BH * N * P * 4)
+    return n_bytes, (2.0 * BG * tri * N + 2.0 * BH * tri * P
+                     + 2 * 2.0 * BH * nc * Q * N * P)
+
+
 def ssd_scan(xdt, a, B_, C_, *, chunk=128, hq_per_group=1):
     """xdt: (BH, S, P) float32 dt-weighted inputs; a: (BH, S) float32
     log-decays; B_/C_: (BG, S, N) with BH = BG * hq_per_group, head b
@@ -129,7 +146,7 @@ def ssd_scan(xdt, a, B_, C_, *, chunk=128, hq_per_group=1):
     if xdt.device.type == "cpu":
         return ref.ssd_scan_plain(xdt, a, B_, C_, chunk=Q,
                                   hq_per_group=hq_per_group)
-    if xdt.device.type != "cuda":
+    if xdt.device.type != "cuda" and not dry.is_dry(xdt):
         raise ValueError(f"no ssd_scan kernel for {xdt.device}")
     _check(xdt, a, B_, C_, Q, hq_per_group)
     N = B_.shape[2]
@@ -144,21 +161,26 @@ def ssd_scan(xdt, a, B_, C_, *, chunk=128, hq_per_group=1):
         name = "ssd_scan_wgmma"
         # a_cum of every chunk, written by the first of the three kernels
         scratch = torch.empty((BH, S), dtype=torch.float32, device=dev)
+        bases = (0, 0) if dry.is_dry(B_) else (B_.data_ptr(), C_.data_ptr())
         tail = (*ssd_head_sets(BH // hq_per_group, S, Q, P, hq_per_group),
-                ssd_bc_loads(N, (B_.data_ptr(), C_.data_ptr())))
+                ssd_bc_loads(N, bases))
     else:
         name, tail = "ssd_scan", ()
         scratch = torch.empty((BH, S // Q), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel(name)(xdt.data_ptr(), a.data_ptr(), B_.data_ptr(),
-                            C_.data_ptr(), y.data_ptr(), h.data_ptr(),
-                            states.data_ptr(), scratch.data_ptr(), BH, S, P,
-                            N, hq_per_group, Q, *tail, stream)
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    ssd_scan.launches += 1
-    ssd_scan.wgmma_launches += route == "wgmma"
+    if dry.is_dry(xdt):
+        dry.note("ssd_scan", *ssd_work(BH, S, P, N, BH // hq_per_group, Q,
+                                       B_.element_size()))
+    else:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = _kernel(name)(xdt.data_ptr(), a.data_ptr(), B_.data_ptr(),
+                                C_.data_ptr(), y.data_ptr(), h.data_ptr(),
+                                states.data_ptr(), scratch.data_ptr(), BH, S,
+                                P, N, hq_per_group, Q, *tail, stream)
+        if err:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        ssd_scan.launches += 1
+        ssd_scan.wgmma_launches += route == "wgmma"
     return y, h
 
 

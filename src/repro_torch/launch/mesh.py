@@ -17,8 +17,15 @@ Every collective counts its operand bytes on this rank by class, as the
 JAX package's HLO parse (``launch/hlo_analysis.py``) classes a
 collective's replica group: ``cross_pod`` when its ranks span pods,
 ``intra_pod`` when they span data rows (chiplet groups) of a pod,
-``intra_group`` otherwise.  A group of one rank moves no bytes and counts
-none.
+``intra_group`` otherwise; and by op (``all-reduce``, ``all-gather``, the
+HLO names).  A group of one rank moves no bytes and counts none.
+
+``Mesh.dry(rank)`` makes the mesh's comm a dry one (the dry run's,
+``launch/dryrun.py``): a fixed rank, no process group; each collective
+counts its bytes as a real one would and returns a tensor of the result's
+shape and type without moving data.  It takes only tensors that hold no
+data (fake ones, ``kernels/dry.py``), so a step that reached it
+with real tensors raises instead of computing on empty ones.
 """
 from __future__ import annotations
 
@@ -28,6 +35,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.kernels import dry
 
 
 class Mesh:
@@ -89,6 +98,15 @@ class Mesh:
             self._comm = MeshComm(self)
         return self._comm
 
+    def dry(self, rank=0) -> "MeshComm":
+        """Make this mesh's comm a dry one at ``rank`` (see the module
+        note) and return it.  Raises when the comm is already built: a
+        mesh is dry or real for its whole life."""
+        if self._comm is not None:
+            raise RuntimeError(f"{self} already has its comm")
+        self._comm = MeshComm(self, dry_rank=rank)
+        return self._comm
+
     def __repr__(self):
         return f"Mesh({self.shape})"
 
@@ -122,19 +140,24 @@ class MeshComm:
     """Collectives of this process over ``mesh``'s axes.
 
     The process's rank is ``torch.distributed``'s when a process group is
-    initialized (it must lie in the mesh), else 0 on a one-rank mesh.
+    initialized (it must lie in the mesh), else 0 on a one-rank mesh, or
+    ``dry_rank`` for a dry comm (``Mesh.dry``).
     ``group(axes)`` creates every group of ``axes`` on first use — each
     process creates the same groups in the same order, as
     ``dist.new_group`` requires — and keeps its own.  Collectives on a
     group of one rank are still issued when a process group exists (a
     world of one on NCCL runs them) and skipped otherwise.  ``bytes``
-    sums each collective's operand bytes by class."""
+    sums each collective's operand bytes by class, ``op_bytes`` by op,
+    ``n_ops`` counts the collectives that moved bytes."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, dry_rank=None):
         self.mesh = mesh
-        self.initialized = dist.is_available() and dist.is_initialized()
-        self.rank = dist.get_rank() if self.initialized else 0
-        if not self.initialized and mesh.size != 1:
+        self.dry = dry_rank is not None
+        self.initialized = (not self.dry and dist.is_available()
+                            and dist.is_initialized())
+        self.rank = dry_rank if self.dry else (
+            dist.get_rank() if self.initialized else 0)
+        if not self.initialized and not self.dry and mesh.size != 1:
             raise RuntimeError(f"a {mesh.shape} mesh needs an initialized "
                                "torch.distributed process group")
         if self.initialized and dist.get_world_size() < mesh.size:
@@ -142,6 +165,8 @@ class MeshComm:
                                f"the world has {dist.get_world_size()}")
         self.coords = mesh.coords(self.rank)
         self.bytes: Dict[str, float] = {}
+        self.op_bytes: Dict[str, float] = {}
+        self.n_ops = 0
         self._groups: Dict[Tuple[str, ...], Tuple[list, object]] = {}
         self._classes: Dict[Tuple[str, ...], str] = {}
 
@@ -182,18 +207,25 @@ class MeshComm:
                 if len(mine) > 1 else None
         return self._groups[axes]
 
-    def _count(self, axes, t: torch.Tensor):
+    def _count(self, op, axes, t: torch.Tensor):
+        if self.dry and not dry.is_dry(t):
+            raise RuntimeError(f"a dry mesh's {op} got a tensor with data "
+                               f"on {t.device}: a dry mesh never runs a "
+                               "real step")
         cls = self._classes[tuple(axes)]
         if cls is not None:
-            self.bytes[cls] = self.bytes.get(cls, 0.0) + \
-                t.numel() * t.element_size()
+            n = t.numel() * t.element_size()
+            self.bytes[cls] = self.bytes.get(cls, 0.0) + n
+            self.op_bytes[op] = self.op_bytes.get(op, 0.0) + n
+            self.n_ops += 1
 
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str],
                    op: str = "sum") -> torch.Tensor:
         """``t`` reduced over the group along ``axes``, in place."""
         _, pg = self.group(axes)
+        if self.initialized or self.dry:
+            self._count("all-reduce", axes, t)
         if self.initialized:
-            self._count(axes, t)
             dist.all_reduce(t, op=_OPS[op], group=pg)
         return t
 
@@ -202,10 +234,15 @@ class MeshComm:
         """The group's ``t`` concatenated along ``dim`` in mixed-radix
         order over ``axes`` (a new tensor)."""
         ranks, pg = self.group(axes)
+        if self.dry:
+            self._count("all-gather", axes, t)
+            shape = list(t.shape)
+            shape[dim] *= len(ranks)
+            return t.new_empty(shape)
         if not self.initialized:
             return t.clone()
         t = t.contiguous()
-        self._count(axes, t)
+        self._count("all-gather", axes, t)
         parts = [torch.empty_like(t) for _ in ranks]
         dist.all_gather(parts, t, group=pg)
         # all_gather returns the parts in group-rank order: sorted ranks

@@ -109,22 +109,24 @@ def axis_rules(cfg: ModelConfig, mesh, *, fsdp: bool
     }
 
 
+def spec_of(ax_tuple, rules) -> PartitionSpec:
+    """A leaf's spec from its logical axes: each mapped by ``rules``, a
+    mesh axis used once (a later dim that maps to it stays replicated)."""
+    spec, used = [], set()
+    for ax in ax_tuple:
+        m = rules.get(ax)
+        if m is None or m in used:
+            spec.append(None)
+        else:
+            spec.append(m)
+            used.add(m)
+    return P(*spec)
+
+
 def param_specs(cfg: ModelConfig, mesh, *, fsdp: bool = False):
     """Tree of PartitionSpecs matching ``model_def`` params."""
     rules = axis_rules(cfg, mesh, fsdp=fsdp)
-
-    def to_spec(ax_tuple):
-        spec, used = [], set()
-        for ax in ax_tuple:
-            m = rules.get(ax)
-            if m is None or m in used:
-                spec.append(None)
-            else:
-                spec.append(m)
-                used.add(m)
-        return P(*spec)
-
-    specs = tree_map(to_spec, logical_axes(cfg))
+    specs = tree_map(lambda axes: spec_of(axes, rules), logical_axes(cfg))
     if not cfg.tie_embeddings:
         # untied table: shard d_model, not vocab, so the token gather stays
         # local; under FSDP the vocab dim absorbs the data axis
@@ -318,11 +320,19 @@ def shard(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     return t[local_slices(t.shape, sharding.spec, comm)].contiguous()
 
 
+def spread_dims(spec, ndim: int, mesh):
+    """``sharded_dims`` without the dims whose axes hold one rank in all
+    (a gather over one rank is the leaf itself)."""
+    return [(i, axes) for i, axes in sharded_dims(spec, ndim)
+            if math.prod(mesh.shape[a] for a in axes) > 1]
+
+
 def gather(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """The full leaf from every rank's part ``t`` (a collective over the
-    axes the spec shards; ``t`` itself when it shards none)."""
+    axes the spec shards; ``t`` itself when it shards none, or only over
+    axes of one rank)."""
     comm = sharding.mesh.comm()
-    for dim, axes in sharded_dims(sharding.spec, t.dim()):
+    for dim, axes in spread_dims(sharding.spec, t.dim(), sharding.mesh):
         t = comm.all_gather(t, axes, dim)
     return t
 
@@ -366,8 +376,9 @@ class _GatherOnUse(torch.autograd.Function):
 
 def gather_on_use(w: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """``gather(w)`` inside the differentiated region (``_GatherOnUse``);
-    ``w`` itself when the spec shards nothing."""
-    if not sharded_dims(sharding.spec, w.dim()):
+    ``w`` itself when the spec shards nothing, or only over axes of one
+    rank (its gradient then lands in ``w``'s own, as without a mesh)."""
+    if not spread_dims(sharding.spec, w.dim(), sharding.mesh):
         return w
     return _GatherOnUse.apply(w, sharding)
 

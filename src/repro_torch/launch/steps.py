@@ -140,6 +140,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
+def stacked_gathers(mesh, pspecs):
+    """``gather_specs`` for ``loss_fn`` and the serving steps: a gather on
+    use (``sharding.gather_on_use``) for each leaf of the stacked subtrees
+    (``layers``, ``groups``, ``enc_layers``, ``dec_layers``), under its
+    spec without the layer axis."""
+    return {key: tree_map(
+        lambda s: functools.partial(
+            sh.gather_on_use, sharding=sh.NamedSharding(mesh, sh.P(*s[1:]))),
+        pspecs[key]) for key in STACKED if key in pspecs}
+
+
 def _zero_dim(pspec, ospec, ndim: int):
     """The dim ZeRO-1 adds "data" to (a moment shard is a slice of the
     param shard along it), or None."""
@@ -206,16 +217,8 @@ def make_train_step_smap(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
         e if isinstance(e, str) and e in manual else None for e in spec)))
         for k, spec in batch_specs.items()}
 
-    # per-layer gather callables for the stacked subtrees (specs without
-    # the layer axis); the other top-level leaves are gathered in loss_of
-    gtree = {}
-    for key in STACKED:
-        if key in pspecs:
-            gtree[key] = tree_map(
-                lambda s: functools.partial(
-                    sh.gather_on_use,
-                    sharding=sh.NamedSharding(mesh, sh.P(*s[1:]))),
-                pspecs[key])
+    # the other top-level leaves are gathered in loss_of
+    gtree = stacked_gathers(mesh, pspecs)
 
     def loss_of(tree, b):
         tree = dict(tree)
@@ -268,10 +271,11 @@ def make_train_step_smap(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
     q_rows = sh.row_groups(qspecs, ndims, mesh)
     g_rows = sh.row_groups(pspecs, ndims, mesh)
     # ZeRO-1: each rank updates the slice of its param shard that its
-    # moment shard covers, then the slices are gathered over "data"
-    cut = tree_map(lambda ps, os_, nd: _zero_dim(ps, os_, nd), pspecs,
-                   qspecs, ndims)
+    # moment shard covers, then the slices are gathered over "data" (on a
+    # "data" axis of one rank the slice is the shard: nothing to gather)
     j, n_data = comm.index(("data",)), comm.size(("data",))
+    cut = tree_map(lambda ps, os_, nd: _zero_dim(ps, os_, nd)
+                   if n_data > 1 else None, pspecs, qspecs, ndims)
 
     def narrow(t, z):
         if z is None:
@@ -337,26 +341,31 @@ def make_eval_step(cfg: ModelConfig):
     return eval_step
 
 
-def make_prefill(cfg: ModelConfig, max_len: int):
+def make_prefill(cfg: ModelConfig, max_len: int, gather_specs=None):
     """(params, batch) -> (last-token logits (B, V), cache): whole-prompt
     prefill of ``batch["tokens"]`` (B, S) into a decode cache of capacity
     ``max_len``; every other key of ``batch`` goes to ``decode.prefill``
     as its extras (a VLM's ``vision_embeds`` and ``position_ids``, an
-    encoder-decoder model's ``frame_embeds``)."""
+    encoder-decoder model's ``frame_embeds``).  ``gather_specs``: the
+    per-layer gather points, as ``make_train_step`` takes them (a leaf
+    given a callable is replaced by its result when its layer runs — a
+    rank's shards gathered on use; specs without callables do nothing)."""
 
     def serve_prefill(params, batch):
         extras = {k: v for k, v in batch.items() if k != "tokens"}
         return dec.prefill(params, cfg, batch["tokens"], extras,
-                           max_len=max_len)
+                           max_len=max_len, gather_specs=gather_specs)
 
     return serve_prefill
 
 
-def make_serve_step(cfg: ModelConfig):
-    """(params, cache, tokens, pos[, extras]) -> (logits, cache')."""
+def make_serve_step(cfg: ModelConfig, gather_specs=None):
+    """(params, cache, tokens, pos[, extras]) -> (logits, cache').
+    ``gather_specs``: as ``make_prefill``'s."""
 
     def serve_step(params, cache, tokens, pos, extras=None):
-        return dec.decode_step(params, cfg, cache, tokens, pos, extras)
+        return dec.decode_step(params, cfg, cache, tokens, pos, extras,
+                               gather_specs=gather_specs)
 
     return serve_step
 

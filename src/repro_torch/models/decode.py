@@ -43,9 +43,9 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.params import hybrid_structure
 from repro_torch.models.transformer import (
-    _attn_out, _attn_proj, _cross_proj, _ffn, _window, attn_block, cdt,
-    decoder_forward, embed_tokens, encode, forward, head_logits,
-    layer_params, rope_for, tail_layers)
+    _attn_out, _attn_proj, _cross_proj, _ffn, _window, _wsc_tree,
+    attn_block, cdt, decoder_forward, embed_tokens, encode, forward,
+    head_logits, layer_params, rope_for, tail_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +198,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int = 0,
         shape[s.batch_axis] = batch
         leaves.append(torch.zeros(shape, dtype=dtype, device=device))
     return tree_from_leaves(spec, leaves)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   src_len: int = 0) -> Dict:
+    """``init_cache``'s tree as ``meta`` tensors: its shapes and types,
+    no memory (the JAX package's ``abstract_cache``, ``jax.eval_shape`` of
+    ``init_cache``)."""
+    return init_cache(cfg, batch, max_len, src_len, device="meta")
 
 
 # ---------------------------------------------------------------------------
@@ -416,14 +424,19 @@ def next_token_ids(logits, n_tokens):
 # Steps
 # ---------------------------------------------------------------------------
 
-def _layer_stack(params, cfg: ModelConfig, cache, x, step):
+def _layer_stack(params, cfg: ModelConfig, cache, x, step,
+                 gather_specs=None):
     """One serving step's layer stack: ``step(x, layer params, layer
     cache, layer type) -> (x, new layer cache)`` per layer in order — the
     layers, a hybrid model's groups then tail, or an encoder-decoder
     model's decoder layers (type ``"dec"``; the layer cache is its ring
     ``k``, ``v`` and its cross ``ck``, ``cv``) — each layer's new cache
-    written back into ``cache`` in place.  Counts one walk in
-    ``_layer_stack.walks``."""
+    written back into ``cache`` in place.  ``gather_specs``: the
+    ``layers``, ``groups`` or ``dec_layers`` subtree is applied to each
+    layer's (group's) parameters as it runs (``transformer._wsc_tree``:
+    a callable leaf gathers a rank's shards), as the JAX steps constrain
+    them.  Counts one walk in ``_layer_stack.walks``."""
+    gs = gather_specs or {}
 
     def run(x, lp, lc, t):
         x, st = step(x, lp, lc, t)
@@ -437,12 +450,14 @@ def _layer_stack(params, cfg: ModelConfig, cache, x, step):
         for l in range(cfg.dec_layers):
             lc = {"k": cache["self"]["k"][l], "v": cache["self"]["v"][l],
                   "ck": cache["cross_k"][l], "cv": cache["cross_v"][l]}
-            x = run(x, layer_params(params["dec_layers"], l), lc, "dec")
+            x = run(x, _wsc_tree(layer_params(params["dec_layers"], l),
+                                 gs.get("dec_layers")), lc, "dec")
         return x
     if cfg.block_pattern:
         pattern, n_groups, _ = hybrid_structure(cfg)
         for g in range(n_groups):
-            gp = layer_params(params["groups"], g)
+            gp = _wsc_tree(layer_params(params["groups"], g),
+                           gs.get("groups"))
             for i, t in enumerate(pattern):
                 nm = f"b{i}_{t}"
                 lc = {k: v[g] for k, v in cache["groups"][nm].items()}
@@ -453,7 +468,8 @@ def _layer_stack(params, cfg: ModelConfig, cache, x, step):
     lt = cfg.layer_types()[0]
     states = cache["layers"]
     for l in range(cfg.n_layers):
-        x = run(x, layer_params(params["layers"], l),
+        x = run(x, _wsc_tree(layer_params(params["layers"], l),
+                             gs.get("layers")),
                 {k: v[l] for k, v in states.items()}, lt)
     return x
 
@@ -626,16 +642,19 @@ def _decode_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos):
     return _ffn_out(h, lp, cfg), {"k": kc, "v": vc}
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, pos, extras=None):
+def decode_step(params, cfg: ModelConfig, cache, tokens, pos, extras=None,
+                gather_specs=None):
     """One token for every stream.  tokens: (B, 1); pos: (B,) absolute;
     ``extras``: a VLM's ``position_ids`` (3, B, 1), else M-RoPE takes
-    ``pos``.  Writes each layer's ring or state in ``cache`` in place and
-    returns (logits (B, V) f32, cache)."""
+    ``pos``; ``gather_specs``: see ``_layer_stack``.  Writes each layer's
+    ring or state in ``cache`` in place and returns (logits (B, V) f32,
+    cache)."""
     x = embed_tokens(params, cfg, tokens)
     rope = _step_rope(cfg, pos[:, None], extras)
     x = _layer_stack(params, cfg, cache, x,
                      lambda x, lp, lc, t: _decode_layer(x, lp, lc, cfg, t,
-                                                        rope, pos))
+                                                        rope, pos),
+                     gather_specs)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return head_logits(params, cfg, x[:, 0]), cache
 
@@ -734,7 +753,8 @@ def _state_to_cache(cfg: ModelConfig, st, lt: str, max_len: int):
             for k, v in st.items()}
 
 
-def prefill(params, cfg: ModelConfig, tokens, extras=None, *, max_len: int):
+def prefill(params, cfg: ModelConfig, tokens, extras=None, *, max_len: int,
+            gather_specs=None):
     """Process whole prompts: (logits (B, V) after the last token, the
     decode cache shaped like ``init_cache(cfg, B, max_len)``).  tokens:
     (B, S); ``extras`` the forward's (a VLM's ``vision_embeds`` and
@@ -743,21 +763,23 @@ def prefill(params, cfg: ModelConfig, tokens, extras=None, *, max_len: int):
     sequence — flash attention, the SSD scan and the RG-LRU scan through
     their kernels on the card — and ring-arranges each layer's keys and
     values as the layer finishes, so a windowed cache never holds (L, B,
-    S, ...)."""
+    S, ...).  ``gather_specs`` goes to the forward (the per-layer gather
+    points, ``transformer._wsc_tree``)."""
     extras = extras or {}
     if cfg.family == "encdec":
         return encdec_prefill(params, cfg, extras["frame_embeds"], tokens,
-                              max_len=max_len)
+                              max_len=max_len, gather_specs=gather_specs)
     x, states, _ = forward(params, cfg, tokens, extras, return_states=True,
                            state_fn=lambda st, t: _state_to_cache(
-                               cfg, st, t, max_len))
+                               cfg, st, t, max_len),
+                           gather_specs=gather_specs)
     with torch.no_grad():
         logits = head_logits(params, cfg, x[:, -1])
     return logits, states
 
 
 def encdec_prefill(params, cfg: ModelConfig, frame_embeds, tokens, *,
-                   max_len: int):
+                   max_len: int, gather_specs=None):
     """Encode the source ``frame_embeds`` (B, S_src, D), run the decoder
     over the target prefix ``tokens`` (B, S), and build the decode cache
     (``init_cache(cfg, B, max_len, S_src)``'s layout): each layer's
@@ -770,9 +792,10 @@ def encdec_prefill(params, cfg: ModelConfig, frame_embeds, tokens, *,
                 "ck": st["ck"], "cv": st["cv"]}
 
     with torch.no_grad():
-        enc_out = encode(params, cfg, frame_embeds)
+        enc_out = encode(params, cfg, frame_embeds, gather_specs)
         x, states = decoder_forward(params, cfg, tokens, enc_out,
-                                    return_states=True, state_fn=state_fn)
+                                    return_states=True, state_fn=state_fn,
+                                    gather_specs=gather_specs)
         logits = head_logits(params, cfg, x[:, -1])
     return logits, {"cross_k": states["ck"], "cross_v": states["cv"],
                     "self": {"k": states["k"], "v": states["v"]}}

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import dry
 from repro_torch.kernels.flash_attention import ops, ref
 
 NEG_INF = -1e30
@@ -30,9 +31,10 @@ def _mm_f32(a, b):
     """a (M, K) @ b (K, N) -> (M, N) float32 from operands of one type, or
     batched, a (E, M, K) @ b (E, K, N) -> (E, M, N), with no float32 copy
     of either on the card: cuBLAS's bf16 -> f32 GEMM (``out_dtype``)
-    there; the CPU upcasts, which computes the same function (products of
-    bf16 values are exact in float32)."""
-    if a.dtype == torch.float32 or a.device.type != "cuda":
+    there (and on the dry run's fake ``meta`` tensors, ``kernels/dry.py``);
+    the CPU upcasts, which computes the same function (products of bf16
+    values are exact in float32)."""
+    if a.dtype == torch.float32 or not dry.on_card(a):
         return a.float() @ b.float()
     if a.dim() == 3:
         return torch.bmm(a, b, out_dtype=torch.float32)
@@ -63,7 +65,7 @@ class _MatmulF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        if x.dtype == torch.float32 or g.device.type != "cuda":
+        if x.dtype == torch.float32 or not dry.on_card(g):
             parts = (g,)
         else:
             hi = g.to(x.dtype)

@@ -33,7 +33,7 @@ What differs from the JAX forward:
 * ``head_pad_to`` and the sharding pins ``_shard_padded_heads`` and
   ``_seq_gather`` do nothing without GSPMD and are not ported.
   ``gather_specs`` (``forward``, ``encode``, ``decoder_forward``,
-  ``loss_fn``) marks the points where the JAX forward constrains each
+  ``loss_fn``, and the serving steps of ``models/decode.py``) marks the points where the JAX forward constrains each
   layer's leaves (``_wsc_tree``): a leaf given a callable there is
   replaced by its result when its layer runs — the data-parallel train
   step (``launch.steps.make_train_step_smap``) gathers a rank's shards
@@ -391,12 +391,13 @@ def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
     x = embed_tokens(params, cfg, tokens)
     rope = rope_for(cfg, _positions(x))
     layers = params["dec_layers"]
+    specs = (gather_specs or {}).get("dec_layers")
     if return_states:
         states = []
         with torch.no_grad():
             for i in range(cfg.dec_layers):
-                x, st = _dec_layer(x, layer_params(layers, i), cfg, rope,
-                                   enc_out)
+                x, st = _dec_layer(x, _wsc_tree(layer_params(layers, i),
+                                                specs), cfg, rope, enc_out)
                 states.append(state_fn(st) if state_fn else st)
             x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, _stack_states(states)
@@ -404,7 +405,7 @@ def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
     def layer(x, lp):
         return _dec_layer(x, lp, cfg, rope, enc_out)[0]
 
-    layer = _gathered(layer, (gather_specs or {}).get("dec_layers"))
+    layer = _gathered(layer, specs)
     for i in range(cfg.dec_layers):
         x = _run(layer, x, layer_params(layers, i), cfg)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)

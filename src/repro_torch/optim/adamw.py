@@ -18,6 +18,7 @@ from typing import Any, Dict, Iterator, Tuple
 
 import torch
 
+from repro_torch.kernels import dry
 from repro_torch.models.params import from_reference, tree_map
 
 PIECE = 1 << 26          # elements in one piece of a leaf's update
@@ -72,6 +73,14 @@ def _pieces(t: torch.Tensor, rows: int = 0) -> Tuple[torch.Tensor, ...]:
     return torch.split(t, rows or piece_rows(t), dim=0)
 
 
+def step_count(state) -> int:
+    """The step an update makes: the state's ``count`` plus one, read on
+    the host.  A fake count (the dry run's, ``kernels/dry.py``) has no
+    value to read: the trace takes the first step."""
+    count = state["count"]
+    return 1 if dry.is_dry(count) else int(count) + 1
+
+
 def init_opt_state(params) -> Dict[str, Any]:
     """{"m", "v": float32 zeros shaped like params, "count": int32 0}."""
     some = next(_leaves(params))
@@ -106,7 +115,7 @@ def adamw_update(grads, state, params, cfg: AdamWConfig, *, gnorm=None
     gradient's global norm when the caller computed it (over every rank's
     shards, ``launch.steps.make_train_step_smap``), else
     ``global_norm(grads)``."""
-    count = int(state["count"]) + 1
+    count = step_count(state)
     lr = lr_schedule(cfg, count)
     if gnorm is None:
         gnorm = global_norm(grads)

@@ -29,7 +29,8 @@ import torch
 
 from repro_torch.models.params import from_reference, tree_map
 from repro_torch.optim.adamw import (AdamWConfig, _leaves, _pieces,
-                                     global_norm, lr_schedule, piece_rows)
+                                     global_norm, lr_schedule, piece_rows,
+                                     step_count)
 
 
 def _row_max(x: torch.Tensor, row) -> torch.Tensor:
@@ -97,7 +98,7 @@ def adamw8bit_update(grads, state, params, cfg: AdamWConfig, *, gnorm=None,
     caller computed it; ``rows``: a tree shaped like ``params`` whose
     leaves reduce a row maximum across the ranks that share the row (None
     where no mesh axis cuts it), or None."""
-    count = int(state["count"]) + 1
+    count = step_count(state)
     lr = lr_schedule(cfg, count)
     if gnorm is None:
         gnorm = global_norm(grads)

@@ -29,6 +29,9 @@ import repro_torch.serving.spec, repro_torch.core.api
 import repro_torch.models.transformer, repro_torch.models.decode
 import repro_torch.models.layers, repro_torch.models.params
 import repro_torch.models.moe, repro_torch.serving.kvpool
+import repro_torch.launch.inputs, repro_torch.launch.analysis
+import repro_torch.launch.dryrun, repro_torch.launch.trace_analysis
+import repro_torch.kernels.dry
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(",".join(bad))
