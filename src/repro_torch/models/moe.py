@@ -23,6 +23,23 @@ the ``wo`` product are rounded to the compute type, a kept claim's gate
 is rounded to it, and the sum over a token's claims is float32 before
 its rounding.
 
+Recomputation.  Under autograd with ``cfg.remat == "none"`` each token
+block is recomputed in its backward (``torch.utils.checkpoint``), so no
+block's slot buffers are saved.  With remat on, the layer's own
+checkpoint (``transformer._run``) recomputes the whole MoE forward in the
+backward, and the blocks take no checkpoint of their own.  Nested, they
+would hold a layer's gathered expert weights from its forward to its
+backward: a non-reentrant checkpoint keeps its inputs until its
+backward, and the inner checkpoints of the layer's first forward are the
+ones that recompute their blocks then, so under FSDP every layer's
+gathered ``wi`` / ``wo`` stayed alive at once.  Of the two repairs, this
+one costs memory in one place: a layer's backward holds the saved
+tensors of all its blocks at once, where JAX's nested ``jax.checkpoint``
+holds one block's.  The other, gathering ``wi`` / ``wo`` inside each
+block so that its checkpoint keeps the rank's shards, would repeat the
+layer's FSDP gathers once a block in the forward, again in the
+recompute and again in each block's backward.
+
 Top-K takes the lower expert index first among equal logits, as
 ``lax.top_k`` does (``torch.topk`` does not promise an order among
 ties): padded tokens are exactly zero, so their logits tie across all
@@ -116,8 +133,8 @@ def moe_apply(x, params, cfg: ModelConfig, *, dropless: bool = False):
     blocks).  S is zero-padded to whole blocks of ``blk_s`` positions; a
     block holds every row's positions, routed jointly
     (``cfg.moe_batched=False``) or row by row.  Under autograd each block
-    is recomputed in the backward (``torch.utils.checkpoint``), so no
-    block's slot buffers are saved."""
+    is recomputed in its backward unless the layer is (see the module
+    note on recomputation)."""
     B, S, D = x.shape
     blk_s = max(1, min(max(1, cfg.moe_block // B), S))
     S_pad = -(-S // blk_s) * blk_s
@@ -134,7 +151,7 @@ def moe_apply(x, params, cfg: ModelConfig, *, dropless: bool = False):
     ys, lbs, drops = [], [], []
     for s0 in range(0, S_pad, blk_s):
         xb = x[:, s0:s0 + blk_s]
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() and cfg.remat == "none":
             y, lb, dr = checkpoint(block, xb, params, use_reentrant=False)
         else:
             y, lb, dr = block(xb, params)

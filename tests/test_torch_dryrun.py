@@ -246,3 +246,30 @@ def test_inapplicable_cell_is_skipped_with_jaxs_reason():
     rec = dryrun.run_cell("llama3-8b", "long_500k", multi_pod=False)
     assert rec["status"] == "skipped"
     assert "full quadratic attention" in rec["reason"]
+
+
+
+def test_moe_fsdp_layer_growth_is_less_than_its_gathered_experts(no_build):
+    """An MoE train step under FSDP on the production mesh, traced at 1
+    and 2 layers: the second layer adds less to the peak than one layer's
+    gathered expert weights (``wi`` and ``wo`` whole).  Each layer is
+    recomputed under remat "full", so its token blocks take no checkpoint
+    of their own; nested, the blocks' checkpoints kept every layer's
+    gathered experts alive until its backward and the growth was above
+    those bytes."""
+    base = dataclasses.replace(
+        t_reduced(T_REGISTRY["mixtral-8x22b"]), d_model=256, d_ff=1024,
+        n_experts=8, capacity_factor=1.25, moe_block=2048, n_heads=16,
+        n_kv_heads=16, remat="full", param_dtype="bfloat16",
+        compute_dtype="bfloat16")
+    shape = ShapeConfig("t", "train", 256, 512)
+    peaks = []
+    for n in (1, 2):
+        cfg = dataclasses.replace(base, n_layers=n)
+        tr, _, _ = dryrun.trace_step(cfg, shape, make_production_mesh(),
+                                     fsdp=True)
+        peaks.append(tr.memory()["peak_per_device"])
+    moe = model_def(base)["layers"]["moe"]
+    gathered = sum(math.prod(moe[k].shape[1:]) for k in ("wi", "wo")) * 2
+    growth = peaks[1] - peaks[0]
+    assert 0 < growth < gathered, (growth, gathered)
