@@ -772,6 +772,13 @@ FLASH_GEOMETRIES = [
     # starcoder2-15b's G = 12 (48 query heads over 4 kv heads) at dh 128,
     # causal, no window
     ("starcoder_s2048", 1, 2048, 2048, 48, 4, 128, True, 0),
+    # the spmd train step's local heads on a 16-wide model axis at the
+    # train_4k cell's microbatch (B=2, S=4096): llama3-8b's 2 query heads
+    # over the one kv head they read (G = 2); mixtral-8x22b's,
+    # nemotron-4-15b's and starcoder2-15b's 3 (G = 3, an odd group inside
+    # a 64-row tile)
+    ("tp_g2_s4096", 2, 4096, 4096, 2, 1, 128, True, 0),
+    ("tp_g3_s4096", 2, 4096, 4096, 3, 1, 128, True, 0),
 ]
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/"
 # the plain versions hold several (B, Hq, S, S) float32 score tensors at
@@ -898,8 +905,9 @@ def phase_flash_kernels(torch):
             elif name == "moe_train" and dtype == "bfloat16":
                 rows["fwd"]["moe_max_abs_err"] = fwd_err
                 rows["bwd"]["moe_max_abs_err"] = bwd_err
-            elif name.startswith(("vlm_", "encdec_", "starcoder_")):
-                # phase 14's rows and starcoder2-15b's, by family and route
+            elif name.startswith(("vlm_", "encdec_", "starcoder_", "tp_")):
+                # phase 14's rows, starcoder2-15b's and the spmd step's
+                # local heads, by family and route
                 fam = name.split("_")[0]
                 key = (f"{fam}_max_abs_err" if dtype == "bfloat16"
                        else f"{fam}_f32_max_abs_err")
@@ -3792,14 +3800,16 @@ def phase_ef(torch, rows):
 PHASE5 = {}
 
 
-def phase_dist(torch):
+def phase_dist(torch, rows):
     """Phase 15 (d): ``torch.distributed`` on the card — an NCCL process
     group of one rank (a ``FileStore``) and a (1, 1) mesh.
-    ``make_train_step_smap`` on reduced float32 llama3-8b against
-    ``make_train_step`` (parameters after 3 steps within 1e-5) with both
-    optimizers, the Trainer on the mesh against the one-card Trainer, and
-    the 8-bit state through the checkpoint manager (sharded save and
-    restore)."""
+    ``make_train_step_smap`` and ``make_train_step_spmd`` on reduced
+    float32 llama3-8b against ``make_train_step`` (parameters after 3
+    steps within 1e-5) with both optimizers, the Trainer on the mesh (the
+    spmd step) against the one-card Trainer, and the 8-bit state through
+    the checkpoint manager (sharded save and restore); then (e) the spmd
+    step on phase 4's cell against ``make_train_step``
+    (``phase_spmd_cell``)."""
     import os
     import shutil
     import tempfile
@@ -3811,7 +3821,9 @@ def phase_dist(torch):
                                            write_corpus_shards)
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.steps import make_train_step, make_train_step_smap
+    from repro_torch.launch.steps import (make_train_step,
+                                          make_train_step_smap,
+                                          make_train_step_spmd)
     from repro_torch.models.params import init_params
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
     from repro_torch.optim.quantized import init_opt_state_8bit
@@ -3836,34 +3848,42 @@ def phase_dist(torch):
             batches.append({"tokens": blk[:, :-1].cuda(),
                             "targets": blk[:, 1:].cuda(),
                             "mask": torch.ones(4, 64).cuda()})
+        bspecs = sh.batch_specs(cfg, None, mesh)
         for impl in ("adamw", "adamw8bit"):
             init = init_opt_state_8bit if impl == "adamw8bit" \
                 else init_opt_state
-            one, ranked = _to_device(base, "cuda"), _to_device(base, "cuda")
-            s1, s2 = init(one), init(ranked)
-            step = make_train_step(cfg, opt_cfg, opt_impl=impl)
-            smap = make_train_step_smap(cfg, opt_cfg, mesh, pspecs,
-                                        sh.batch_specs(cfg, None, mesh),
-                                        opt_impl=impl)
-            secs = {"make_train_step": [], "make_train_step_smap": []}
+            one = _to_device(base, "cuda")
+            steps = {"make_train_step": make_train_step(cfg, opt_cfg,
+                                                        opt_impl=impl),
+                     "make_train_step_smap": make_train_step_smap(
+                         cfg, opt_cfg, mesh, pspecs, bspecs, opt_impl=impl),
+                     "make_train_step_spmd": make_train_step_spmd(
+                         cfg, opt_cfg, mesh, pspecs, bspecs, opt_impl=impl)}
+            state = {name: (p, init(p)) for name, p in
+                     [("make_train_step", one)] + [
+                         (name, _to_device(base, "cuda"))
+                         for name in list(steps)[1:]]}
+            secs = {name: [] for name in steps}
             for b in batches:
-                for name, fn, p, s in (("make_train_step", step, one, s1),
-                                       ("make_train_step_smap", smap,
-                                        ranked, s2)):
+                for name, fn in steps.items():
                     torch.cuda.synchronize()
                     t = time.perf_counter()
-                    fn(p, s, b)
+                    fn(*state[name], b)
                     torch.cuda.synchronize()
                     secs[name].append(time.perf_counter() - t)
-            err = max(float((a - b).abs().max()) for a, b in zip(
-                _tree_leaves(one), _tree_leaves(ranked)))
-            log(f"[dist] {dist.get_backend()} world 1, mesh {mesh.shape}: "
-                f"make_train_step_smap against make_train_step, {impl}, "
-                f"reduced {cfg.name} float32, 3 steps: params max abs err "
-                f"{err:.3e} (tol 1e-5); seconds a step "
-                + json.dumps(secs))
-            if err > 1e-5:
-                raise AssertionError(f"the smap step ({impl}) differs")
+            for name in list(steps)[1:]:
+                ranked = state[name][0]
+                err = max(float((a - b).abs().max()) for a, b in zip(
+                    _tree_leaves(one), _tree_leaves(ranked)))
+                log(f"[dist] {dist.get_backend()} world 1, mesh "
+                    f"{mesh.shape}: {name} against make_train_step, {impl}, "
+                    f"reduced {cfg.name} float32, 3 steps: params max abs "
+                    f"err {err:.3e} (tol 1e-5)")
+                if err > 1e-5:
+                    raise AssertionError(f"{name} ({impl}) differs")
+            log(f"[dist] seconds a step, {impl}: " + json.dumps(secs))
+        ranked = state["make_train_step_smap"][0]
+        s2 = state["make_train_step_smap"][1]
         # the 8-bit state of the smap run through the checkpoint manager
         state = {"params": ranked, "opt": s2}
         shd = {"params": sh.named(mesh, pspecs),
@@ -3901,9 +3921,114 @@ def phase_dist(torch):
             f"{perr:.3e} (tol 1e-5)")
         if max(lerr, perr) > 1e-5:
             raise AssertionError("the Trainer on a mesh differs")
+        del state, ranked, s2, runs, back, like
+        free_card(torch)
+        phase_spmd_cell(torch, rows, mesh)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp)
+
+
+# phase 15 (e): the spmd step against make_train_step on phase 4's cell,
+# each from the same weights in turn (two copies of the state do not fit
+# the card beside remat "none"'s activations); bf16 — the two are the same
+# operations on one rank (the vocabulary-parallel log-sum-exp is
+# torch.logsumexp's, a collective over one rank a copy), so they differ
+# only where the card's kernels are not deterministic: losses within 1e-4
+# and grad norms within 1e-3 (relative), every parameter within 2.5
+# learning rates (an entry that took another update in one step) and at
+# most one entry in 10^3 off at all
+SPMD_STEPS = 2
+SPMD_LOSS_RTOL, SPMD_NORM_RTOL = 1e-4, 1e-3
+SPMD_PARAM_LRS, SPMD_PARAM_OFF = 2.5, 1e-3
+
+
+def phase_spmd_cell(torch, rows, mesh):
+    """Phase 15 (e): ``make_train_step_spmd`` on the (1, 1) mesh of an NCCL
+    process group of one rank, at phase 4's cell (llama3.2-3b at full
+    width and depth, bf16, B=2, S=2048, remat "none"), against
+    ``make_train_step`` for ``SPMD_STEPS`` steps from the same seeded
+    weights.  The flash kernels' counts are set to 0 just before the spmd
+    steps and read just after: each must have launched."""
+    import dataclasses
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import make_train_step, make_train_step_spmd
+    from repro_torch.models.params import init_params, n_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(REGISTRY[TRAIN_ARCH], remat=TRAIN_REMAT)
+    opt_cfg = AdamWConfig(warmup_steps=1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    host = _tree_apply(lambda t: t.cpu(),
+                       init_params(cfg, gen, device="cuda"))
+    g = torch.Generator().manual_seed(4)
+    batches = []
+    for _ in range(SPMD_STEPS):
+        blk = torch.randint(2, cfg.vocab, (TRAIN_B, TRAIN_S + 1), generator=g,
+                            dtype=torch.int32)
+        batches.append({"tokens": blk[:, :-1].cuda(),
+                        "targets": blk[:, 1:].cuda(),
+                        "mask": torch.ones(TRAIN_B, TRAIN_S, device="cuda")})
+    pspecs = sh.param_specs(cfg, mesh)
+    runs = {}
+    for name in ("make_train_step", "make_train_step_spmd"):
+        params = _to_device(host, "cuda")
+        opt = init_opt_state(params)
+        step = make_train_step(cfg, opt_cfg) if name == "make_train_step" \
+            else make_train_step_spmd(cfg, opt_cfg, mesh, pspecs,
+                                      sh.batch_specs(cfg, None, mesh))
+        fns = (ops.flash_attention, ops.flash_attention_bwd)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in fns:
+            fn.launches = fn.wgmma_launches = 0
+        out, secs = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        launches = [fn.launches for fn in fns]
+        runs[name] = (out, _tree_apply(lambda t: t.cpu(), params), secs,
+                      launches, torch.cuda.max_memory_allocated() / 2**30)
+        del params, opt, step
+        free_card(torch)
+    (ref, pref, ref_secs, _, ref_peak), (got, pgot, secs, launches, peak) = \
+        runs["make_train_step"], runs["make_train_step_spmd"]
+    lr = opt_cfg.peak_lr
+    worst = off = total = 0
+    for a, b in zip(_tree_leaves(pref), _tree_leaves(pgot)):
+        d = (a.cuda().float() - b.cuda().float()).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 0).sum())
+        total += d.numel()
+    lerr = max(abs(a[0] - b[0]) / abs(a[0]) for a, b in zip(ref, got))
+    nerr = max(abs(a[1] - b[1]) / abs(a[1]) for a, b in zip(ref, got))
+    want = cfg.n_layers * SPMD_STEPS
+    log(f"[spmd] make_train_step_spmd on NCCL world 1, mesh {mesh.shape}, "
+        f"phase 4's cell ({cfg.name}, {n_params(cfg)} params bf16, B="
+        f"{TRAIN_B} S={TRAIN_S} remat={cfg.remat}), {SPMD_STEPS} steps "
+        f"against make_train_step: (loss, grad norm) {got} against {ref}: "
+        f"rel err {lerr:.3e} (tol {SPMD_LOSS_RTOL}) and {nerr:.3e} (tol "
+        f"{SPMD_NORM_RTOL}); params max abs err {worst:.3e} (tol "
+        f"{SPMD_PARAM_LRS * lr:.3e}), {off} of {total} entries differ (tol "
+        f"{SPMD_PARAM_OFF}); flash launches (fwd, bwd) {launches} (want "
+        f"{want} each); seconds a step {secs} against {ref_secs}; peak "
+        f"{peak:.3f} GiB against {ref_peak:.3f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if launches != [want, want]:
+        raise AssertionError(f"the spmd step's flash launches {launches}, "
+                             f"expected {want} each")
+    if (lerr > SPMD_LOSS_RTOL or nerr > SPMD_NORM_RTOL
+            or worst > SPMD_PARAM_LRS * lr or off > SPMD_PARAM_OFF * total):
+        raise AssertionError("the spmd step differs from make_train_step on "
+                             "phase 4's cell")
+    rows[1]["spmd_launches"], rows[2]["spmd_launches"] = launches
+    rows[1]["spmd_step_s"] = secs
 
 
 DIST_ARCH = "llama3-8b"
@@ -3923,7 +4048,7 @@ def phase_training_state(torch, rows):
     phase_hybrid_8bit(torch, rows)
     phase_ef(torch, rows)
     free_card(torch)
-    phase_dist(torch)
+    phase_dist(torch, rows)
     log(f"[phase 15] {time.perf_counter() - t0:.1f} s")
 
 
@@ -3935,17 +4060,62 @@ DRY_ARCH = "llama3-8b"
 DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 DRY_PEAK_TOL = 0.10         # the dry peak against max_memory_allocated
 PHASE4 = {}
+# (b)'s cells, each (arch, shape, multi-pod, layers — 0: all): llama3-8b's
+# three production cells, its train cell on the pod mesh, and
+# mixtral-8x22b's train cell cut to 1 and 2 layers (the growth a layer);
+# train cells under the dry run's default impl, gspmd (the spmd step)
+DRY_CELLS = ([(DRY_ARCH, shape, False, 0) for shape in DRY_SHAPES]
+             + [(DRY_ARCH, "train_4k", True, 0)]
+             + [("mixtral-8x22b", "train_4k", False, n) for n in (1, 2)])
 
 
-def phase_dryrun(torch, phase4_launches, card):
-    """Phase 16: (a) the dry run of phase 4's cell held against what phase
-    4 measured; (b) llama3-8b's three production cells, one process each,
-    started before (a) and waited for after it.  ``card``: the card's name
-    and power limit (phase 1's)."""
-    import dataclasses
+def dry_name(arch, shape, multi_pod, layers):
+    """The record's name, as the dry run's ``main`` writes it."""
+    return (f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
+            + (f"__{layers}layers" if layers else ""))
+
+
+def start_dry_cells():
+    """Phase 16 (b)'s processes, one a cell of ``DRY_CELLS``, started now:
+    they run on the host's other cores while the card works (the whole
+    run starts them before phase 15).  Returns (processes by cell, their
+    output directory)."""
     import os
-    import shutil
     import tempfile
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--layers", str(cell[3]), "--out",
+         out_dir] + (["--multi-pod"] if cell[2] else [])
+        # a depth cut's peak is what it is for; its decomposition would
+        # trace its MoE layer a second time
+        + (["--skip-analysis"] if cell[3] else []),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for cell in DRY_CELLS}
+    return procs, out_dir
+
+
+def stop_dry_cells(dry_cells):
+    """Kill ``start_dry_cells``'s processes that still run and remove
+    their output directory."""
+    import shutil
+    procs, out_dir = dry_cells
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def phase_dryrun(torch, phase4_launches, card, dry_cells):
+    """Phase 16: (a) the dry run of phase 4's cell held against what phase
+    4 measured; (b) ``DRY_CELLS``, one process each (``dry_cells``, from
+    ``start_dry_cells``), waited for after (a): the pod mesh's peak a
+    rank at most the single pod's, and mixtral-8x22b's growth a layer
+    below one layer's gathered experts (cut over "model").  ``card``: the
+    card's name and power limit (phase 1's)."""
+    import dataclasses
     import numpy as np
     from repro_torch.configs import REGISTRY
     from repro_torch.configs.base import ShapeConfig
@@ -3955,20 +4125,15 @@ def phase_dryrun(torch, phase4_launches, card):
     from repro_torch.launch.mesh import Mesh
 
     t0 = time.perf_counter()
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    procs = {shape: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         DRY_ARCH, "--shape", shape, "--out", out_dir],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-        for shape in DRY_SHAPES}
+    procs, out_dir = dry_cells
     try:
         # (a) phase 4's cell, one rank of a (1, 1) mesh
         cfg = dataclasses.replace(REGISTRY[TRAIN_ARCH], remat=TRAIN_REMAT)
         shape = ShapeConfig("phase4", "train", TRAIN_S, TRAIN_B)
         mesh = Mesh(np.arange(1).reshape(1, 1), ("data", "model"))
         tr, _, secs = dryrun.trace_step(cfg, shape, mesh, fsdp=False,
-                                        microbatches=1, opt_impl="adamw")
+                                        microbatches=1, opt_impl="adamw",
+                                        train_impl="smap")
         want = {k: v // TRAIN_STEPS for k, v in phase4_launches.items()}
         peak = PHASE4["peak_gib"] * 2 ** 30
         rel = tr.peak_bytes / peak - 1.0
@@ -4008,9 +4173,10 @@ def phase_dryrun(torch, phase4_launches, card):
                                  f"{rel:+.4f} of phase 4's "
                                  f"max_memory_allocated")
         # (b) the production cells
-        for shape_name, proc in procs.items():
+        recs = {}
+        for cell, proc in procs.items():
             text, _ = proc.communicate(timeout=600)
-            name = f"{DRY_ARCH}__{shape_name}__pod1"
+            name = dry_name(*cell)
             path = Path(out_dir) / f"{name}.json"
             rec = json.loads(path.read_text()) if path.exists() else {}
             log(dryrun.summary(name, rec) if rec else text[-2000:])
@@ -4018,22 +4184,46 @@ def phase_dryrun(torch, phase4_launches, card):
                 raise AssertionError(f"{name}: exit {proc.returncode}, "
                                      f"status {rec.get('status')}: "
                                      f"{text[-2000:]}")
+            recs[cell] = rec
             mem = rec["memory"]
-            log(f"[dryrun 16b] {name}: peak {mem['peak_per_device']} bytes "
-                f"a rank, fits 80 GB {mem['fits_hbm_80gb']}, collectives "
-                f"{rec['collectives']['per_class_bytes']}, launches "
-                f"{rec['launches']}, flops ratio decomposed/full "
-                f"{rec['decomposed']['flops_ratio']:.6f}, roofline "
-                f"{rec['roofline']['dominant']} "
-                f"{rec['roofline']['compute_s']:.6f} / "
-                f"{rec['roofline']['memory_s']:.6f} / "
-                f"{rec['roofline']['collective_s']:.6f} s; card {card}")
+            line = (f"[dryrun 16b] {name} ({rec['tag']}): peak "
+                    f"{mem['peak_per_device']} bytes a rank, fits 80 GB "
+                    f"{mem['fits_hbm_80gb']}, flops "
+                    f"{rec['full_step_cost_analysis']['flops']:.6e}, "
+                    f"collectives {rec['collectives']['per_class_bytes']}, "
+                    f"launches {rec['launches']}")
+            if "roofline" in rec:
+                line += (f", flops ratio decomposed/full "
+                         f"{rec['decomposed']['flops_ratio']:.6f}, roofline "
+                         f"{rec['roofline']['dominant']} "
+                         f"{rec['roofline']['compute_s']:.6f} / "
+                         f"{rec['roofline']['memory_s']:.6f} / "
+                         f"{rec['roofline']['collective_s']:.6f} s, fraction "
+                         f"{rec['roofline']['roofline_fraction']:.6f}")
+            log(line + f"; card {card}")
+        pod1 = recs[DRY_ARCH, "train_4k", False, 0]["memory"]
+        pod2 = recs[DRY_ARCH, "train_4k", True, 0]["memory"]
+        log(f"[dryrun 16b] {DRY_ARCH} train_4k peak a rank: pod mesh "
+            f"{pod2['peak_per_device']} bytes, single pod "
+            f"{pod1['peak_per_device']} bytes")
+        if pod2["peak_per_device"] > pod1["peak_per_device"]:
+            raise AssertionError("the pod mesh's train peak a rank exceeds "
+                                 "the single pod's")
+        moe_cfg = REGISTRY["mixtral-8x22b"]
+        one, two = (recs["mixtral-8x22b", "train_4k", False, n]["memory"][
+            "peak_per_device"] for n in (1, 2))
+        experts = 2 * moe_cfg.n_experts * moe_cfg.d_model * moe_cfg.d_ff * (
+            3 if moe_cfg.activation in ("swiglu", "gelu_glu", "relu_glu")
+            else 2) / 16
+        log(f"[dryrun 16b] mixtral-8x22b train_4k (gspmd, FSDP) peak a "
+            f"rank at 1 and 2 layers: {one} and {two} bytes, growth a layer "
+            f"{(two - one) / 2**30:.4f} GiB against one layer's experts "
+            f"gathered over data, cut over model: {experts / 2**30:.4f} GiB")
+        if not 0 < two - one < experts:
+            raise AssertionError("an MoE layer grows the train peak by its "
+                                 "gathered experts")
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(out_dir, ignore_errors=True)
+        stop_dry_cells(dry_cells)
     log(f"[dryrun] phase 16: {time.perf_counter() - t0:.1f} s; card {card}")
 
 
@@ -4095,7 +4285,8 @@ def main() -> int:
         phase_training_state(torch, [{} for _ in range(5)])
         return 0
     if args.dry_run:
-        phase_dryrun(torch, phase_train_main(torch, fa_ops, False), card)
+        launches = phase_train_main(torch, fa_ops, False)
+        phase_dryrun(torch, launches, card, start_dry_cells())
         return 0
     rows = [phase_ring_kernel(torch)]
     flash = phase_flash_kernels(torch)
@@ -4183,9 +4374,14 @@ def main() -> int:
             ("card", "cuda", "blocked", None)] + CARD_VARIANTS["hybrid"])
         phase_moe(torch, rows)              # phase 13
         phase_vlm_encdec(torch, rows)       # phase 14
-        phase_training_state(torch, rows)   # phase 15
+        dry_cells = start_dry_cells()       # phase 16 (b), on the host
+        try:
+            phase_training_state(torch, rows)   # phase 15
+        except BaseException:
+            stop_dry_cells(dry_cells)
+            raise
         free_card(torch)
-        phase_dryrun(torch, flash_launches, card)  # phase 16
+        phase_dryrun(torch, flash_launches, card, dry_cells)  # phase 16
     ring_device_times(torch, rows[0])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -15,10 +15,13 @@ one token against a ``seq_len``-deep cache), forward, or forward and
 backward under the cell's remat for train, and the embedding, final norm
 and head (train: the chunked loss, forward and backward) once — and a
 consistency check on the full count: the dry run records their ratio.
-Each layer runs with its weights whole, as the port's ranks compute them
-after gathering (no tensor-parallel compute), so its flops are the whole
-layer's on the rank's rows; ``_local_weight_bytes`` gives the bytes the
-rank holds of them at rest, exactly, from the specs.  Per type the
+Each layer runs as the cell's train step runs it on the rank's rows: with
+its weights whole, as the smap step computes after gathering, or — with
+``tp`` (the spmd step, ``--train-impl gspmd``) — on the rank's model
+shards of the layer types ``steps.tp_layer_types`` splits and of the
+embedding and head, with the collectives of a dry mesh's comm;
+``_local_weight_bytes`` gives the bytes the rank holds of them at rest,
+exactly, from the specs.  Per type the
 detail separates the matmuls' flops (``torch.utils.flop_counter``'s
 formulas) from the hand-written kernels' needed work.
 
@@ -44,6 +47,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch import sharding as sh
 from repro_torch.launch import trace_analysis as ta
 from repro_torch.launch.inputs import ENCDEC_SRC_LEN, seq_split
+from repro_torch.launch.steps import tp_layer_types
 from repro_torch.models import decode as dec
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -110,10 +114,27 @@ def _fake(shape, dtype, device, grad=False):
     return t.requires_grad_(grad)
 
 
-def _layer_params(cfg, ltype, device, grad):
+def _layer_params(cfg, ltype, device, grad, shape_of=None):
+    """One layer's fake weights: whole, or ``shape_of(ParamDef)``."""
     dt = torch_dtype(cfg.param_dtype)
-    return tree_map(lambda pd: _fake(pd.shape, dt, device, grad),
+    shape_of = shape_of or (lambda pd: pd.shape)
+    return tree_map(lambda pd: _fake(shape_of(pd), dt, device, grad),
                     layer_def(cfg, ltype))
+
+
+def spmd_tp(cfg, mesh):
+    """The ``TensorParallel`` of the spmd step on ``mesh``'s comm (a dry
+    mesh's, in the dry run), and the shape a leaf of a split layer has on
+    the rank (``ParamDef`` -> its shape cut over "model" only)."""
+    from repro_torch.models.tensor_parallel import TensorParallel
+    rules = sh.axis_rules(cfg, mesh, fsdp=False)
+    tp = TensorParallel(mesh.comm(), [k for k, v in rules.items()
+                                      if k is not None and v == "model"],
+                        [a for a in sh.BATCH_AXES if a in mesh.axis_names])
+
+    def shape_of(pd):
+        return sh.local_shape(pd.shape, sh.spec_of(pd.axes, rules), mesh)
+    return tp, shape_of
 
 
 def _rope(cfg, B, S, device):
@@ -154,8 +175,9 @@ def _train_of(body):
 def layer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
                ltype: str, train: bool, hybrid: bool = False,
                seq_len: Optional[int] = None,
-               device: str = "cuda") -> LayerCost:
-    """Per-device cost of one block of ``ltype`` at the rank's shape."""
+               device: str = "cuda", tp: bool = False) -> LayerCost:
+    """Per-device cost of one block of ``ltype`` at the rank's shape;
+    ``tp``: as the spmd train step computes it (see the module note)."""
     dev = ta.trace_device(device)
     cdt = torch_dtype(cfg.compute_dtype)
     B = _rank_batch(mesh, shape.global_batch)
@@ -178,16 +200,20 @@ def layer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
         flops, bts, kf = _cost_of(f, args, dev)
         return LayerCost(flops, bts, flops - kf, kf)
 
+    split, shape_of = None, None
+    if tp and ltype in tp_layer_types(cfg):
+        split, shape_of = spmd_tp(cfg, mesh)
+
     def body(x, lp):
         return T.apply_layer(x, lp, cfg, ltype, rope_of[0], window=window,
-                             causal=ltype != "enc")[0]
+                             causal=ltype != "enc", tp=split)[0]
 
     rope_of = [None]
 
     def args():
         rope_of[0] = _rope(cfg, B, S, dev)
         return (_fake((B, S, cfg.d_model), cdt, dev, train),
-                _layer_params(cfg, ltype, dev, train),
+                _layer_params(cfg, ltype, dev, train, shape_of),
                 _fake((B, S, cfg.d_model), cdt, dev))
 
     if train:
@@ -237,10 +263,12 @@ def _decoder_layer_cost(cfg, shape, mesh, *, fsdp, train,
 
 
 def outer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
-               train: bool, device: str = "cuda") -> LayerCost:
+               train: bool, device: str = "cuda",
+               tp: bool = False) -> LayerCost:
     """Embedding + final norm + head per device, as the port's steps run
-    them: train the chunked loss forward and backward, prefill the last
-    position's logits, decode the token's."""
+    them: train the chunked loss forward and backward (``tp``: vocabulary
+    parallel, as the spmd step), prefill the last position's logits,
+    decode the token's."""
     dev = ta.trace_device(device)
     cdt = torch_dtype(cfg.compute_dtype)
     pdt = torch_dtype(cfg.param_dtype)
@@ -251,22 +279,29 @@ def outer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
         shape.seq_len if cfg.family == "vlm"
         else seq_split(cfg, shape.seq_len)[0])
     V, D = cfg.vocab_padded, cfg.d_model
+    split = None
+    shapes = {"embed": (V, D), "head": (D, V)}
+    if tp and train:
+        split, _ = spmd_tp(cfg, mesh)
+        ps = sh.param_specs(cfg, mesh, fsdp=False)
+        shapes = {k: sh.local_shape(v, ps[k], mesh)
+                  for k, v in shapes.items() if k in ps}
 
     def args():
-        p = {"embed": _fake((V, D), pdt, dev, train),
+        p = {"embed": _fake(shapes["embed"], pdt, dev, train),
              "final_norm": _fake((D,), pdt, dev, train)}
         if not cfg.tie_embeddings:
-            p["head"] = _fake((D, V), pdt, dev, train)
+            p["head"] = _fake(shapes["head"], pdt, dev, train)
         return (p, _fake((B, S), torch.int32, dev),
                 _fake((B, S, D), cdt, dev, train),
                 _fake((B, S), torch.int32, dev),
                 _fake((B, S), torch.float32, dev))
 
     def fwd(p, tok, x, tgt, m):
-        e = T.embed_tokens(p, cfg, tok)
+        e = T.embed_tokens(p, cfg, tok, split)
         xn = L.rms_norm(x + e, p["final_norm"], cfg.norm_eps)
         if train:
-            return T.chunked_ce_loss(p, cfg, xn, tgt, m)
+            return T.chunked_ce_loss(p, cfg, xn, tgt, m, split)
         return T.head_logits(p, cfg, xn[:, -1])
 
     if train:
@@ -288,9 +323,11 @@ def outer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
 
 
 def decomposed_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
-                    fsdp: bool, device: str = "cuda") -> Dict[str, float]:
+                    fsdp: bool, device: str = "cuda",
+                    tp: bool = False) -> Dict[str, float]:
     """Total per-device (flops, bytes) = sum over block types + outer,
-    with each type's detail."""
+    with each type's detail; ``tp``: as the spmd train step computes
+    them (a dry ``mesh``'s comm carries its collectives)."""
     train = shape.kind == "train"
     counts: Dict[Tuple[str, bool], int] = {}
     if cfg.family == "encdec":
@@ -315,14 +352,16 @@ def decomposed_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
             continue  # encoder not run at decode
         else:
             lc = layer_cost(cfg, shape, mesh, fsdp=fsdp, ltype=lt,
-                            train=train, hybrid=hybrid, device=device)
+                            train=train, hybrid=hybrid, device=device,
+                            tp=tp and train)
         flops += n * lc.flops
         bts += n * lc.bytes
         detail[lt] = {"n": n, "flops": lc.flops, "bytes": lc.bytes,
                       "matmul_flops": lc.matmul_flops,
                       "kernel_flops": lc.kernel_flops}
 
-    oc = outer_cost(cfg, shape, mesh, fsdp=fsdp, train=train, device=device)
+    oc = outer_cost(cfg, shape, mesh, fsdp=fsdp, train=train, device=device,
+                    tp=tp)
     flops += oc.flops
     bts += oc.bytes
     detail["outer"] = {"n": 1, "flops": oc.flops, "bytes": oc.bytes,

@@ -16,12 +16,17 @@ work without launching (``kernels/dry.py``), and the mesh's collectives
 count their operand bytes by link class without moving data
 (``Mesh.dry``).  It needs no card and no process group.
 
-* train: ``steps.make_train_step_smap`` — the port's only per-rank train
-  program — on the rank's parameter and optimizer shards (ZeRO-1), with
-  the global batch, remat "full", 8 microbatches and the 8-bit AdamW
-  under FSDP (``cell_config``, as JAX's).  ``--train-impl gspmd`` (JAX's
-  default, one GSPMD program for the whole mesh) has no per-rank
-  counterpart in the port and raises ``ValueError``.
+* train: the rank's part of the train step on its parameter and
+  optimizer shards (ZeRO-1), with the global batch, remat "full", 8
+  microbatches and the 8-bit AdamW under FSDP (``cell_config``, as
+  JAX's).  ``--train-impl gspmd`` (the default, as JAX's) traces
+  ``steps.make_train_step_spmd``, the port's counterpart of the GSPMD
+  program JAX compiles for the whole mesh: tensor-parallel compute on
+  "model", the batch over every batch axis.  ``--train-impl smap``
+  traces ``steps.make_train_step_smap`` (every weight gathered on use,
+  and on a mesh with a pod axis the whole global batch on every rank: the
+  JAX smap step's ``manualize`` caveat, mirrored; its cells compress the
+  pod hop to int8, as JAX's).
 * prefill / decode: ``steps.make_prefill`` / ``make_serve_step`` on the
   rank's share of the batch (the input's ``PartitionSpec``, batch
   replicated when it does not divide), weights sharded at rest by
@@ -53,6 +58,7 @@ import argparse
 import dataclasses
 import json
 import os
+import signal
 import sys
 import time
 import traceback
@@ -69,7 +75,8 @@ from repro_torch.launch import trace_analysis as ta
 from repro_torch.launch.inputs import input_specs
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.launch.steps import (make_prefill, make_serve_step,
-                                      make_train_step_smap, stacked_gathers)
+                                      make_train_step_smap,
+                                      make_train_step_spmd, stacked_gathers)
 from repro_torch.models.params import (STACKED, model_def, torch_dtype,
                                        tree_map)
 from repro_torch.optim.adamw import AdamWConfig
@@ -129,18 +136,29 @@ def _local_opt(cfg, mesh, ospecs, opt_impl, device):
             "count": _fake((), torch.int32, device)}
 
 
+TRAIN_IMPLS = ("gspmd", "smap")
+
+
 def _build_step(cfg, shape, mesh, *, fsdp, microbatches, opt_impl,
-                compress_pod, device):
+                compress_pod, device, train_impl="gspmd"):
     """(step, argument maker) of the cell's per-rank program."""
     pspecs = sh.param_specs(cfg, mesh, fsdp=fsdp)
     batch = input_specs(cfg, shape, mesh)
     if shape.kind == "train":
         bsp = sh.batch_specs(cfg, shape, mesh)
         bsp = {k: v for k, v in bsp.items() if k in batch}
-        step = make_train_step_smap(cfg, AdamWConfig(), mesh, pspecs, bsp,
-                                    microbatches=microbatches,
-                                    opt_impl=opt_impl,
-                                    compress_pod=compress_pod)
+        if train_impl == "gspmd":
+            step = make_train_step_spmd(cfg, AdamWConfig(), mesh, pspecs,
+                                        bsp, microbatches=microbatches,
+                                        opt_impl=opt_impl)
+        elif train_impl == "smap":
+            step = make_train_step_smap(cfg, AdamWConfig(), mesh, pspecs,
+                                        bsp, microbatches=microbatches,
+                                        opt_impl=opt_impl,
+                                        compress_pod=compress_pod)
+        else:
+            raise ValueError(f"unknown train_impl {train_impl!r}: expected "
+                             f"one of {TRAIN_IMPLS}")
         ospecs = (sh.opt_specs_8bit if opt_impl == "adamw8bit"
                   else sh.opt_specs)(cfg, mesh, pspecs)
 
@@ -195,7 +213,7 @@ def _build_step(cfg, shape, mesh, *, fsdp, microbatches, opt_impl,
 
 def trace_step(cfg, shape, mesh: Mesh, *, fsdp: bool, microbatches: int = 8,
                opt_impl: str = "adamw", compress_pod: bool = False,
-               device: str = "cuda"):
+               device: str = "cuda", train_impl: str = "gspmd"):
     """Trace rank 0's step of one cell on a fresh dry ``mesh`` (every
     rank of a production mesh runs the same shapes).  Returns
     (``Trace``, the mesh's dry comm, seconds)."""
@@ -205,7 +223,8 @@ def trace_step(cfg, shape, mesh: Mesh, *, fsdp: bool, microbatches: int = 8,
     step, make_args = _build_step(cfg, shape, mesh, fsdp=fsdp,
                                   microbatches=microbatches,
                                   opt_impl=opt_impl,
-                                  compress_pod=compress_pod, device=dev)
+                                  compress_pod=compress_pod, device=dev,
+                                  train_impl=train_impl)
     with FakeTensorMode(), ta.Trace() as tr:
         args = make_args()
         tr.begin()
@@ -216,39 +235,42 @@ def trace_step(cfg, shape, mesh: Mesh, *, fsdp: bool, microbatches: int = 8,
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
-             skip_analysis: bool = False, tag: str = "smap",
-             train_impl: str = "smap", microbatches: int = 8,
-             device: str = "cuda", config=None) -> dict:
+             skip_analysis: bool = False, tag: str = "",
+             train_impl: str = "gspmd", microbatches: int = 8,
+             device: str = "cuda", config=None, layers: int = 0) -> dict:
     """Trace one (arch x shape x mesh) cell; return the record.
     ``config``: a (cfg, shape) pair in place of ``cell_config``'s (a
-    reduced model, a smaller shape)."""
+    reduced model, a smaller shape); ``layers``: the depth cut to that
+    many layers (0: the config's), the whole model's FSDP decision and
+    optimizer kept.  ``tag`` defaults to the train impl."""
     cfg, shape = config or cell_config(arch, shape_name)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    chips = mesh.size
+    fsdp = sh.needs_fsdp(cfg, shape, chips, mesh.shape["model"])
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     if multi_pod:
         cfg = dataclasses.replace(cfg, batch_axes=("pod", "data"))
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
                 "status": "skipped", "reason": why}
-    if shape.kind == "train" and train_impl != "smap":
-        raise ValueError(
-            f"--train-impl {train_impl}: the port has no per-rank "
-            "counterpart of a GSPMD program (one program partitioned over "
-            "the whole mesh by the compiler); its per-rank train step is "
-            "make_train_step_smap (--train-impl smap)")
+    if train_impl not in TRAIN_IMPLS:
+        raise ValueError(f"unknown train_impl {train_impl!r}: expected one "
+                         f"of {TRAIN_IMPLS}")
 
-    mesh = make_production_mesh(multi_pod=multi_pod)
-    chips = mesh.size
-    fsdp = sh.needs_fsdp(cfg, shape, chips, mesh.shape["model"])
     # FSDP-scale models (grok-1): 8-bit moments, as JAX's run_cell
     opt_impl = "adamw8bit" if fsdp else "adamw"
     tr, comm, t_trace = trace_step(
         cfg, shape, mesh, fsdp=fsdp, microbatches=microbatches,
-        opt_impl=opt_impl, compress_pod=multi_pod, device=device)
+        opt_impl=opt_impl, compress_pod=multi_pod, device=device,
+        train_impl=train_impl)
     colls = ta.collective_stats(comm)
     rec = {
         "arch": arch, "shape": shape_name, "multi_pod": multi_pod,
-        "tag": tag, "status": "ok",
+        "tag": tag or train_impl, "status": "ok",
         "chips": chips, "fsdp": fsdp, "remat": cfg.remat,
+        "n_layers": cfg.n_layers,
         "trace_s": round(t_trace, 1),
         "trace_device": ta.trace_device(device), "rank": 0,
         "memory": tr.memory(),
@@ -272,7 +294,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
 
     if not skip_analysis:
         t1 = time.time()
-        dc = an.decomposed_cost(cfg, shape, mesh, fsdp=fsdp, device=device)
+        dc = an.decomposed_cost(cfg, shape, mesh, fsdp=fsdp, device=device,
+                                tp=train_impl == "gspmd")
         mf = model_flops(cfg, shape)
         hbm_lb = an.analytic_hbm_bytes(
             cfg, shape, mesh, fsdp=fsdp,
@@ -308,6 +331,14 @@ def summary(name: str, rec: dict) -> str:
     return f"[dryrun] {name}: {status}{extra}"
 
 
+class CellTimeLimit(Exception):
+    """A cell's trace ran past ``--time-limit``."""
+
+
+def _cut(signum, frame):
+    raise CellTimeLimit
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="per-rank dry run")
     ap.add_argument("--arch", default=None, help="architecture id (or all)")
@@ -317,10 +348,16 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--skip-analysis", action="store_true",
                     help="trace + memory + collectives only")
-    ap.add_argument("--train-impl", default="smap",
-                    choices=["gspmd", "smap"],
-                    help="smap (the port's per-rank step); gspmd raises")
+    ap.add_argument("--train-impl", default="gspmd", choices=TRAIN_IMPLS,
+                    help="gspmd (make_train_step_spmd: tensor-parallel "
+                         "compute, the batch over every batch axis) or "
+                         "smap (make_train_step_smap)")
     ap.add_argument("--microbatches", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: whole)")
+    ap.add_argument("--time-limit", type=float, default=0.0,
+                    help="seconds a cell may take (0: no limit); a cell "
+                         "cut by it is recorded with status 'timeout'")
     ap.add_argument("--suffix", default="")
     ap.add_argument("--out", default=str(OUT_DIR))
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -334,13 +371,20 @@ def main(argv=None):
 
     os.makedirs(args.out, exist_ok=True)
     failures = 0
+    if args.time_limit:
+        signal.signal(signal.SIGALRM, _cut)
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
                 name = f"{arch}__{shape}__{'pod2' if mp else 'pod1'}"
+                if args.layers:
+                    name += f"__{args.layers}layers"
                 name += args.suffix
                 path = os.path.join(args.out, name + ".json")
+                t0 = time.time()
                 try:
+                    if args.time_limit:
+                        signal.setitimer(signal.ITIMER_REAL, args.time_limit)
                     # the roofline decomposition is a single-pod
                     # deliverable; multi-pod cells give trace + memory +
                     # collectives
@@ -348,12 +392,24 @@ def main(argv=None):
                                    skip_analysis=args.skip_analysis or mp,
                                    train_impl=args.train_impl,
                                    microbatches=args.microbatches,
-                                   tag=args.train_impl, device=args.device)
+                                   tag=args.train_impl, device=args.device,
+                                   layers=args.layers)
+                except CellTimeLimit:
+                    rec = {"arch": arch, "shape": shape, "multi_pod": mp,
+                           "tag": args.train_impl, "status": "timeout",
+                           "time_limit_s": args.time_limit,
+                           "note": "the trace did not finish within the "
+                                   "time limit; no numbers"}
+                    failures += 1
                 except Exception as e:  # noqa: BLE001
                     traceback.print_exc()
                     rec = {"arch": arch, "shape": shape, "multi_pod": mp,
                            "status": "error", "error": repr(e)}
                     failures += 1
+                finally:
+                    if args.time_limit:
+                        signal.setitimer(signal.ITIMER_REAL, 0)
+                rec["wall_s"] = round(time.time() - t0, 1)
                 with open(path, "w") as f:
                     json.dump(rec, f, indent=1, default=float)
                 print(summary(name, rec), flush=True)

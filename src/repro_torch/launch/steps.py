@@ -162,6 +162,91 @@ def _zero_dim(pspec, ospec, ndim: int):
     return None
 
 
+def _sharded_update(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, pspecs,
+                    opt_impl: str, ef_transform=None):
+    """The common tail of the mesh steps: (params, opt_state, grads, ef) ->
+    (optimizer metrics, ef'), on this rank's synced gradient shards.
+    ``ef_transform(grads, ef, rows=...)`` (the Trainer's cross-pod
+    compression) runs first.  The gradient norm is the global gradient's:
+    each leaf's squares are summed over the ranks of a pod that hold its
+    distinct parts (the ranks that hold the same part hold the same
+    values).  The update runs on each rank's moment shards: where ZeRO-1
+    cut a moment along a dim the param shard keeps whole, the rank
+    updates that slice and the slices are gathered over "data"; a row the
+    mesh cuts reduces its 8-bit scale over the ranks that share it."""
+    update = _update_fn(opt_impl)
+    comm = mesh.comm()
+    plane = tuple(a for a in mesh.axis_names if a != "pod")
+    ospecs = (sh.opt_specs_8bit if opt_impl == "adamw8bit"
+              else sh.opt_specs)(cfg, mesh, pspecs)
+    qspecs = sh.q_specs(ospecs["m"])
+
+    def norm(grads):
+        total = None
+        for g, spec in zip(_leaves(grads), _leaves(pspecs)):
+            axes = {a for _, ax in sh.sharded_dims(spec, g.dim()) for a in ax}
+            rep = comm.size([a for a in plane if a not in axes])
+            sq = sum(p.float().square().sum() for p in _pieces(g)) / rep
+            total = sq if total is None else total + sq
+        return torch.sqrt(comm.all_reduce(total.reshape(1), plane))[0]
+
+    ndims = tree_map(lambda d: len(d.shape), model_def(cfg))
+    # the rows a mesh axis cuts: the 8-bit moments' and the compressed
+    # gradients' row groups
+    q_rows = sh.row_groups(qspecs, ndims, mesh)
+    g_rows = sh.row_groups(pspecs, ndims, mesh)
+    # ZeRO-1: each rank updates the slice of its param shard that its
+    # moment shard covers, then the slices are gathered over "data" (on a
+    # "data" axis of one rank the slice is the shard: nothing to gather)
+    j, n_data = comm.index(("data",)), comm.size(("data",))
+    cut = tree_map(lambda ps, os_, nd: _zero_dim(ps, os_, nd)
+                   if n_data > 1 else None, pspecs, qspecs, ndims)
+
+    def narrow(t, z):
+        if z is None:
+            return t
+        n = t.shape[z] // n_data
+        return t.narrow(z, j * n, n)
+
+    def apply(params, opt_state, grads, ef):
+        if ef_transform is not None:
+            grads, ef = ef_transform(grads, ef, rows=g_rows)
+        gnorm = norm(grads)
+        pv = tree_map(narrow, params, cut)
+        kw = {"rows": q_rows} if opt_impl == "adamw8bit" else {}
+        _, _, om = update(tree_map(narrow, grads, cut), opt_state, pv,
+                          opt_cfg, gnorm=gnorm, **kw)
+        tree_map(lambda p, v, z: z is not None and p.copy_(
+            comm.all_gather(v, ("data",), z)), params, pv, cut)
+        return om, ef
+
+    return apply
+
+
+def _with_ef(train_step, ef_transform):
+    """``train_step`` as the 3-argument step when there is no
+    ``ef_transform`` (as in JAX)."""
+    if ef_transform is not None:
+        return train_step
+
+    def stateless(params, opt_state, batch):
+        return train_step(params, opt_state, batch)
+
+    return stateless
+
+
+def _value_and_grad_of(cfg: ModelConfig, loss_of):
+    """(params, batch) -> (loss, parts, grads) of ``loss_of(tree, batch)``
+    on ``_grad_tree``'s views."""
+    def vg(params, b):
+        tree, grads = _grad_tree(cfg, params)
+        loss, parts = loss_of(tree, b)
+        loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
+            grads
+    return vg
+
+
 def make_train_step_smap(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
                          pspecs, batch_specs, *, microbatches: int = 1,
                          opt_impl: str = "adamw", compress_pod: bool = False,
@@ -191,23 +276,11 @@ def make_train_step_smap(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
     max |g| of its own sum, and every rank multiplies the pods' summed
     int8 values by its own pod's scale, as the JAX step's does) — and
     every sum is divided by the number of batch shards.  Loss and parts
-    are averaged over the batch axes.  The gradient norm is the global
-    gradient's: each leaf's squares are summed over the ranks of a pod
-    that hold its distinct parts.  ``ef_transform(grads, ef, rows=...)``
-    (the Trainer's cross-pod compression) then runs on the synced shards,
-    and the step takes and returns ``ef``.  The update runs on each rank's
-    moment shards: where ZeRO-1 cut a moment along a dim the param shard
-    keeps whole, the rank updates that slice and the slices are gathered
-    over "data"; a row the mesh cuts reduces its 8-bit scale over the
-    ranks that share it."""
-    update = _update_fn(opt_impl)
+    are averaged over the batch axes.  The rest is ``_sharded_update``'s:
+    ``ef_transform``, the global gradient norm and the ZeRO-1 update."""
     comm = mesh.comm()
     manual = tuple(a for a in sh.BATCH_AXES if a in mesh.axis_names)
-    plane = tuple(a for a in mesh.axis_names if a != "pod")
     nsh = comm.size(manual)
-    ospecs = (sh.opt_specs_8bit if opt_impl == "adamw8bit"
-              else sh.opt_specs)(cfg, mesh, pspecs)
-    qspecs = sh.q_specs(ospecs["m"])
     pshard = sh.named(mesh, pspecs)
     # as the JAX step's ``manualize``: a batch entry that is one manual
     # axis is split over it; a tuple of axes — ("pod", "data") on a mesh
@@ -227,12 +300,7 @@ def make_train_step_smap(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
                 tree[k] = tree_map(sh.gather_on_use, tree[k], pshard[k])
         return T.loss_fn(tree, cfg, b, gather_specs=gtree)
 
-    def vg(params, b):
-        tree, grads = _grad_tree(cfg, params)
-        loss, parts = loss_of(tree, b)
-        loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
-            grads
+    vg = _value_and_grad_of(cfg, loss_of)
 
     def sync(g, spec):
         axes = {a for _, ax in sh.sharded_dims(spec, g.dim()) for a in ax}
@@ -256,32 +324,8 @@ def make_train_step_smap(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
         comm.all_reduce(g, manual)
         return g.div_(nsh)
 
-    def norm(grads):
-        total = None
-        for g, spec in zip(_leaves(grads), _leaves(pspecs)):
-            axes = {a for _, ax in sh.sharded_dims(spec, g.dim()) for a in ax}
-            rep = comm.size([a for a in plane if a not in axes])
-            sq = sum(p.float().square().sum() for p in _pieces(g)) / rep
-            total = sq if total is None else total + sq
-        return torch.sqrt(comm.all_reduce(total.reshape(1), plane))[0]
-
-    ndims = tree_map(lambda d: len(d.shape), model_def(cfg))
-    # the rows a mesh axis cuts: the 8-bit moments' and the compressed
-    # gradients' row groups
-    q_rows = sh.row_groups(qspecs, ndims, mesh)
-    g_rows = sh.row_groups(pspecs, ndims, mesh)
-    # ZeRO-1: each rank updates the slice of its param shard that its
-    # moment shard covers, then the slices are gathered over "data" (on a
-    # "data" axis of one rank the slice is the shard: nothing to gather)
-    j, n_data = comm.index(("data",)), comm.size(("data",))
-    cut = tree_map(lambda ps, os_, nd: _zero_dim(ps, os_, nd)
-                   if n_data > 1 else None, pspecs, qspecs, ndims)
-
-    def narrow(t, z):
-        if z is None:
-            return t
-        n = t.shape[z] // n_data
-        return t.narrow(z, j * n, n)
+    finish = _sharded_update(cfg, opt_cfg, mesh, pspecs, opt_impl,
+                             ef_transform)
 
     def train_step(params, opt_state, batch, ef=None):
         lb = {k: sh.shard(v, bshard[k]) for k, v in batch.items()}
@@ -290,28 +334,187 @@ def make_train_step_smap(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
         loss = comm.all_reduce(loss.reshape(1).clone(), manual)[0] / nsh
         parts = {k: comm.all_reduce(v.reshape(1).clone(), manual)[0] / nsh
                  for k, v in parts.items()}
-        if ef_transform is not None:
-            grads, ef = ef_transform(grads, ef, rows=g_rows)
-        gnorm = norm(grads)
-        pv = tree_map(narrow, params, cut)
-        kw = {"rows": q_rows} if opt_impl == "adamw8bit" else {}
-        _, _, om = update(tree_map(narrow, grads, cut), opt_state, pv,
-                          opt_cfg, gnorm=gnorm, **kw)
-        tree_map(lambda p, v, z: z is not None and p.copy_(
-            comm.all_gather(v, ("data",), z)), params, pv, cut)
+        om, ef = finish(params, opt_state, grads, ef)
         metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"],
                    **om}
         if ef_transform is not None:
             return params, opt_state, metrics, ef
         return params, opt_state, metrics
 
-    if ef_transform is None:
-        stateful = train_step
+    return _with_ef(train_step, ef_transform)
 
-        def train_step(params, opt_state, batch):      # noqa: F811
-            return stateful(params, opt_state, batch)
 
-    return train_step
+def tp_layer_types(cfg: ModelConfig):
+    """The layer types ``make_train_step_spmd`` splits over "model"
+    ("attn": the dense, VLM and MoE families' layers and a hybrid's
+    attention layers); the others gather their leaves on use."""
+    return ("attn",) if cfg.family != "encdec" else ()
+
+
+def without_model(spec) -> sh.PartitionSpec:
+    """``spec`` with "model" taken out of every entry."""
+    out = []
+    for e in spec:
+        axes = tuple(a for a in sh.entry_axes(e) if a != "model")
+        out.append(axes or None)
+    return sh.P(*out)
+
+
+def spmd_gathers(cfg: ModelConfig, mesh, pspecs):
+    """``make_train_step_spmd``'s gather on use for every leaf (a tree like
+    ``pspecs``; the stacked subtrees' specs without the layer axis): a
+    leaf that the rank computes on its model shard — of the embedding, the
+    head, and the layers of a ``tp_layer_types`` type — is gathered over
+    its other axes ("data" under FSDP) only; every other leaf over all of
+    its axes, as the smap step's."""
+    split = tp_layer_types(cfg)
+
+    def gathers(tree, tp, drop=0):
+        def one(s):
+            s = sh.P(*s[drop:])
+            return functools.partial(sh.gather_on_use, sharding=sh.
+                                     NamedSharding(mesh, without_model(s)
+                                                   if tp else s))
+        return tree_map(one, tree)
+
+    out = {}
+    for key, sub in pspecs.items():
+        if key in ("layers", "groups", "tail"):
+            drop = 0 if key == "tail" else 1
+            if key == "layers":
+                out[key] = gathers(sub, cfg.layer_types()[0] in split, drop)
+            else:   # a hybrid's layers by name: b{i}_{type} / t{i}_{type}
+                out[key] = {n: gathers(v, n.split("_", 1)[1] in split, drop)
+                            for n, v in sub.items()}
+        elif key in STACKED:
+            out[key] = gathers(sub, False, 1)
+        else:
+            out[key] = gathers(sub, key in ("embed", "head"))
+    return out
+
+
+def _partial_over_model(cfg: ModelConfig, mesh, pspecs):
+    """A tree of bools like ``pspecs``: the leaves whose gradient a rank of
+    the spmd step holds only its part of, to be summed over "model" — a
+    replicated ``wk`` / ``wv`` of a split attention layer, of which the
+    rank reads its query heads' kv heads."""
+    rules = sh.axis_rules(cfg, mesh, fsdp=False)
+    partial = rules["heads"] == "model" and rules["kv_heads"] is None \
+        and mesh.shape["model"] > 1
+    split = tp_layer_types(cfg)
+
+    def mark(tree, tp):
+        out = tree_map(lambda s: False, tree)
+        if tp and partial and "attn" in tree:
+            for k in ("wk", "wv"):
+                out["attn"][k] = True
+        return out
+
+    out = {}
+    for key, sub in pspecs.items():
+        if key == "layers":
+            out[key] = mark(sub, cfg.layer_types()[0] in split)
+        elif key in ("groups", "tail"):
+            out[key] = {n: mark(v, n.split("_", 1)[1] in split)
+                        for n, v in sub.items()}
+        else:
+            out[key] = tree_map(lambda s: False, sub)
+    return out
+
+
+def make_train_step_spmd(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
+                         pspecs, batch_specs, *, microbatches: int = 1,
+                         opt_impl: str = "adamw", ef_transform=None):
+    """The port's counterpart of the JAX package's default train step on a
+    mesh: ``make_train_step`` jitted with the ``param_specs`` /
+    ``opt_specs_for`` / ``batch_specs`` shardings, which GSPMD partitions
+    into one program for the whole mesh.  Here every rank of ``mesh``
+    runs its part of it, on ``torch.distributed`` (``mesh.comm()``).
+
+    (params, opt_state, batch) -> (params', opt_state', metrics), as
+    ``make_train_step_smap``: this rank's parameter and ZeRO-1 moment
+    shards, updated in place, and the GLOBAL batch.
+
+    * The batch is cut over every batch axis: the rank takes its rows of
+      ``batch_specs`` (``P(("pod", "data"), None)``, pod major), and
+      every mean is the global batch's — the loss's token count and the
+      MoE load-balance means are summed over the batch axes
+      (``models/tensor_parallel.py``), so the ranks' losses add up to the
+      global loss and their gradients to its gradient: the gradients are
+      summed over the batch axes once a step, not averaged.
+    * Tensor-parallel compute on "model" (``TensorParallel``): the
+      embedding, the vocabulary-parallel head and loss, and the layers of
+      ``tp_layer_types`` compute on the rank's model shards (attention
+      heads, ``ff`` slices of the MLP and the experts; a leaf the specs
+      leave whole is computed with on every rank).  The leaves of the
+      other layer types (``ssd``, ``rec``, the encoder-decoder's stacks)
+      are gathered on use over "model" as in the smap step.
+    * FSDP: a leaf sharded over "data" is gathered on use over "data"
+      (``spmd_gathers``; the stacked layers' inside the recomputed
+      region), its gradient summed over "data" and sliced by the gather's
+      backward, then summed over "pod".  Every other gradient is summed
+      over the batch axes, a replicated ``wk`` / ``wv`` of a split
+      attention layer also over "model" (``_partial_over_model``); a
+      model-sharded leaf's stays the rank's slice.
+    * The rest is ``_sharded_update``'s (``ef_transform``, the global
+      gradient norm, ZeRO-1 moments and the 8-bit row scales).
+
+    Metrics are the global batch's.  ``microbatches`` splits the rank's
+    rows as ``make_train_step`` splits the global batch (microbatch j
+    takes rows j, j + m, ... of it, of which the rank holds its own)."""
+    from repro_torch.models.tensor_parallel import TensorParallel
+
+    comm = mesh.comm()
+    batch_axes = tuple(a for a in sh.BATCH_AXES if a in mesh.axis_names)
+    rules = sh.axis_rules(cfg, mesh, fsdp=False)
+    tp = TensorParallel(comm, [k for k, v in rules.items()
+                               if k is not None and v == "model"],
+                        batch_axes)
+    bshard = sh.named(mesh, batch_specs)
+    gat = spmd_gathers(cfg, mesh, pspecs)
+    gtree = {k: v for k, v in gat.items() if k in STACKED}
+    partial = _partial_over_model(cfg, mesh, pspecs)
+
+    def loss_of(tree, b):
+        tree = dict(tree)
+        for k in tree:
+            if k not in STACKED:
+                tree[k] = tree_map(lambda w, f: f(w), tree[k], gat[k])
+        return T.loss_fn(tree, cfg, b, gather_specs=gtree, tp=tp)
+
+    vg = _value_and_grad_of(cfg, loss_of)
+
+    def sync(g, spec, part):
+        axes = {a for _, ax in sh.sharded_dims(spec, g.dim()) for a in ax}
+        over = [a for a in batch_axes if a not in axes]
+        if part:
+            over.append("model")
+        if over:
+            comm.all_reduce(g, over)
+        return g
+
+    finish = _sharded_update(cfg, opt_cfg, mesh, pspecs, opt_impl,
+                             ef_transform)
+
+    def train_step(params, opt_state, batch, ef=None):
+        lb = {k: sh.shard(v, bshard[k]) for k, v in batch.items()}
+        rows = lb["tokens"].shape[0]
+        if rows % microbatches:
+            raise ValueError(f"a rank's {rows} rows of the batch do not "
+                             f"split into {microbatches} microbatches")
+        loss, parts, grads = _grads(cfg, params, lb, microbatches, vg)
+        grads = tree_map(sync, grads, pspecs, partial)
+        # the ranks' ce shares add up to the global ce; aux is global
+        ce = comm.all_reduce(parts["ce"].reshape(1).clone(), batch_axes)[0]
+        metrics = {"loss": ce + (loss - parts["ce"]), "ce": ce,
+                   "aux": parts["aux"]}
+        om, ef = finish(params, opt_state, grads, ef)
+        metrics.update(om)
+        if ef_transform is not None:
+            return params, opt_state, metrics, ef
+        return params, opt_state, metrics
+
+    return _with_ef(train_step, ef_transform)
 
 
 def _microbatch(batch, j: int, m: int):

@@ -190,16 +190,22 @@ def ffn_activation(h, activation: str, dtype):
     return h.to(dtype)
 
 
-def mlp_apply(x, params, activation: str):
+def mlp_apply(x, params, activation: str, tp=None):
     """params: {wi: (D, 2, F) for GLU or (D, F), wo: (F, D)}.  The ``wi``
     product is float32 (``matmul_f32``, as the JAX einsum's
     ``preferred_element_type``), so the gate and up pre-activations are
     never rounded to ``x.dtype``; the activation's output is, and ``wo``
-    runs in ``x.dtype``."""
+    runs in ``x.dtype``.  ``tp`` (``tensor_parallel``), where the specs
+    cut ``ff`` over the model axis: ``wi`` column-parallel and ``wo``
+    row-parallel on the rank's ``ff`` slice, the partial outputs summed
+    over the axis."""
+    split = tp is not None and tp.splits("ff")
+    if split:
+        x = tp.copy(x)
     wi = params["wi"]
     h = matmul_f32(x, wi.reshape(wi.shape[0], -1))
-    return (ffn_activation(h, activation, x.dtype) @ params["wo"]) \
-        .to(x.dtype)
+    y = (ffn_activation(h, activation, x.dtype) @ params["wo"]).to(x.dtype)
+    return tp.reduce(y) if split else y
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,23 @@ block so that its checkpoint keeps the rank's shards, would repeat the
 layer's FSDP gathers once a block in the forward, again in the
 recompute and again in each block's backward.
 
+Tensor parallelism (``tp``, ``models/tensor_parallel.py``, the train
+step of ``launch.steps.make_train_step_spmd``).  The specs keep
+``expert`` whole and cut ``ff`` over the model axis, so each rank runs
+the batched expert products on its ``ff`` slice of ``wi`` / ``wo`` and
+the combine sums the ranks' partial outputs (float32, before the
+rounding).  Routing (router, top-K, capacity, slots) is computed the same
+on every rank of the axis from the whole hidden states; the gates'
+gradient is summed over it, since each rank's combine sees its partial
+outputs.  The batch is cut over the batch axes: the block length comes
+from the global batch's rows, as GSPMD's, and the load-balance means and
+``dropped`` are the global batch's (``tp.batch_mean``).  A block routes
+the rank's rows jointly, with the capacity of the rank's tokens; GSPMD
+routes the global batch's rows jointly, with the global capacity.  The
+two keep the same claims when no claim is dropped (a dropless capacity,
+as the reduced configs'); otherwise a rank may drop a claim that the
+global capacity keeps, or keep one that it drops.
+
 Top-K takes the lower expert index first among equal logits, as
 ``lax.top_k`` does (``torch.topk`` does not promise an order among
 ties): padded tokens are exactly zero, so their logits tie across all
@@ -74,11 +91,13 @@ def _expert_ffn(xin, params, activation: str):
 
 def moe_block_apply(xblk, params, *, n_experts: int, top_k: int,
                     capacity_factor: float, activation: str,
-                    dropless: bool = False):
+                    dropless: bool = False, tp=None):
     """One token block, each row routed alone.  xblk: (B, T, D) -> (B, T,
     D), {"lb_loss", "dropped"}.  ``dropless`` sets the capacity to T, so
-    no claim is dropped (the serving steps)."""
+    no claim is dropped (the serving steps).  ``tp``: see the module
+    note."""
     B, T, D = xblk.shape
+    split = tp is not None and tp.splits("ff")
     E, K = n_experts, top_k
     C = T if dropless else int(max(1, (T * K * capacity_factor) // E))
     C = min(C, T)
@@ -97,38 +116,46 @@ def moe_block_apply(xblk, params, *, n_experts: int, top_k: int,
     # kept claims to their (expert, slot) row of the buffer; dropped ones
     # to a spare row past the end, cut off before the experts run
     row = torch.where(keep, expert * C + pos, E * C)
-    src = xblk[:, :, None].expand(B, T, K, D).reshape(B, T * K, D)
+    xe = tp.copy(xblk) if split else xblk
+    src = xe[:, :, None].expand(B, T, K, D).reshape(B, T * K, D)
     buf = xblk.new_zeros(B, E * C + 1, D).scatter(
         1, row[..., None].expand(B, T * K, D), src)
     y = _expert_ffn(buf[:, :E * C].reshape(B, E, C, D), params, activation)
     got = y.reshape(B, E * C, D).gather(
         1, torch.where(keep, row, 0)[..., None].expand(B, T * K, D))
     gate = (top_gates.reshape(B, T * K) * keep).to(xblk.dtype)
-    out = (gate.float()[..., None] * got.float()).reshape(B, T, K, D) \
-        .sum(2).to(xblk.dtype)
+    if split:                   # the ranks' partial outputs meet the gates
+        gate = tp.copy(gate)
+    out = (gate.float()[..., None] * got.float()).reshape(B, T, K, D).sum(2)
+    if split:
+        out = tp.reduce(out)
+    out = out.to(xblk.dtype)
 
     # Switch-style load-balance terms
     me = gates_all.mean(dim=(0, 1))                          # (E,)
     ce = onehot.reshape(B, T, K, E).sum(2).float().mean(dim=(0, 1))
-    aux = {"lb_loss": E * torch.sum(me * ce),
-           "dropped": 1.0 - keep.float().mean()}
+    dropped = 1.0 - keep.float().mean()
+    if tp is not None:          # the global batch's means
+        me, ce, dropped = (tp.batch_mean(t) for t in (me, ce, dropped))
+    aux = {"lb_loss": E * torch.sum(me * ce), "dropped": dropped}
     return out, aux
 
 
 def moe_block_apply_flat(xblk, params, *, n_experts: int, top_k: int,
                          capacity_factor: float, activation: str,
-                         dropless: bool = False):
+                         dropless: bool = False, tp=None):
     """The B·T tokens of a block routed jointly, in (b, t) order: xblk
     (B, T, D) -> (B, T, D), aux."""
     B, T, D = xblk.shape
     y, aux = moe_block_apply(
         xblk.reshape(1, B * T, D), params, n_experts=n_experts, top_k=top_k,
         capacity_factor=capacity_factor, activation=activation,
-        dropless=dropless)
+        dropless=dropless, tp=tp)
     return y.reshape(B, T, D), aux
 
 
-def moe_apply(x, params, cfg: ModelConfig, *, dropless: bool = False):
+def moe_apply(x, params, cfg: ModelConfig, *, dropless: bool = False,
+              tp=None):
     """x: (B, S, D) -> (B, S, D), {"lb_loss", "dropped"} (each the mean over
     blocks).  S is zero-padded to whole blocks of ``blk_s`` positions; a
     block holds every row's positions, routed jointly
@@ -136,7 +163,9 @@ def moe_apply(x, params, cfg: ModelConfig, *, dropless: bool = False):
     is recomputed in its backward unless the layer is (see the module
     note on recomputation)."""
     B, S, D = x.shape
-    blk_s = max(1, min(max(1, cfg.moe_block // B), S))
+    # the block's positions from the global batch's rows (GSPMD's B)
+    rows = B * (tp.batch_shards if tp is not None else 1)
+    blk_s = max(1, min(max(1, cfg.moe_block // rows), S))
     S_pad = -(-S // blk_s) * blk_s
     if S_pad != S:              # padded positions' outputs are discarded
         x = F.pad(x, (0, 0, 0, S_pad - S))
@@ -145,7 +174,7 @@ def moe_apply(x, params, cfg: ModelConfig, *, dropless: bool = False):
     def block(xb, p):
         y, aux = apply(xb, p, n_experts=cfg.n_experts, top_k=cfg.top_k,
                        capacity_factor=cfg.capacity_factor,
-                       activation=cfg.activation, dropless=dropless)
+                       activation=cfg.activation, dropless=dropless, tp=tp)
         return y, aux["lb_loss"], aux["dropped"]
 
     ys, lbs, drops = [], [], []

@@ -70,19 +70,35 @@ def cdt(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.compute_dtype)
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens.long()].to(cdt(cfg))
+def embed_tokens(params, cfg: ModelConfig, tokens, tp=None):
+    """The token embeddings in the compute type.  With ``tp`` the table is
+    the rank's part: a tied table's vocabulary slice (rows of other slices
+    are zero here, and the ranks' lookups are summed), an untied table's
+    slice of D (the ranks' columns are gathered after the lookup)."""
+    table = params["embed"]
+    if tp is None:
+        return table[tokens.long()].to(cdt(cfg))
+    if not cfg.tie_embeddings:
+        return tp.gather(table[tokens.long()], -1).to(cdt(cfg))
+    n = table.shape[0]
+    local = tokens.long() - tp.rank * n
+    mine = (local >= 0) & (local < n)
+    x = table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+    return tp.reduce(x).to(cdt(cfg))
 
 
-def head_logits(params, cfg: ModelConfig, x):
+def head_logits(params, cfg: ModelConfig, x, tp=None):
     """x: (..., D) -> f32 logits (..., V_padded), never rounded to the
-    compute type (the JAX einsum's ``preferred_element_type``)."""
+    compute type (the JAX einsum's ``preferred_element_type``).  With
+    ``tp``: this rank's vocabulary slice of them (``x`` whole, already
+    through ``tp.copy``)."""
     w = params["embed"].t() if cfg.tie_embeddings else params["head"]
     logits = L.matmul_f32(x, w)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    if cfg.vocab_padded != cfg.vocab:   # pad columns are never predicted
-        logits[..., cfg.vocab:] = -1e30
+    v0 = tp.rank * logits.shape[-1] if tp is not None else 0
+    if v0 + logits.shape[-1] > cfg.vocab:   # pad columns: never predicted
+        logits[..., max(cfg.vocab - v0, 0):] = -1e30
     return logits
 
 
@@ -118,13 +134,14 @@ def _attn_out(o, p, dtype):
             @ wo.reshape(H * dh, wo.shape[-1])).to(dtype)
 
 
-def _ffn(x, lp, cfg: ModelConfig, dropless=False):
+def _ffn(x, lp, cfg: ModelConfig, dropless=False, tp=None):
     """The feed-forward block: (y, aux) — an MoE layer's ``lb_loss`` and
     ``dropped`` (``dropless``: capacity = tokens, the serving steps'), an
-    MLP's none."""
+    MLP's none.  ``tp``: split over the ranks of the model axis."""
     if "moe" in lp:
-        return moe_mod.moe_apply(x, lp["moe"], cfg, dropless=dropless)
-    return L.mlp_apply(x, lp["mlp"], cfg.activation), {}
+        return moe_mod.moe_apply(x, lp["moe"], cfg, dropless=dropless,
+                                 tp=tp)
+    return L.mlp_apply(x, lp["mlp"], cfg.activation, tp=tp), {}
 
 
 def rope_for(cfg: ModelConfig, positions, extras=None):
@@ -144,11 +161,26 @@ def rope_for(cfg: ModelConfig, positions, extras=None):
 # ---------------------------------------------------------------------------
 
 def attn_block(x, p, cfg: ModelConfig, rope, *, causal=True, window=0,
-               kv=None):
+               kv=None, tp=None):
     """Self-attention over the whole sequence (``kv`` None), or
     cross-attention of x's queries over precomputed ``kv`` = (K, V)
     (B, Skv, Hkv, dh), RoPE on the queries only.  Returns (out (B, S, D),
-    (k, v))."""
+    (k, v)).
+
+    ``tp`` (self-attention): where the specs cut the heads over the model
+    axis, ``p`` holds this rank's ``wq`` / ``wo`` heads, and ``wk`` /
+    ``wv`` its kv heads — or, replicated, the whole of them, of which the
+    rank reads the kv heads of its query heads (``tp.kv_heads``); the
+    rank attends with its heads and the ranks' ``wo`` products are
+    summed.  Heads the axis does not divide are computed whole on every
+    rank."""
+    if tp is not None and kv is None and tp.splits("heads"):
+        if not tp.splits("kv_heads"):
+            p = dict(p, **{k: tp.kv_heads(p[k], cfg.n_heads, cfg.n_kv_heads)
+                           for k in ("wk", "wv")})
+        q, k, v = _attn_proj(tp.copy(x), p, rope, cfg=cfg)
+        o = ops.flash_attention(q, k, v, causal, window)
+        return tp.reduce(_attn_out(o, p, x.dtype)), (k, v)
     if kv is None:
         q, k, v = _attn_proj(x, p, rope, cfg=cfg)
     else:
@@ -161,9 +193,10 @@ def attn_block(x, p, cfg: ModelConfig, rope, *, causal=True, window=0,
 
 
 def apply_layer(x, lp, cfg: ModelConfig, layer_type: str, rope, *,
-                window=0, causal=True):
+                window=0, causal=True, tp=None):
     """One block over the whole sequence.  Returns (x, state_for_decode,
-    aux)."""
+    aux).  ``tp``: an "attn" layer's attention and feed-forward split over
+    the model axis (``tensor_parallel``); other types ignore it."""
     if layer_type == "ssd":
         s, state = ssd_mod.ssd_block_apply(
             L.rms_norm(x, lp["ln"], cfg.norm_eps), lp["ssd"], cfg)
@@ -176,11 +209,12 @@ def apply_layer(x, lp, cfg: ModelConfig, layer_type: str, rope, *,
         return h + f, state, aux
     if layer_type not in ("attn", "enc"):
         raise ValueError(layer_type)
+    tp = tp if layer_type == "attn" else None
     a, (k, v) = attn_block(L.rms_norm(x, lp["ln1"], cfg.norm_eps),
                            lp["attn"], cfg, rope, causal=causal,
-                           window=window)
+                           window=window, tp=tp)
     h = x + a
-    f, aux = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
+    f, aux = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg, tp=tp)
     return h + f, {"k": k, "v": v}, aux
 
 
@@ -241,7 +275,8 @@ def _stack_states(states):
             for k in states[0]}
 
 
-def _walk(params, cfg: ModelConfig, x, rope, run, keep, gather_specs=None):
+def _walk(params, cfg: ModelConfig, x, rope, run, keep, gather_specs=None,
+          tp=None):
     """Every layer of the stack in the JAX package's order: a hybrid's
     groups (each its pattern's layers), then its tail; otherwise
     ``n_layers`` layers of one type.  ``run(fn, x, p)`` applies a group or
@@ -252,10 +287,13 @@ def _walk(params, cfg: ModelConfig, x, rope, run, keep, gather_specs=None):
     ``tail`` by name, None without ``keep``; aux the sum of every layer's
     ``lb_loss`` (float32, 0 without MoE layers).  ``gather_specs``: the
     ``groups`` or ``layers`` subtree is applied to each group's or layer's
-    parameters inside ``run`` (``_wsc_tree``)."""
+    parameters inside ``run`` (``_wsc_tree``).  ``tp`` goes to every
+    layer (``apply_layer``)."""
     gs = gather_specs or {}
+
     def one(x, lp, t):
-        x, s, aux = apply_layer(x, lp, cfg, t, rope, window=_window(cfg, t))
+        x, s, aux = apply_layer(x, lp, cfg, t, rope, window=_window(cfg, t),
+                                tp=tp)
         lb = aux.get("lb_loss", torch.zeros((), device=x.device))
         return x, (keep(s, t) if keep else None), lb
 
@@ -300,15 +338,15 @@ def _positions(x):
     return torch.arange(S, device=x.device)[None, :].expand(B, S)
 
 
-def _merge_vlm(params, cfg: ModelConfig, tokens, extras):
+def _merge_vlm(params, cfg: ModelConfig, tokens, extras, tp=None):
     """The VLM's stub frontend: the precomputed patch embeddings (B, Sv,
     D), in the compute type, ahead of the text's token embeddings."""
     ve = extras["vision_embeds"].to(cdt(cfg))
-    return torch.cat([ve, embed_tokens(params, cfg, tokens)], dim=1)
+    return torch.cat([ve, embed_tokens(params, cfg, tokens, tp)], dim=1)
 
 
 def forward(params, cfg: ModelConfig, tokens, extras=None, *,
-            return_states=False, state_fn=None, gather_specs=None):
+            return_states=False, state_fn=None, gather_specs=None, tp=None):
     """Full-sequence forward to the final hidden states: (x (B, S, D),
     aux loss: the sum of the MoE layers' ``lb_loss``).  ``extras`` carries
     a VLM's ``vision_embeds`` (B, Sv, D), which go ahead of the text
@@ -320,14 +358,18 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
     the stack runs without gradients and without recomputation, and
     ``state_fn(state, layer_type)`` transforms each layer's decode state
     before it is stacked — prefill ring-arranges there, so a windowed
-    cache never holds the full sequence for every layer at once."""
+    cache never holds the full sequence for every layer at once.
+
+    ``tp`` (training only): the rank's part of the tensor-parallel
+    forward (``tensor_parallel``): the embedding and every "attn" layer
+    split over the model axis, the hidden states whole on every rank."""
     extras = extras or {}
     if cfg.family == "encdec":
         raise ValueError("use encdec_forward")
     if cfg.family == "vlm":
-        x = _merge_vlm(params, cfg, tokens, extras)
+        x = _merge_vlm(params, cfg, tokens, extras, tp)
     else:
-        x = embed_tokens(params, cfg, tokens)
+        x = embed_tokens(params, cfg, tokens, tp)
     rope = rope_for(cfg, _positions(x), extras)
     if return_states:
         with torch.no_grad():
@@ -338,7 +380,7 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
             x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, states, aux
     x, _, aux = _walk(params, cfg, x, rope, functools.partial(_run, cfg=cfg),
-                      None, gather_specs)
+                      None, gather_specs, tp)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
 
@@ -380,15 +422,16 @@ def _dec_layer(x, lp, cfg: ModelConfig, rope, enc_out):
 
 
 def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
-                    return_states=False, state_fn=None, gather_specs=None):
+                    return_states=False, state_fn=None, gather_specs=None,
+                    tp=None):
     """The decoder over target ``tokens`` (B, S) attending to ``enc_out``
     (B, S_src, D): the final hidden states (B, S, D).  With
     ``return_states`` (the prefill path) returns (x, states), the layers
     run without gradients and without recomputation, and ``states`` holds
     each layer's ``k``, ``v`` (B, S, H, dh) and ``ck``, ``cv`` (B, S_src,
     H, dh), stacked over the layers after ``state_fn`` (if given) maps
-    each layer's dict."""
-    x = embed_tokens(params, cfg, tokens)
+    each layer's dict.  ``tp``: the embedding's (the layers take none)."""
+    x = embed_tokens(params, cfg, tokens, tp)
     rope = rope_for(cfg, _positions(x))
     layers = params["dec_layers"]
     specs = (gather_specs or {}).get("dec_layers")
@@ -412,12 +455,12 @@ def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
 
 
 def encdec_forward(params, cfg: ModelConfig, tokens, extras,
-                   gather_specs=None):
+                   gather_specs=None, tp=None):
     """``extras["frame_embeds"]`` through the encoder, then the decoder
     over ``tokens``: (x (B, S, D), aux 0)."""
     enc_out = encode(params, cfg, extras["frame_embeds"], gather_specs)
     x = decoder_forward(params, cfg, tokens, enc_out,
-                        gather_specs=gather_specs)
+                        gather_specs=gather_specs, tp=tp)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -425,10 +468,17 @@ def encdec_forward(params, cfg: ModelConfig, tokens, extras,
 # Loss (chunked cross-entropy)
 # ---------------------------------------------------------------------------
 
-def chunked_ce_loss(params, cfg: ModelConfig, x, targets, mask):
+def chunked_ce_loss(params, cfg: ModelConfig, x, targets, mask, tp=None):
     """x: (B, S, D) final hiddens; mean next-token NLL over ``mask``.  The
     logits are made one sequence chunk of ``LOSS_CHUNK`` at a time, never
-    as a whole (B, S, V) tensor."""
+    as a whole (B, S, V) tensor.
+
+    ``tp``: vocabulary-parallel — each rank makes its vocabulary slice of
+    a chunk's logits, and the max, the sum of exponentials
+    (``tp.logsumexp``) and the target logit are reduced over the model
+    axis; the token count is the global
+    batch's (``tp.batch_sum``), so the result is this rank's share of the
+    global mean: the ranks' results add up to it."""
     B, S, D = x.shape
     chunk = min(LOSS_CHUNK, S)
     if S % chunk:
@@ -436,28 +486,44 @@ def chunked_ce_loss(params, cfg: ModelConfig, x, targets, mask):
                          f"{chunk}")
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.float32, device=x.device)
+    if tp is not None:
+        x = tp.copy(x)
     for c0 in range(0, S, chunk):
-        logits = head_logits(params, cfg, x[:, c0:c0 + chunk])  # f32
-        lse = torch.logsumexp(logits, dim=-1)
+        logits = head_logits(params, cfg, x[:, c0:c0 + chunk], tp)  # f32
         tc = targets[:, c0:c0 + chunk].long()
-        tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
+        if tp is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
+        else:
+            lse = tp.logsumexp(logits)
+            n = logits.shape[-1]
+            local = tc - tp.rank * n
+            mine = (local >= 0) & (local < n)
+            tgt = tp.reduce(torch.gather(
+                logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+                * mine)
         mc = mask[:, c0:c0 + chunk].float()
         total = total + ((lse - tgt) * mc).sum()
         count = count + mc.sum()
+    if tp is not None:
+        count = tp.batch_sum(count)
     return total / count.clamp_min(1.0)
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01,
-            gather_specs=None):
+            gather_specs=None, tp=None):
     """batch: tokens / targets / mask tensors and the family's extras.
-    Returns (loss, {"ce", "aux"})."""
+    Returns (loss, {"ce", "aux"}).  ``tp``: a rank's part of the
+    tensor-parallel step (``tensor_parallel``): ``ce`` is then the rank's
+    share of the global batch's, and ``aux`` the global batch's."""
     extras = {k: v for k, v in batch.items()
               if k not in ("tokens", "targets", "mask")}
     if cfg.family == "encdec":
         x, aux = encdec_forward(params, cfg, batch["tokens"], extras,
-                                gather_specs)
+                                gather_specs, tp)
     else:
         x, aux = forward(params, cfg, batch["tokens"], extras,
-                         gather_specs=gather_specs)
-    ce = chunked_ce_loss(params, cfg, x, batch["targets"], batch["mask"])
+                         gather_specs=gather_specs, tp=tp)
+    ce = chunked_ce_loss(params, cfg, x, batch["targets"], batch["mask"],
+                         tp)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}

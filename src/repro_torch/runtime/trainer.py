@@ -14,7 +14,10 @@ With ``mesh`` (a ``launch.mesh.Mesh``; every rank of an initialized
 ``torch.distributed`` process group runs its own Trainer) the parameters
 and moments are placed by ``param_specs`` / ``opt_specs`` (no FSDP;
 ZeRO-1 moments): each rank holds its parts, takes its rows of the global
-batch by ``batch_specs``, and steps with ``make_train_step_smap``.
+batch by ``batch_specs`` (1/(pod x data) of it), and steps with
+``make_train_step_spmd`` — as the JAX Trainer jits ``make_train_step``
+under the mesh's shardings, which GSPMD partitions: tensor-parallel
+compute on "model", the batch over every batch axis.
 Checkpoints gather the parts and the mesh's first rank writes them; a
 resume reads each rank's slice (reshard-on-load).  When the process
 group has at least the layout's chips, ``_on_relayout`` swaps the mesh
@@ -23,8 +26,8 @@ migrated (gathered over the old mesh, sliced for the new), the step
 rebuilt.  The per-step collective feed is the bytes this rank's own
 collectives moved in the step, by the class of their group (``Mesh.
 classify``: ``intra_group`` local, ``intra_pod`` and ``cross_pod``
-remote) — not the JAX HLO parse's: the port has no tensor-parallel
-collectives, so the two cannot be equal (ROADMAP C).
+remote) — not the JAX HLO parse's, whose collectives are the ones XLA
+chose for its program (ROADMAP C).
 
 ``compress_cross_pod`` threads the int8 error-feedback state
 (``compression.int8_compress_transform``) through the step.
@@ -50,7 +53,7 @@ from repro_torch.core.scheduler import GlobalScheduler, migrate_pytree
 from repro_torch.core.topology import ChipletTopology
 from repro_torch.data.pipeline import make_batch
 from repro_torch.launch import sharding as shlib
-from repro_torch.launch.steps import make_train_step, make_train_step_smap
+from repro_torch.launch.steps import make_train_step, make_train_step_spmd
 from repro_torch.models.params import init_params, model_def, tree_map
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.runtime.failure import FailureInjector, StragglerDetector
@@ -154,7 +157,7 @@ class Trainer:
                 self.cfg, self.tcfg.opt, microbatches=self.tcfg.microbatches,
                 ef_transform=compress)
             return
-        self._step_fn = make_train_step_smap(
+        self._step_fn = make_train_step_spmd(
             self.cfg, self.tcfg.opt, self.mesh, self.pspecs,
             shlib.batch_specs(self.cfg, None, self.mesh),
             microbatches=self.tcfg.microbatches, ef_transform=compress)

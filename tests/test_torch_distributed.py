@@ -1,16 +1,22 @@
 """The port's multi-rank training path against the JAX package's on 8
-devices, on the CPU: ``make_train_step_smap`` on 8 gloo ranks
-(``torch.distributed``) against the JAX step on 8 forced host devices
+devices, on the CPU: ``make_train_step_smap`` and ``make_train_step_spmd``
+on 8 gloo ranks (``torch.distributed``) against the JAX package's
+``make_train_step_smap`` and its GSPMD-partitioned ``make_train_step``
+(jitted with the ``param_specs`` / ``opt_specs_for`` / ``batch_specs``
+shardings, as its ``launch/dryrun.py`` does) on 8 forced host devices
 (``--xla_force_host_platform_device_count=8`` in a subprocess, as
-``tests/test_dryrun.py`` runs it); the Trainer's real mesh swap
-(spread 1 -> 2 -> 4) against the JAX Trainer's; and a checkpoint written
-on one mesh restored on another.
+``tests/test_dryrun.py`` runs it); the tensor-parallel pieces (the
+vocabulary-parallel loss, the row-parallel MLP) against their unsharded
+results; the Trainer's real mesh swap (spread 1 -> 2 -> 4) against the
+JAX Trainer's, the rows it feeds each rank of a (pod, data, model) mesh,
+and a checkpoint written on one mesh restored on another.
 
 One spawn of 8 ranks (``tests/torch_dist_workers.py``, a ``FileStore``
 under the test's temporary directory, its own timeout) runs every port
 scenario while one JAX subprocess runs the references; both start from
-the port's seeded weights (reduced llama3-8b, float32) and read the same
-batches and corpus files.
+the port's seeded weights (reduced llama3-8b, and reduced mixtral-8x22b
+for the spmd cases; float32) and read the same batches and corpus
+files.
 
 Tolerances: losses and grad norms 1e-5 (relative); parameters after 3
 steps 1e-4 (absolute; most leaves agree within 1e-5, but AdamW divides
@@ -49,6 +55,19 @@ CASES = [
     ("compress_pod", (2, 2, 2), ("pod", "data", "model"), False, 1, True,
      "adamw"),
 ]
+DM, PDM = ("data", "model"), ("pod", "data", "model")
+# the spmd step against JAX's GSPMD step: name, arch, mesh shape, axes,
+# fsdp, microbatches, opt_impl
+SPMD_CASES = [
+    (f"spmd_{tag}_{name}", arch, shape, axes, fsdp, mb, impl)
+    for arch, tag in (("llama3-8b", "llama"), ("mixtral-8x22b", "mixtral"))
+    for name, shape, axes, fsdp, mb, impl in (
+        ("dm", (2, 4), DM, False, 1, "adamw"),
+        ("dm_fsdp", (2, 4), DM, True, 1, "adamw"),
+        ("pdm", (2, 2, 2), PDM, False, 1, "adamw"))
+] + [("spmd_llama_dm_fsdp_8bit", "llama3-8b", (2, 4), DM, True, 2,
+      "adamw8bit")]
+SPMD_ARCHS = ("llama3-8b", "mixtral-8x22b")
 
 JAX_REFERENCE = """
 import pickle, sys
@@ -60,7 +79,7 @@ from repro.core.layout import Layout
 from repro.core.topology import ChipletTopology
 from repro.data.pipeline import ShardedLoader
 from repro.launch import sharding as sh
-from repro.launch.steps import make_train_step_smap
+from repro.launch.steps import make_train_step, make_train_step_smap
 from repro.optim.adamw import AdamWConfig, init_opt_state
 from repro.optim.quantized import init_opt_state_8bit
 from repro.runtime.trainer import Trainer, TrainerConfig
@@ -92,6 +111,35 @@ for name, shape, axes, fsdp, mb, comp, impl in inp["cases"]:
     out[name] = {"params": jax.tree.map(np.asarray, p), "losses": losses,
                  "norms": norms, "per_device": per_device}
 
+# the GSPMD step: make_train_step jitted with the mesh's shardings, as
+# launch/dryrun.py's run_cell
+import dataclasses
+for name, arch, shape, axes, fsdp, mb, impl in inp["spmd_cases"]:
+    c = reduced_config(REGISTRY[arch])
+    if "pod" in axes:
+        c = dataclasses.replace(c, batch_axes=("pod", "data"))
+    p0 = jax.tree.map(jnp.asarray, inp["spmd_params"][arch])
+    mesh = Mesh(np.array(jax.devices()).reshape(shape), axes)
+    ps = sh.param_specs(c, mesh, fsdp=fsdp)
+    gspecs = sh.gather_specs(c, mesh) if fsdp else None
+    init = init_opt_state_8bit if impl == "adamw8bit" else init_opt_state
+    ospecs = sh.opt_specs_for(c, mesh, ps, jax.eval_shape(init, p0))
+    psh, osh = sh.named(mesh, ps), sh.named(mesh, ospecs)
+    bsh = sh.named(mesh, sh.batch_specs(c, None, mesh))
+    step = jax.jit(make_train_step(
+        c, AdamWConfig(**inp["opt"]), microbatches=mb, opt_impl=impl,
+        gather_specs=gspecs), out_shardings=(psh, osh, None))
+    p = jax.device_put(p0, psh)
+    s = jax.device_put(init(p0), osh)
+    losses, norms = [], []
+    with mesh:
+        for b in inp["batches"]:
+            p, s, m = step(p, s, jax.device_put(b, bsh))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    out[name] = {"params": jax.tree.map(np.asarray, p), "losses": losses,
+                 "norms": norms}
+
 # the port's collective feed is its own (ROADMAP C), so the JAX Trainer's
 # HLO feed is not compared: skip the second compile it makes per mesh
 compile_step = Trainer._compile_step
@@ -120,6 +168,21 @@ out["trainer"] = {"losses": run["losses"],
                   "relayouts": run["counters"]["relayouts"],
                   "mesh": (trainer.mesh.shape["data"],
                            trainer.mesh.shape["model"])}
+# the Trainer on a (pod 2, data 2, model 2) mesh with the int8 error
+# feedback, as the port's pod_trainer
+tcfg = TrainerConfig(steps=2, ckpt_every=100, log_every=100,
+                     ckpt_dir=inp["ckpt"] + "_pod",
+                     opt=AdamWConfig(**inp["trainer_opt"]),
+                     compress_cross_pod=True)
+pod = Trainer(cfg, Mesh(np.array(jax.devices()).reshape(2, 2, 2),
+                        ("pod", "data", "model")),
+              ShardedLoader(inp["files"], seq_len=inp["seq"],
+                            batch=inp["batch"]), tcfg, log=lambda s: None)
+# (from the numpy weights: the first Trainer's steps donated params0)
+pod.params = jax.device_put(jax.tree.map(jnp.asarray, inp["params"]),
+                            pod.psh)
+pod.opt_state = jax.device_put(init_opt_state(pod.params), pod.osh)
+out["pod_trainer"] = {"losses": pod.run()["losses"]}
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
@@ -132,6 +195,10 @@ def runs(tmp_path_factory):
     cfg = t_reduced(T_REGISTRY[ARCH])
     params = tree_map(lambda t: t.numpy(), init_params(
         cfg, torch.Generator().manual_seed(5), device="cpu"))
+    spmd_params = {a: params if a == ARCH else tree_map(
+        lambda t: t.numpy(), init_params(
+            t_reduced(T_REGISTRY[a]), torch.Generator().manual_seed(5),
+            device="cpu")) for a in SPMD_ARCHS}
     rng = np.random.default_rng(7)
     batches = []
     for _ in range(STEPS):
@@ -145,7 +212,8 @@ def runs(tmp_path_factory):
     trainer_kw = dict(files=files, steps=6, seq=16, batch=8,
                       opt=TRAINER_OPT)
     inp = dict(arch=ARCH, params=params, batches=batches, opt=OPT,
-               cases=CASES, ckpt=str(tmp / "jax_ckpt"),
+               cases=CASES, spmd_cases=SPMD_CASES, spmd_params=spmd_params,
+               ckpt=str(tmp / "jax_ckpt"),
                trainer_opt=TRAINER_OPT, **{k: v for k, v in trainer_kw.items()
                                            if k != "opt"})
     with open(tmp / "in.pkl", "wb") as f:
@@ -161,7 +229,11 @@ def runs(tmp_path_factory):
             port = run_ranks("dist_scenarios", 8, tmp, TIMEOUT, arch=ARCH,
                              params=params, batches=batches, cases=CASES,
                              opt=OPT, trainer=dict(trainer_kw, ckpt_dir=str(
-                                 tmp / "port_ckpt")))
+                                 tmp / "port_ckpt")), spmd_cases=SPMD_CASES,
+                             spmd_params=spmd_params, pod_trainer=dict(
+                                 files=files, seq=16, batch=8,
+                                 opt=TRAINER_OPT,
+                                 ckpt_dir=str(tmp / "pod_ckpt")))
             ref.wait(timeout=TIMEOUT)
         finally:
             if ref.poll() is None:
@@ -202,6 +274,56 @@ def test_smap_step_matches_jax(runs, case):
         np.testing.assert_allclose(port[r][case]["norms"], jr["norms"],
                                    rtol=1e-5)
         _params_close(port[r][case]["params"], jr["params"], eight_bit)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in SPMD_CASES])
+def test_spmd_step_matches_jax(runs, case):
+    """``make_train_step_spmd`` against the JAX package's GSPMD-partitioned
+    ``make_train_step``: losses, grad norms and every rank's parameters
+    after 3 steps, to the smap step's tolerances, on reduced llama3-8b and
+    mixtral-8x22b — (data 2, model 4) with and without FSDP, (pod 2, data
+    2, model 2), and FSDP with 2 microbatches and 8-bit moments.  On the
+    4-wide model axis each rank holds one query head and reads the one
+    replicated kv head, an ``ff`` slice of 32 and a vocabulary slice of
+    128; the batch is cut over every batch axis."""
+    port, ref = runs
+    jr = ref[case]
+    eight_bit = dict((c[0], c[6]) for c in SPMD_CASES)[case] == "adamw8bit"
+    for r in range(8):
+        np.testing.assert_allclose(port[r][case]["losses"], jr["losses"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(port[r][case]["norms"], jr["norms"],
+                                   rtol=1e-5)
+        _params_close(port[r][case]["params"], jr["params"], eight_bit)
+
+
+@pytest.mark.parametrize("piece", ["ce", "ce_dx", "ce_dhead", "mlp_y",
+                                   "mlp_dx", "mlp_dwi", "mlp_dwo"])
+def test_tensor_parallel_pieces_match_unsharded(runs, piece):
+    """On (data 2, model 4): the vocabulary-parallel ``chunked_ce_loss``
+    (two loss chunks a row, pad columns in the last slice) — the ranks'
+    shares summed over "data" equal the whole batch's loss, and the input
+    and head-slice gradients the unsharded ones; the row-parallel MLP's
+    output and gradients equal the unsharded MLP's (float32, 1e-5)."""
+    port, _ = runs
+    for r in range(8):
+        want, got = port[r]["tp_pieces"][piece]
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert port[0]["tp_pieces"]["bytes"]["intra_group"] > 0
+
+
+def test_trainer_feeds_each_rank_its_rows(runs):
+    """The Trainer on a (pod 2, data 2, model 2) mesh steps with the spmd
+    step, the int8 error feedback threaded through it: every ``loss_fn``
+    call of a rank sees 1/(pod x data) of the batch of 8 rows, as the JAX
+    Trainer's ``batch_sharding``, and every rank's losses equal the JAX
+    Trainer's on the same mesh (1e-4, as the Trainer tests)."""
+    port, ref = runs
+    for r in range(8):
+        t = port[r]["pod_trainer"]
+        assert t["rows"] == [2, 2]
+        np.testing.assert_allclose(t["losses"], ref["pod_trainer"]["losses"],
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_compress_pod_result_is_the_same_on_every_device(runs):

@@ -9,9 +9,13 @@
   ``cost_analysis``) at prefill, train and decode shapes.
 * ``run_cell`` traces a train step of six reduced families on both
   production meshes: status ok, the JAX record's keys (with the port's
-  renames), collective bytes by link class equal to a closed form from
-  the specs, no kernel built and no process group left behind.
-* ``--train-impl gspmd`` is refused.
+  renames), no kernel built and no process group left behind; under
+  ``--train-impl smap`` collective bytes by link class equal to a closed
+  form from the specs; under ``gspmd`` (the default) the rank's flops
+  and peak below the smap step's, the pod mesh's peak at most the single
+  pod's, and the decomposition's flops equal to the full count.
+* An MoE train step under FSDP adds less than a layer's gathered experts
+  to the peak a layer, under both impls.
 """
 import dataclasses
 import math
@@ -206,7 +210,7 @@ def test_run_cell_on_production_meshes(no_build, arch):
         cfg, shape = _cell_cfg(arch)
         rec = dryrun.run_cell(arch, "t", multi_pod=multi_pod,
                               skip_analysis=multi_pod, microbatches=MICRO,
-                              config=(cfg, shape))
+                              config=(cfg, shape), train_impl="smap")
         assert rec["status"] == "ok"
         assert JAX_KEYS | RENAMED <= set(rec)
         assert set(rec["memory"]) == MEMORY_KEYS
@@ -236,10 +240,44 @@ def test_run_cell_on_production_meshes(no_build, arch):
     assert not (dist.is_available() and dist.is_initialized())
 
 
-def test_gspmd_train_is_refused():
-    with pytest.raises(ValueError, match="no per-rank counterpart"):
-        dryrun.run_cell("llama3-8b", "train_4k", multi_pod=False,
-                        train_impl="gspmd")
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_run_cell_gspmd_on_production_meshes(no_build, arch):
+    """The default train impl traces ``make_train_step_spmd``: the record
+    is tagged ``gspmd``; a rank computes less than the smap step's rank
+    on the same cell (its model shards, 1/(pod x data) of the batch) and
+    holds no more at its peak, the pod mesh no more than the single pod;
+    the per-type decomposition, traced the same way, adds up to the full
+    count; the tensor-parallel sums stay in a data row (intra_group).  The
+    batch is the smap cells' twice over, so that the pod mesh's 32 batch
+    shards leave a rank a row for each of its microbatches."""
+    assert not (dist.is_available() and dist.is_initialized())
+    cfg, shape = _cell_cfg(arch)
+    shape = dataclasses.replace(shape, global_batch=2 * shape.global_batch)
+    recs = {}
+    for impl in ("gspmd", "smap"):
+        for multi_pod in (False, True):
+            recs[impl, multi_pod] = dryrun.run_cell(
+                arch, "t", multi_pod=multi_pod, skip_analysis=multi_pod,
+                microbatches=MICRO, config=(cfg, shape), train_impl=impl)
+    for multi_pod in (False, True):
+        rec, smap = recs["gspmd", multi_pod], recs["smap", multi_pod]
+        assert rec["status"] == "ok" and rec["tag"] == "gspmd"
+        assert JAX_KEYS | RENAMED <= set(rec)
+        flops = rec["full_step_cost_analysis"]["flops"]
+        assert flops < smap["full_step_cost_analysis"]["flops"]
+        assert rec["memory"]["peak_per_device"] <= \
+            smap["memory"]["peak_per_device"]
+        assert rec["collectives"]["per_class_bytes"]["intra_group"] > 0
+        if cfg.family != "ssm":
+            assert rec["launches"]["flash_attention_fwd"] > 0
+    assert recs["gspmd", True]["memory"]["peak_per_device"] <= \
+        recs["gspmd", False]["memory"]["peak_per_device"]
+    ratio = recs["gspmd", False]["decomposed"]["flops_ratio"]
+    if cfg.block_pattern:
+        assert 1.0 < ratio < 1.1
+    else:
+        assert ratio == pytest.approx(1.0, rel=1e-9)
+    assert not (dist.is_available() and dist.is_initialized())
 
 
 def test_inapplicable_cell_is_skipped_with_jaxs_reason():
@@ -249,27 +287,33 @@ def test_inapplicable_cell_is_skipped_with_jaxs_reason():
 
 
 
-def test_moe_fsdp_layer_growth_is_less_than_its_gathered_experts(no_build):
+@pytest.mark.parametrize("train_impl", dryrun.TRAIN_IMPLS)
+def test_moe_fsdp_layer_growth_is_less_than_its_gathered_experts(
+        no_build, train_impl):
     """An MoE train step under FSDP on the production mesh, traced at 1
     and 2 layers: the second layer adds less to the peak than one layer's
-    gathered expert weights (``wi`` and ``wo`` whole).  Each layer is
-    recomputed under remat "full", so its token blocks take no checkpoint
-    of their own; nested, the blocks' checkpoints kept every layer's
-    gathered experts alive until its backward and the growth was above
-    those bytes."""
+    gathered expert weights (``wi`` and ``wo`` whole along "data"; the
+    spmd step keeps them cut along "model").  Each layer is recomputed
+    under remat "full", so its token blocks take no checkpoint of their
+    own; nested, the blocks' checkpoints kept every layer's gathered
+    experts alive until its backward and the growth was above those
+    bytes."""
     base = dataclasses.replace(
-        t_reduced(T_REGISTRY["mixtral-8x22b"]), d_model=256, d_ff=1024,
+        t_reduced(T_REGISTRY["mixtral-8x22b"]), d_model=256, d_ff=4096,
         n_experts=8, capacity_factor=1.25, moe_block=2048, n_heads=16,
         n_kv_heads=16, remat="full", param_dtype="bfloat16",
         compute_dtype="bfloat16")
     shape = ShapeConfig("t", "train", 256, 512)
+    mesh = make_production_mesh()
     peaks = []
     for n in (1, 2):
         cfg = dataclasses.replace(base, n_layers=n)
         tr, _, _ = dryrun.trace_step(cfg, shape, make_production_mesh(),
-                                     fsdp=True)
+                                     fsdp=True, train_impl=train_impl)
         peaks.append(tr.memory()["peak_per_device"])
     moe = model_def(base)["layers"]["moe"]
-    gathered = sum(math.prod(moe[k].shape[1:]) for k in ("wi", "wo")) * 2
+    split = mesh.shape["model"] if train_impl == "gspmd" else 1
+    gathered = sum(math.prod(moe[k].shape[1:]) for k in ("wi", "wo")) \
+        * 2 / split
     growth = peaks[1] - peaks[0]
     assert 0 < growth < gathered, (growth, gathered)

@@ -77,16 +77,19 @@ def _tree_np(tree):
         else tree
 
 
-def smap_steps(rank, *, arch, params, batches, shape, axes, fsdp,
-               microbatches, compress_pod, opt_impl, opt):
-    """``make_train_step_smap`` for ``len(batches)`` steps from the whole
-    parameters ``params`` (numpy), every rank on the same global batches;
-    returns the losses, grad norms and this rank's gathered parameters."""
+def mesh_steps(rank, *, arch, params, batches, shape, axes, fsdp,
+               microbatches, compress_pod, opt_impl, opt, impl="smap"):
+    """``make_train_step_smap`` (``impl="smap"``) or
+    ``make_train_step_spmd`` ("spmd") for ``len(batches)`` steps from the
+    whole parameters ``params`` (numpy), every rank on the same global
+    batches; returns the losses, grad norms and this rank's gathered
+    parameters."""
     import torch
     from repro_torch.configs import REGISTRY, reduced_config
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import Mesh
-    from repro_torch.launch.steps import make_train_step_smap
+    from repro_torch.launch.steps import (make_train_step_smap,
+                                          make_train_step_spmd)
     from repro_torch.models.params import from_reference
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
     from repro_torch.optim.quantized import init_opt_state_8bit
@@ -102,10 +105,16 @@ def smap_steps(rank, *, arch, params, batches, shape, axes, fsdp,
     opt_state = {"m": sh.shard_tree(full_opt["m"], sh.named(mesh, ospecs["m"])),
                  "v": sh.shard_tree(full_opt["v"], sh.named(mesh, ospecs["v"])),
                  "count": full_opt["count"]}
-    step = make_train_step_smap(
-        cfg, AdamWConfig(**opt), mesh, pspecs,
-        sh.batch_specs(cfg, None, mesh), microbatches=microbatches,
-        opt_impl=opt_impl, compress_pod=compress_pod)
+    bspecs = sh.batch_specs(cfg, None, mesh)
+    if impl == "spmd":
+        step = make_train_step_spmd(
+            cfg, AdamWConfig(**opt), mesh, pspecs, bspecs,
+            microbatches=microbatches, opt_impl=opt_impl)
+    else:
+        step = make_train_step_smap(
+            cfg, AdamWConfig(**opt), mesh, pspecs, bspecs,
+            microbatches=microbatches, opt_impl=opt_impl,
+            compress_pod=compress_pod)
     losses, norms = [], []
     for b in batches:
         local, opt_state, m = step(
@@ -116,6 +125,84 @@ def smap_steps(rank, *, arch, params, batches, shape, axes, fsdp,
     full = sh.gather_tree(local, psh)
     return {"losses": losses, "norms": norms, "params": _tree_np(full),
             "bytes": dict(mesh.comm().bytes)}
+
+
+def tp_pieces(rank, *, arch, seed):
+    """The tensor-parallel pieces on a (data 2, model 4) mesh, each against
+    the unsharded computation on the same rank: the vocabulary-parallel
+    ``chunked_ce_loss`` (the rank's share of the global batch's mean, its
+    input gradient and its head slice's gradient, float32) and the
+    row-parallel MLP (output, input gradient, the ``wi`` / ``wo`` slices'
+    gradients).  Returns both sides as numpy."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import REGISTRY, reduced_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params
+    from repro_torch.models.tensor_parallel import TensorParallel
+
+    # two loss chunks a row, and pad columns in the last vocabulary slice
+    cfg = dataclasses.replace(reduced_config(REGISTRY[arch]), vocab=500)
+    mesh = Mesh(np.arange(8).reshape(2, 4), ("data", "model"))
+    comm = mesh.comm()
+    pspecs = sh.param_specs(cfg, mesh)
+    rules = sh.axis_rules(cfg, mesh, fsdp=False)
+    tp = TensorParallel(comm, [k for k, v in rules.items()
+                               if k is not None and v == "model"], ("data",))
+    full = init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    B, S, D = 4, 2 * T.LOSS_CHUNK, cfg.d_model
+    x = torch.randn(B, S, D, generator=g)
+    tgt = torch.randint(0, cfg.vocab, (B, S), generator=g)
+    mask = (torch.rand(B, S, generator=g) < 0.8).float()
+    rows = slice(comm.index(("data",)) * 2, comm.index(("data",)) * 2 + 2)
+    out = {}
+
+    # the loss: whole on the global batch, against the rank's share
+    head = full["head"].clone().requires_grad_(True)
+    xf = x.clone().requires_grad_(True)
+    ref = T.chunked_ce_loss({"embed": full["embed"], "head": head}, cfg, xf,
+                            tgt, mask)
+    ref.backward()
+    hl = sh.shard(full["head"], sh.NamedSharding(mesh, pspecs["head"]))
+    hl.requires_grad_(True)
+    xr = x[rows].clone().requires_grad_(True)
+    share = T.chunked_ce_loss({"embed": full["embed"], "head": hl}, cfg, xr,
+                              tgt[rows], mask[rows], tp)
+    share.backward()
+    j = comm.index(("model",))
+    n = hl.shape[1]
+    out["ce"] = (float(ref), float(comm.all_reduce(share.detach().reshape(1),
+                                                   ("data",))[0]))
+    out["ce_dx"] = (xf.grad[rows].numpy(), xr.grad.numpy())
+    out["ce_dhead"] = (head.grad[:, j * n:(j + 1) * n].numpy(),
+                       comm.all_reduce(hl.grad.clone(), ("data",)).numpy())
+
+    # the MLP: whole against row-parallel, on the rank's rows
+    lp = {k: v[0] for k, v in full["layers"]["mlp"].items()}
+    wf = {k: v.clone().requires_grad_(True) for k, v in lp.items()}
+    xf = x[rows].clone().requires_grad_(True)
+    yf = L.mlp_apply(xf, wf, cfg.activation)
+    ct = torch.randn(yf.shape, generator=g)
+    (yf * ct).sum().backward()
+    spec = {k: sh.P(*v[1:]) for k, v in pspecs["layers"]["mlp"].items()}
+    wl = {k: sh.shard(v, sh.NamedSharding(mesh, spec[k])).requires_grad_(True)
+          for k, v in lp.items()}
+    xr = x[rows].clone().requires_grad_(True)
+    yr = L.mlp_apply(xr, wl, cfg.activation, tp=tp)
+    (yr * ct).sum().backward()
+    f = wl["wo"].shape[0]
+    out["mlp_y"] = (yf.detach().numpy(), yr.detach().numpy())
+    out["mlp_dx"] = (xf.grad.numpy(), xr.grad.numpy())
+    out["mlp_dwi"] = (wf["wi"].grad[..., j * f:(j + 1) * f].numpy(),
+                      wl["wi"].grad.numpy())
+    out["mlp_dwo"] = (wf["wo"].grad[j * f:(j + 1) * f].numpy(),
+                      wl["wo"].grad.numpy())
+    out["bytes"] = dict(comm.bytes)
+    return out
 
 
 def trainer_relayout(rank, *, arch, params, files, ckpt_dir, steps, seq,
@@ -191,15 +278,64 @@ def _leaves(tree, stop=None):
         yield tree
 
 
-def dist_scenarios(rank, *, arch, params, batches, cases, opt, trainer):
+def trainer_rows(rank, *, arch, params, files, ckpt_dir, seq, batch,
+                 opt):
+    """The port's Trainer on a (pod 2, data 2, model 2) mesh for two
+    steps, with the int8 error feedback over the pod hop
+    (``compress_cross_pod``): the rows of the batch that each ``loss_fn``
+    call of this rank saw, and the losses."""
+    from repro_torch.configs import REGISTRY, reduced_config
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import from_reference
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    cfg = reduced_config(REGISTRY[arch])
+    seen = []
+    loss_fn = T.loss_fn
+
+    def spy(params, cfg, b, **kw):
+        seen.append(int(b["tokens"].shape[0]))
+        return loss_fn(params, cfg, b, **kw)
+
+    T.loss_fn = spy
+    try:
+        mesh = Mesh(np.arange(8).reshape(2, 2, 2), ("pod", "data", "model"))
+        tcfg = TrainerConfig(steps=2, ckpt_every=100, log_every=100,
+                             ckpt_dir=ckpt_dir, opt=AdamWConfig(**opt),
+                             compress_cross_pod=True)
+        out = Trainer(cfg, ShardedLoader(files, seq_len=seq, batch=batch),
+                      tcfg, mesh=mesh, log=lambda s: None,
+                      params=from_reference(params, "cpu"),
+                      device="cpu").run()
+    finally:
+        T.loss_fn = loss_fn
+    return {"rows": seen, "losses": out["losses"]}
+
+
+def dist_scenarios(rank, *, arch, params, batches, cases, opt, trainer,
+                   spmd_cases, spmd_params, pod_trainer):
     """Every scenario of ``test_torch_distributed.py`` in one spawn: each
-    smap case of ``cases`` (keyed by its name), then the Trainer's."""
+    smap case of ``cases`` and each spmd case of ``spmd_cases`` (keyed by
+    its name; ``spmd_params`` by architecture), the tensor-parallel
+    pieces, then the Trainers'."""
     out = {}
     for name, shape, axes, fsdp, mb, comp, impl in cases:
-        out[name] = smap_steps(rank, arch=arch, params=params,
+        out[name] = mesh_steps(rank, arch=arch, params=params,
                                batches=batches, shape=shape, axes=axes,
                                fsdp=fsdp, microbatches=mb,
                                compress_pod=comp, opt_impl=impl, opt=opt)
+    for name, a, shape, axes, fsdp, mb, impl in spmd_cases:
+        out[name] = mesh_steps(rank, arch=a, params=spmd_params[a],
+                               batches=batches, shape=shape, axes=axes,
+                               fsdp=fsdp, microbatches=mb,
+                               compress_pod=False, opt_impl=impl, opt=opt,
+                               impl="spmd")
+    out["tp_pieces"] = tp_pieces(rank, arch=arch, seed=11)
     out["trainer"] = trainer_relayout(rank, arch=arch, params=params,
                                       **trainer)
+    out["pod_trainer"] = trainer_rows(rank, arch=arch, params=params,
+                                      **pod_trainer)
     return out
