@@ -3181,10 +3181,11 @@ def spy_attention_blocks():
     from repro_torch.models import transformer
     block, seen = transformer.attn_block, []
 
-    def spy(x, p, cfg, rope, *, causal=True, window=0, kv=None):
+    def spy(x, p, cfg, rope, *, causal=True, window=0, kv=None, **kw):
         seen.append("cross" if kv is not None else
                     "dec" if causal else "enc")
-        return block(x, p, cfg, rope, causal=causal, window=window, kv=kv)
+        return block(x, p, cfg, rope, causal=causal, window=window, kv=kv,
+                     **kw)
 
     transformer.attn_block = spy
     return seen, lambda: setattr(transformer, "attn_block", block)

@@ -47,7 +47,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch import sharding as sh
 from repro_torch.launch import trace_analysis as ta
 from repro_torch.launch.inputs import ENCDEC_SRC_LEN, seq_split
-from repro_torch.launch.steps import tp_layer_types
+from repro_torch.launch.steps import tensor_parallel, tp_layer_types
 from repro_torch.models import decode as dec
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -122,19 +122,12 @@ def _layer_params(cfg, ltype, device, grad, shape_of=None):
                     layer_def(cfg, ltype))
 
 
-def spmd_tp(cfg, mesh):
-    """The ``TensorParallel`` of the spmd step on ``mesh``'s comm (a dry
-    mesh's, in the dry run), and the shape a leaf of a split layer has on
-    the rank (``ParamDef`` -> its shape cut over "model" only)."""
-    from repro_torch.models.tensor_parallel import TensorParallel
+def _model_shard_shape(cfg, mesh):
+    """``ParamDef`` -> the shape of the rank's shard of a layer leaf cut
+    over "model" only (as the spmd step computes on it)."""
     rules = sh.axis_rules(cfg, mesh, fsdp=False)
-    tp = TensorParallel(mesh.comm(), [k for k, v in rules.items()
-                                      if k is not None and v == "model"],
-                        [a for a in sh.BATCH_AXES if a in mesh.axis_names])
-
-    def shape_of(pd):
-        return sh.local_shape(pd.shape, sh.spec_of(pd.axes, rules), mesh)
-    return tp, shape_of
+    return lambda pd: sh.local_shape(pd.shape, sh.spec_of(pd.axes, rules),
+                                     mesh)
 
 
 def _rope(cfg, B, S, device):
@@ -202,7 +195,8 @@ def layer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
 
     split, shape_of = None, None
     if tp and ltype in tp_layer_types(cfg):
-        split, shape_of = spmd_tp(cfg, mesh)
+        split, shape_of = tensor_parallel(cfg, mesh), \
+            _model_shard_shape(cfg, mesh)
 
     def body(x, lp):
         return T.apply_layer(x, lp, cfg, ltype, rope_of[0], window=window,
@@ -282,7 +276,7 @@ def outer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
     split = None
     shapes = {"embed": (V, D), "head": (D, V)}
     if tp and train:
-        split, _ = spmd_tp(cfg, mesh)
+        split = tensor_parallel(cfg, mesh)
         ps = sh.param_specs(cfg, mesh, fsdp=False)
         shapes = {k: sh.local_shape(v, ps[k], mesh)
                   for k, v in shapes.items() if k in ps}

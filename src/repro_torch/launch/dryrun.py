@@ -95,15 +95,6 @@ def cell_config(arch: str, shape_name: str):
     return cfg, shape
 
 
-def batch_only(spec) -> sh.PartitionSpec:
-    """``spec`` with every entry but the batch axes replicated."""
-    keep = []
-    for e in spec:
-        axes = tuple(a for a in sh.entry_axes(e) if a in sh.BATCH_AXES)
-        keep.append(axes or None)
-    return sh.P(*keep)
-
-
 def _fake(shape, dtype, device):
     return torch.empty(tuple(shape), dtype=dtype, device=device)
 
@@ -175,7 +166,7 @@ def _build_step(cfg, shape, mesh, *, fsdp, microbatches, opt_impl,
            if k not in STACKED}
 
     def local(stand):
-        return _fake(sh.local_shape(stand.shape, batch_only(stand.spec),
+        return _fake(sh.local_shape(stand.shape, sh.batch_only(stand.spec),
                                     mesh), stand.dtype, device)
 
     if shape.kind == "prefill":
@@ -255,9 +246,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     if not ok:
         return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
                 "status": "skipped", "reason": why}
-    if train_impl not in TRAIN_IMPLS:
-        raise ValueError(f"unknown train_impl {train_impl!r}: expected one "
-                         f"of {TRAIN_IMPLS}")
 
     # FSDP-scale models (grok-1): 8-bit moments, as JAX's run_cell
     opt_impl = "adamw8bit" if fsdp else "adamw"
@@ -381,7 +369,6 @@ def main(argv=None):
                     name += f"__{args.layers}layers"
                 name += args.suffix
                 path = os.path.join(args.out, name + ".json")
-                t0 = time.time()
                 try:
                     if args.time_limit:
                         signal.setitimer(signal.ITIMER_REAL, args.time_limit)
@@ -409,7 +396,6 @@ def main(argv=None):
                 finally:
                     if args.time_limit:
                         signal.setitimer(signal.ITIMER_REAL, 0)
-                rec["wall_s"] = round(time.time() - t0, 1)
                 with open(path, "w") as f:
                     json.dump(rec, f, indent=1, default=float)
                 print(summary(name, rec), flush=True)

@@ -286,6 +286,15 @@ def entry_axes(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def batch_only(spec) -> PartitionSpec:
+    """``spec`` with every entry but the batch axes replicated."""
+    keep = []
+    for e in spec:
+        axes = tuple(a for a in entry_axes(e) if a in BATCH_AXES)
+        keep.append(axes or None)
+    return P(*keep)
+
+
 def sharded_dims(spec, ndim: int):
     """[(dim, axes)] of every dim ``spec`` shards."""
     return [(i, entry_axes(e)) for i, e in enumerate(tuple(spec)[:ndim])

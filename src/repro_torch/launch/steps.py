@@ -56,14 +56,24 @@ def _grad_tree(cfg: ModelConfig, params):
     return tree, grads
 
 
+def _value_and_grad_of(cfg: ModelConfig, loss_of):
+    """(params, batch) -> (loss, parts, grads) of ``loss_of(tree, batch)``
+    on ``_grad_tree``'s views."""
+    def vg(params, b):
+        tree, grads = _grad_tree(cfg, params)
+        loss, parts = loss_of(tree, b)
+        loss.backward()
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
+            grads
+    return vg
+
+
 def value_and_grad(cfg: ModelConfig, params, batch, gather_specs=None):
     """``loss_fn``'s value and its gradient for every parameter leaf:
     (loss, {"ce", "aux"}, grads shaped like params, in the params'
     types)."""
-    tree, grads = _grad_tree(cfg, params)
-    loss, parts = T.loss_fn(tree, cfg, batch, gather_specs=gather_specs)
-    loss.backward()
-    return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+    return _value_and_grad_of(cfg, lambda tree, b: T.loss_fn(
+        tree, cfg, b, gather_specs=gather_specs))(params, batch)
 
 
 UPDATES = {"adamw": adamw_update, "adamw8bit": adamw8bit_update}
@@ -115,7 +125,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     (params, opt_state, batch, ef) -> (params', opt_state', metrics,
     ef')."""
     update = _update_fn(opt_impl)
-    vg = lambda p, b: value_and_grad(cfg, p, b, gather_specs)
+    vg = _value_and_grad_of(cfg, lambda tree, b: T.loss_fn(
+        tree, cfg, b, gather_specs=gather_specs))
 
     def train_step(params, opt_state, batch, ef=None):
         loss, parts, grads = _grads(cfg, params, batch, microbatches, vg)
@@ -130,14 +141,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             return params, opt_state, metrics, ef
         return params, opt_state, metrics
 
-    if ef_transform is None:
-        # the 3-argument signature for stateless callers, as in JAX
-        stateful = train_step
+    return _with_ef(train_step, ef_transform)
 
-        def train_step(params, opt_state, batch):      # noqa: F811
-            return stateful(params, opt_state, batch)
 
-    return train_step
+def _with_ef(train_step, ef_transform):
+    """``train_step`` as the 3-argument step when there is no
+    ``ef_transform`` (the signature for stateless callers, as in JAX)."""
+    if ef_transform is not None:
+        return train_step
+
+    def stateless(params, opt_state, batch):
+        return train_step(params, opt_state, batch)
+
+    return stateless
 
 
 def stacked_gathers(mesh, pspecs):
@@ -221,30 +237,6 @@ def _sharded_update(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh, pspecs,
         return om, ef
 
     return apply
-
-
-def _with_ef(train_step, ef_transform):
-    """``train_step`` as the 3-argument step when there is no
-    ``ef_transform`` (as in JAX)."""
-    if ef_transform is not None:
-        return train_step
-
-    def stateless(params, opt_state, batch):
-        return train_step(params, opt_state, batch)
-
-    return stateless
-
-
-def _value_and_grad_of(cfg: ModelConfig, loss_of):
-    """(params, batch) -> (loss, parts, grads) of ``loss_of(tree, batch)``
-    on ``_grad_tree``'s views."""
-    def vg(params, b):
-        tree, grads = _grad_tree(cfg, params)
-        loss, parts = loss_of(tree, b)
-        loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
-            grads
-    return vg
 
 
 def make_train_step_smap(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
@@ -351,46 +343,53 @@ def tp_layer_types(cfg: ModelConfig):
     return ("attn",) if cfg.family != "encdec" else ()
 
 
-def without_model(spec) -> sh.PartitionSpec:
-    """``spec`` with "model" taken out of every entry."""
-    out = []
-    for e in spec:
-        axes = tuple(a for a in sh.entry_axes(e) if a != "model")
-        out.append(axes or None)
-    return sh.P(*out)
+def tensor_parallel(cfg: ModelConfig, mesh):
+    """The ``TensorParallel`` of ``make_train_step_spmd`` on ``mesh``'s
+    comm: the logical axes ``axis_rules`` cuts over "model", the batch
+    over the mesh's batch axes."""
+    from repro_torch.models.tensor_parallel import TensorParallel
+    rules = sh.axis_rules(cfg, mesh, fsdp=False)
+    return TensorParallel(mesh.comm(), [k for k, v in rules.items()
+                                        if k is not None and v == "model"],
+                          [a for a in sh.BATCH_AXES if a in mesh.axis_names])
 
 
-def spmd_gathers(cfg: ModelConfig, mesh, pspecs):
-    """``make_train_step_spmd``'s gather on use for every leaf (a tree like
-    ``pspecs``; the stacked subtrees' specs without the layer axis): a
-    leaf that the rank computes on its model shard — of the embedding, the
-    head, and the layers of a ``tp_layer_types`` type — is gathered over
-    its other axes ("data" under FSDP) only; every other leaf over all of
-    its axes, as the smap step's."""
+def _by_split(cfg: ModelConfig, pspecs, fn):
+    """A tree like ``pspecs``: ``fn(specs, split)`` of each layer's specs
+    (a stacked subtree's without the layer axis) and of each other
+    top-level entry, ``split`` whether ``make_train_step_spmd`` computes
+    it on the rank's model shards — the embedding, the head and the
+    layers of ``tp_layer_types``."""
     split = tp_layer_types(cfg)
 
-    def gathers(tree, tp, drop=0):
-        def one(s):
-            s = sh.P(*s[drop:])
-            return functools.partial(sh.gather_on_use, sharding=sh.
-                                     NamedSharding(mesh, without_model(s)
-                                                   if tp else s))
-        return tree_map(one, tree)
+    def unstack(tree):
+        return tree_map(lambda s: sh.P(*s[1:]), tree)
 
     out = {}
     for key, sub in pspecs.items():
-        if key in ("layers", "groups", "tail"):
-            drop = 0 if key == "tail" else 1
-            if key == "layers":
-                out[key] = gathers(sub, cfg.layer_types()[0] in split, drop)
-            else:   # a hybrid's layers by name: b{i}_{type} / t{i}_{type}
-                out[key] = {n: gathers(v, n.split("_", 1)[1] in split, drop)
-                            for n, v in sub.items()}
+        if key == "layers":
+            out[key] = fn(unstack(sub), cfg.layer_types()[0] in split)
+        elif key in ("groups", "tail"):   # a hybrid's layers: b{i}_{type}
+            out[key] = {n: fn(unstack(v) if key == "groups" else v,
+                              n.split("_", 1)[1] in split)
+                        for n, v in sub.items()}
         elif key in STACKED:
-            out[key] = gathers(sub, False, 1)
+            out[key] = fn(unstack(sub), False)
         else:
-            out[key] = gathers(sub, key in ("embed", "head"))
+            out[key] = fn(sub, key in ("embed", "head"))
     return out
+
+
+def spmd_gathers(cfg: ModelConfig, mesh, pspecs):
+    """``make_train_step_spmd``'s gather on use for every leaf: over its
+    batch axes only ("data" under FSDP) where the rank computes on its
+    model shard (``_by_split``), over all of its axes elsewhere, as the
+    smap step's."""
+    def gathers(specs, split):
+        return tree_map(lambda s: functools.partial(
+            sh.gather_on_use, sharding=sh.NamedSharding(
+                mesh, sh.batch_only(s) if split else s)), specs)
+    return _by_split(cfg, pspecs, gathers)
 
 
 def _partial_over_model(cfg: ModelConfig, mesh, pspecs):
@@ -399,27 +398,14 @@ def _partial_over_model(cfg: ModelConfig, mesh, pspecs):
     replicated ``wk`` / ``wv`` of a split attention layer, of which the
     rank reads its query heads' kv heads."""
     rules = sh.axis_rules(cfg, mesh, fsdp=False)
-    partial = rules["heads"] == "model" and rules["kv_heads"] is None \
-        and mesh.shape["model"] > 1
-    split = tp_layer_types(cfg)
+    partial = rules["heads"] == "model" and rules["kv_heads"] is None
 
-    def mark(tree, tp):
-        out = tree_map(lambda s: False, tree)
-        if tp and partial and "attn" in tree:
-            for k in ("wk", "wv"):
-                out["attn"][k] = True
+    def mark(specs, split):
+        out = tree_map(lambda s: False, specs)
+        if split and partial and "attn" in specs:
+            out["attn"].update(wk=True, wv=True)
         return out
-
-    out = {}
-    for key, sub in pspecs.items():
-        if key == "layers":
-            out[key] = mark(sub, cfg.layer_types()[0] in split)
-        elif key in ("groups", "tail"):
-            out[key] = {n: mark(v, n.split("_", 1)[1] in split)
-                        for n, v in sub.items()}
-        else:
-            out[key] = tree_map(lambda s: False, sub)
-    return out
+    return _by_split(cfg, pspecs, mark)
 
 
 def make_train_step_spmd(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
@@ -462,14 +448,9 @@ def make_train_step_spmd(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
     Metrics are the global batch's.  ``microbatches`` splits the rank's
     rows as ``make_train_step`` splits the global batch (microbatch j
     takes rows j, j + m, ... of it, of which the rank holds its own)."""
-    from repro_torch.models.tensor_parallel import TensorParallel
-
     comm = mesh.comm()
-    batch_axes = tuple(a for a in sh.BATCH_AXES if a in mesh.axis_names)
-    rules = sh.axis_rules(cfg, mesh, fsdp=False)
-    tp = TensorParallel(comm, [k for k, v in rules.items()
-                               if k is not None and v == "model"],
-                        batch_axes)
+    tp = tensor_parallel(cfg, mesh)
+    batch_axes = tp.batch_axes
     bshard = sh.named(mesh, batch_specs)
     gat = spmd_gathers(cfg, mesh, pspecs)
     gtree = {k: v for k, v in gat.items() if k in STACKED}

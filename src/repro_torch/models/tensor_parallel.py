@@ -150,14 +150,11 @@ class TensorParallel:
                  n_kv_heads: int) -> torch.Tensor:
         """Of a replicated ``wk`` / ``wv`` (D, Hkv, dh), the kv heads that
         this rank's query heads read (query head h reads kv head h // G):
-        a contiguous run when the rank's heads cover whole groups or lie
-        in one, else one kv head a query head (G = 1)."""
+        the rank's heads cover whole groups, or lie in one."""
         G = n_heads // n_kv_heads
         hl = n_heads // self.size
         h0 = self.rank * hl
-        if hl % G == 0:
-            return w[:, h0 // G:(h0 + hl) // G]
-        if G % hl == 0:
-            return w[:, h0 // G:h0 // G + 1]
-        idx = torch.arange(h0, h0 + hl, device=w.device) // G
-        return w.index_select(1, idx)
+        if hl % G and G % hl:
+            raise ValueError(f"{hl} query heads a rank straddle groups of "
+                             f"{G}")
+        return w[:, h0 // G:max(h0 + hl, h0 + G) // G]

@@ -300,9 +300,11 @@ def test_moe_fsdp_layer_growth_is_less_than_its_gathered_experts(
     bytes."""
     base = dataclasses.replace(
         t_reduced(T_REGISTRY["mixtral-8x22b"]), d_model=256, d_ff=4096,
-        n_experts=8, capacity_factor=1.25, moe_block=2048, n_heads=16,
+        n_experts=8, capacity_factor=1.25, moe_block=16384, n_heads=16,
         n_kv_heads=16, remat="full", param_dtype="bfloat16",
         compute_dtype="bfloat16")
+    # one token block a layer under either step (the spmd step's block
+    # length comes from the global batch's 32 rows of a microbatch)
     shape = ShapeConfig("t", "train", 256, 512)
     mesh = make_production_mesh()
     peaks = []
