@@ -4070,16 +4070,9 @@ DRY_CELLS = ([(DRY_ARCH, shape, False, 0) for shape in DRY_SHAPES]
              + [("mixtral-8x22b", "train_4k", False, n) for n in (1, 2)])
 
 
-def dry_name(arch, shape, multi_pod, layers):
-    """The record's name, as the dry run's ``main`` writes it."""
-    return (f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
-            + (f"__{layers}layers" if layers else ""))
-
-
 def start_dry_cells():
     """Phase 16 (b)'s processes, one a cell of ``DRY_CELLS``, started now:
-    they run on the host's other cores while the card works (the whole
-    run starts them before phase 15).  Returns (processes by cell, their
+    they run on the host's cores while (a) traces phase 4's cell.  Returns (processes by cell, their
     output directory)."""
     import os
     import tempfile
@@ -4177,7 +4170,7 @@ def phase_dryrun(torch, phase4_launches, card, dry_cells):
         recs = {}
         for cell, proc in procs.items():
             text, _ = proc.communicate(timeout=600)
-            name = dry_name(*cell)
+            name = dryrun.record_name(*cell)
             path = Path(out_dir) / f"{name}.json"
             rec = json.loads(path.read_text()) if path.exists() else {}
             log(dryrun.summary(name, rec) if rec else text[-2000:])
@@ -4375,14 +4368,11 @@ def main() -> int:
             ("card", "cuda", "blocked", None)] + CARD_VARIANTS["hybrid"])
         phase_moe(torch, rows)              # phase 13
         phase_vlm_encdec(torch, rows)       # phase 14
-        dry_cells = start_dry_cells()       # phase 16 (b), on the host
-        try:
-            phase_training_state(torch, rows)   # phase 15
-        except BaseException:
-            stop_dry_cells(dry_cells)
-            raise
+        phase_training_state(torch, rows)   # phase 15
         free_card(torch)
-        phase_dryrun(torch, flash_launches, card, dry_cells)  # phase 16
+        # phase 16; its (b) processes start after phase 15's timed steps,
+        # so that none of those ran beside them on the host
+        phase_dryrun(torch, flash_launches, card, start_dry_cells())
     ring_device_times(torch, rows[0])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -319,6 +319,14 @@ def summary(name: str, rec: dict) -> str:
     return f"[dryrun] {name}: {status}{extra}"
 
 
+def record_name(arch: str, shape: str, multi_pod: bool, layers: int = 0,
+                suffix: str = "") -> str:
+    """A cell's record name (its file, without ``.json``): ``--layers``
+    and ``--suffix`` append to it."""
+    return (f"{arch}__{shape}__{'pod2' if multi_pod else 'pod1'}"
+            + (f"__{layers}layers" if layers else "") + suffix)
+
+
 class CellTimeLimit(Exception):
     """A cell's trace ran past ``--time-limit``."""
 
@@ -364,10 +372,8 @@ def main(argv=None):
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
-                name = f"{arch}__{shape}__{'pod2' if mp else 'pod1'}"
-                if args.layers:
-                    name += f"__{args.layers}layers"
-                name += args.suffix
+                name = record_name(arch, shape, mp, args.layers,
+                                   args.suffix)
                 path = os.path.join(args.out, name + ".json")
                 try:
                     if args.time_limit:

@@ -16,7 +16,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import sharding as sh
 from repro_torch.models import decode as dec
 from repro_torch.models import transformer as T
-from repro_torch.models.params import STACKED, model_def, tree_map
+from repro_torch.models.params import (STACKED, hybrid_layer_names, model_def,
+                                      tree_map)
 from repro_torch.optim.adamw import (AdamWConfig, _leaves, _pieces,
                                      adamw_update)
 from repro_torch.optim.quantized import adamw8bit_update
@@ -369,9 +370,10 @@ def _by_split(cfg: ModelConfig, pspecs, fn):
     for key, sub in pspecs.items():
         if key == "layers":
             out[key] = fn(unstack(sub), cfg.layer_types()[0] in split)
-        elif key in ("groups", "tail"):   # a hybrid's layers: b{i}_{type}
+        elif key in ("groups", "tail"):   # a hybrid's layers
+            types = hybrid_layer_names(cfg)[key]
             out[key] = {n: fn(unstack(v) if key == "groups" else v,
-                              n.split("_", 1)[1] in split)
+                              types[n] in split)
                         for n, v in sub.items()}
         elif key in STACKED:
             out[key] = fn(unstack(sub), False)

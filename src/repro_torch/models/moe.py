@@ -50,12 +50,14 @@ on every rank of the axis from the whole hidden states; the gates'
 gradient is summed over it, since each rank's combine sees its partial
 outputs.  The batch is cut over the batch axes: the block length comes
 from the global batch's rows, as GSPMD's, and the load-balance means and
-``dropped`` are the global batch's (``tp.batch_mean``).  A block routes
-the rank's rows jointly, with the capacity of the rank's tokens; GSPMD
-routes the global batch's rows jointly, with the global capacity.  The
-two keep the same claims when no claim is dropped (a dropless capacity,
-as the reduced configs'); otherwise a rank may drop a claim that the
-global capacity keeps, or keep one that it drops.
+``dropped`` are the global batch's (``tp.batch_mean``).  Where a block
+routes its rows jointly (``moe_block_apply_flat``) it routes the global
+batch's rows, as GSPMD's: the capacity is the global block's, and a
+claim's slot counts the claims on its expert of the lower batch shards'
+rows too (their per-expert counts, gathered over the batch axes), so a
+rank keeps exactly the claims that the global routing keeps.  Its slot
+buffer holds only its own kept claims: at most ``min(C, T)`` an expert
+for its T tokens, since a token claims an expert once.
 
 Top-K takes the lower expert index first among equal logits, as
 ``lax.top_k`` does (``torch.topk`` does not promise an order among
@@ -91,16 +93,20 @@ def _expert_ffn(xin, params, activation: str):
 
 def moe_block_apply(xblk, params, *, n_experts: int, top_k: int,
                     capacity_factor: float, activation: str,
-                    dropless: bool = False, tp=None):
+                    dropless: bool = False, tp=None, joint: bool = False):
     """One token block, each row routed alone.  xblk: (B, T, D) -> (B, T,
     D), {"lb_loss", "dropped"}.  ``dropless`` sets the capacity to T, so
     no claim is dropped (the serving steps).  ``tp``: see the module
-    note."""
+    note; ``joint`` (B = 1): the T tokens are this rank's share of a
+    block that the global batch's rows route jointly."""
     B, T, D = xblk.shape
     split = tp is not None and tp.splits("ff")
+    shards = tp.batch_shards if tp is not None and joint else 1
     E, K = n_experts, top_k
-    C = T if dropless else int(max(1, (T * K * capacity_factor) // E))
-    C = min(C, T)
+    Tg = T * shards                    # the tokens routed jointly
+    C = Tg if dropless else int(max(1, (Tg * K * capacity_factor) // E))
+    C = min(C, Tg)
+    Cb = min(C, T)                     # a rank's kept claims an expert
 
     logits = matmul_f32(xblk, params["router"])              # (B, T, E)
     gates_all = torch.softmax(logits, dim=-1)                # (B, T, E)
@@ -112,16 +118,21 @@ def moe_block_apply(xblk, params, *, n_experts: int, top_k: int,
     onehot = (expert[..., None] == torch.arange(E, device=xblk.device)) \
         .long()                                              # (B, TK, E)
     pos = (onehot.cumsum(1) - onehot).gather(-1, expert[..., None])[..., 0]
-    keep = pos < C
+    glob = pos
+    if shards > 1:              # after the lower batch shards' claims
+        every = tp.comm.all_gather(onehot.sum(1), tp.batch_axes, 0)  # (n, E)
+        before = every[:tp.comm.index(tp.batch_axes)].sum(0)
+        glob = pos + before.gather(0, expert.reshape(-1)).reshape(B, T * K)
+    keep = glob < C
     # kept claims to their (expert, slot) row of the buffer; dropped ones
     # to a spare row past the end, cut off before the experts run
-    row = torch.where(keep, expert * C + pos, E * C)
+    row = torch.where(keep, expert * Cb + pos, E * Cb)
     xe = tp.copy(xblk) if split else xblk
     src = xe[:, :, None].expand(B, T, K, D).reshape(B, T * K, D)
-    buf = xblk.new_zeros(B, E * C + 1, D).scatter(
+    buf = xblk.new_zeros(B, E * Cb + 1, D).scatter(
         1, row[..., None].expand(B, T * K, D), src)
-    y = _expert_ffn(buf[:, :E * C].reshape(B, E, C, D), params, activation)
-    got = y.reshape(B, E * C, D).gather(
+    y = _expert_ffn(buf[:, :E * Cb].reshape(B, E, Cb, D), params, activation)
+    got = y.reshape(B, E * Cb, D).gather(
         1, torch.where(keep, row, 0)[..., None].expand(B, T * K, D))
     gate = (top_gates.reshape(B, T * K) * keep).to(xblk.dtype)
     if split:                   # the ranks' partial outputs meet the gates
@@ -150,7 +161,7 @@ def moe_block_apply_flat(xblk, params, *, n_experts: int, top_k: int,
     y, aux = moe_block_apply(
         xblk.reshape(1, B * T, D), params, n_experts=n_experts, top_k=top_k,
         capacity_factor=capacity_factor, activation=activation,
-        dropless=dropless, tp=tp)
+        dropless=dropless, tp=tp, joint=True)
     return y.reshape(B, T, D), aux
 
 

@@ -140,6 +140,14 @@ def hybrid_structure(cfg: ModelConfig):
     return cfg.block_pattern, n_groups, types[n_groups * period:]
 
 
+def hybrid_layer_names(cfg: ModelConfig) -> Dict[str, Dict[str, str]]:
+    """A hybrid model's layer names under ``groups`` and ``tail``, each to
+    its layer type."""
+    pattern, _, tail = hybrid_structure(cfg)
+    return {"groups": {f"b{i}_{t}": t for i, t in enumerate(pattern)},
+            "tail": {f"t{i}_{t}": t for i, t in enumerate(tail)}}
+
+
 def model_def(cfg: ModelConfig) -> Dict:
     D, V, L = cfg.d_model, cfg.vocab_padded, cfg.n_layers
     out: Dict = {"embed": ParamDef((V, D), ("vocab", None), "normal:0.02"),
@@ -154,11 +162,12 @@ def model_def(cfg: ModelConfig) -> Dict:
         out["enc_norm"] = ParamDef((D,), (None,), "ones")
         return out
     if cfg.block_pattern:
-        pattern, n_groups, tail = hybrid_structure(cfg)
-        group = {f"b{i}_{t}": layer_def(cfg, t) for i, t in enumerate(pattern)}
+        _, n_groups, _ = hybrid_structure(cfg)
+        names = hybrid_layer_names(cfg)
+        group = {n: layer_def(cfg, t) for n, t in names["groups"].items()}
         out["groups"] = tree_map(lambda p: p.stacked(n_groups), group)
-        out["tail"] = {f"t{i}_{t}": layer_def(cfg, t)
-                       for i, t in enumerate(tail)}
+        out["tail"] = {n: layer_def(cfg, t)
+                       for n, t in names["tail"].items()}
         return out
     layer = layer_def(cfg, cfg.layer_types()[0])
     out["layers"] = tree_map(lambda p: p.stacked(L), layer)

@@ -57,17 +57,24 @@ CASES = [
 ]
 DM, PDM = ("data", "model"), ("pod", "data", "model")
 # the spmd step against JAX's GSPMD step: name, arch, mesh shape, axes,
-# fsdp, microbatches, opt_impl
+# fsdp, microbatches, opt_impl, config overrides
 SPMD_CASES = [
-    (f"spmd_{tag}_{name}", arch, shape, axes, fsdp, mb, impl)
+    (f"spmd_{tag}_{name}", arch, shape, axes, fsdp, mb, impl, {})
     for arch, tag in (("llama3-8b", "llama"), ("mixtral-8x22b", "mixtral"))
     for name, shape, axes, fsdp, mb, impl in (
         ("dm", (2, 4), DM, False, 1, "adamw"),
         ("dm_fsdp", (2, 4), DM, True, 1, "adamw"),
         ("pdm", (2, 2, 2), PDM, False, 1, "adamw"))
 ] + [("spmd_llama_dm_fsdp_8bit", "llama3-8b", (2, 4), DM, True, 2,
-      "adamw8bit")]
-SPMD_ARCHS = ("llama3-8b", "mixtral-8x22b")
+      "adamw8bit", {})] + [
+    # a capacity that drops claims: an expert keeps 32 of a block's 128
+    (f"spmd_mixtral_drop_{name}", "mixtral-8x22b", shape, axes, False, 1,
+     "adamw", {"capacity_factor": 1.0})
+    for name, shape, axes in (("dm", (2, 4), DM), ("pdm", (2, 2, 2), PDM))
+] + [(f"spmd_{tag}_dm", arch, (2, 4), DM, False, 1, "adamw", {})
+     for arch, tag in (("recurrentgemma-9b", "hybrid"),
+                       ("seamless-m4t-large-v2", "encdec"))]
+SPMD_ARCHS = sorted({c[1] for c in SPMD_CASES})
 
 JAX_REFERENCE = """
 import pickle, sys
@@ -114,8 +121,8 @@ for name, shape, axes, fsdp, mb, comp, impl in inp["cases"]:
 # the GSPMD step: make_train_step jitted with the mesh's shardings, as
 # launch/dryrun.py's run_cell
 import dataclasses
-for name, arch, shape, axes, fsdp, mb, impl in inp["spmd_cases"]:
-    c = reduced_config(REGISTRY[arch])
+for name, arch, shape, axes, fsdp, mb, impl, over in inp["spmd_cases"]:
+    c = dataclasses.replace(reduced_config(REGISTRY[arch]), **over)
     if "pod" in axes:
         c = dataclasses.replace(c, batch_axes=("pod", "data"))
     p0 = jax.tree.map(jnp.asarray, inp["spmd_params"][arch])
@@ -133,7 +140,7 @@ for name, arch, shape, axes, fsdp, mb, impl in inp["spmd_cases"]:
     s = jax.device_put(init(p0), osh)
     losses, norms = [], []
     with mesh:
-        for b in inp["batches"]:
+        for b in inp["spmd_batches"][arch]:
             p, s, m = step(p, s, jax.device_put(b, bsh))
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
@@ -206,6 +213,14 @@ def runs(tmp_path_factory):
         batches.append({"tokens": blk[:, :-1], "targets": blk[:, 1:],
                         "mask": (rng.random((B, S)) < 0.9).astype(
                             np.float32)})
+    # the encoder-decoder's: S // 2 source frames and S // 2 target tokens
+    # of the same rows, as make_batch cuts them
+    src = [(rng.standard_normal((B, S // 2, 64)) * 0.02).astype(np.float32)
+           for _ in range(STEPS)]
+    spmd_batches = {a: [dict({k: v[:, :S // 2] for k, v in b.items()},
+                             frame_embeds=f) for b, f in zip(batches, src)]
+                    if T_REGISTRY[a].family == "encdec" else batches
+                    for a in SPMD_ARCHS}
     files = write_corpus_shards(str(tmp / "data"),
                                 SyntheticCorpus(cfg.vocab, seed=3),
                                 n_shards=2, tokens_per_shard=20000)
@@ -213,6 +228,7 @@ def runs(tmp_path_factory):
                       opt=TRAINER_OPT)
     inp = dict(arch=ARCH, params=params, batches=batches, opt=OPT,
                cases=CASES, spmd_cases=SPMD_CASES, spmd_params=spmd_params,
+               spmd_batches=spmd_batches,
                ckpt=str(tmp / "jax_ckpt"),
                trainer_opt=TRAINER_OPT, **{k: v for k, v in trainer_kw.items()
                                            if k != "opt"})
@@ -230,7 +246,8 @@ def runs(tmp_path_factory):
                              params=params, batches=batches, cases=CASES,
                              opt=OPT, trainer=dict(trainer_kw, ckpt_dir=str(
                                  tmp / "port_ckpt")), spmd_cases=SPMD_CASES,
-                             spmd_params=spmd_params, pod_trainer=dict(
+                             spmd_params=spmd_params,
+                             spmd_batches=spmd_batches, pod_trainer=dict(
                                  files=files, seq=16, batch=8,
                                  opt=TRAINER_OPT,
                                  ckpt_dir=str(tmp / "pod_ckpt")))
@@ -282,8 +299,14 @@ def test_spmd_step_matches_jax(runs, case):
     ``make_train_step``: losses, grad norms and every rank's parameters
     after 3 steps, to the smap step's tolerances, on reduced llama3-8b and
     mixtral-8x22b — (data 2, model 4) with and without FSDP, (pod 2, data
-    2, model 2), and FSDP with 2 microbatches and 8-bit moments.  On the
-    4-wide model axis each rank holds one query head and reads the one
+    2, model 2), and FSDP with 2 microbatches and 8-bit moments; reduced
+    mixtral-8x22b at capacity factor 1.0, which drops claims, on (data 2,
+    model 4) and (pod 2, data 2, model 2) (a rank's claims take their
+    slots after the lower batch shards', against the global capacity);
+    reduced recurrentgemma-9b (split attention beside gathered rec
+    layers) and seamless-m4t-large-v2 (gathered encoder and decoder
+    layers beside the split embedding and head) on (data 2, model 4).  On
+    the 4-wide model axis each rank holds one query head and reads the one
     replicated kv head, an ``ff`` slice of 32 and a vocabulary slice of
     128; the batch is cut over every batch axis."""
     port, ref = runs

@@ -78,12 +78,14 @@ def _tree_np(tree):
 
 
 def mesh_steps(rank, *, arch, params, batches, shape, axes, fsdp,
-               microbatches, compress_pod, opt_impl, opt, impl="smap"):
+               microbatches, compress_pod, opt_impl, opt, impl="smap",
+               over=None):
     """``make_train_step_smap`` (``impl="smap"``) or
     ``make_train_step_spmd`` ("spmd") for ``len(batches)`` steps from the
     whole parameters ``params`` (numpy), every rank on the same global
     batches; returns the losses, grad norms and this rank's gathered
-    parameters."""
+    parameters.  ``over``: overrides of the reduced config."""
+    import dataclasses
     import torch
     from repro_torch.configs import REGISTRY, reduced_config
     from repro_torch.launch import sharding as sh
@@ -94,7 +96,7 @@ def mesh_steps(rank, *, arch, params, batches, shape, axes, fsdp,
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
     from repro_torch.optim.quantized import init_opt_state_8bit
 
-    cfg = reduced_config(REGISTRY[arch])
+    cfg = dataclasses.replace(reduced_config(REGISTRY[arch]), **(over or {}))
     mesh = Mesh(np.arange(int(np.prod(shape))).reshape(shape), axes)
     pspecs = sh.param_specs(cfg, mesh, fsdp=fsdp)
     psh = sh.named(mesh, pspecs)
@@ -316,7 +318,7 @@ def trainer_rows(rank, *, arch, params, files, ckpt_dir, seq, batch,
 
 
 def dist_scenarios(rank, *, arch, params, batches, cases, opt, trainer,
-                   spmd_cases, spmd_params, pod_trainer):
+                   spmd_cases, spmd_params, spmd_batches, pod_trainer):
     """Every scenario of ``test_torch_distributed.py`` in one spawn: each
     smap case of ``cases`` and each spmd case of ``spmd_cases`` (keyed by
     its name; ``spmd_params`` by architecture), the tensor-parallel
@@ -327,12 +329,12 @@ def dist_scenarios(rank, *, arch, params, batches, cases, opt, trainer,
                                batches=batches, shape=shape, axes=axes,
                                fsdp=fsdp, microbatches=mb,
                                compress_pod=comp, opt_impl=impl, opt=opt)
-    for name, a, shape, axes, fsdp, mb, impl in spmd_cases:
+    for name, a, shape, axes, fsdp, mb, impl, over in spmd_cases:
         out[name] = mesh_steps(rank, arch=a, params=spmd_params[a],
-                               batches=batches, shape=shape, axes=axes,
-                               fsdp=fsdp, microbatches=mb,
+                               batches=spmd_batches[a], shape=shape,
+                               axes=axes, fsdp=fsdp, microbatches=mb,
                                compress_pod=False, opt_impl=impl, opt=opt,
-                               impl="spmd")
+                               impl="spmd", over=over)
     out["tp_pieces"] = tp_pieces(rank, arch=arch, seed=11)
     out["trainer"] = trainer_relayout(rank, arch=arch, params=params,
                                       **trainer)
