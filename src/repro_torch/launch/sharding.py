@@ -18,11 +18,11 @@ slice its spec gives it: a dim sharded over axes ``(a, b)`` is cut into
 does not divide raises).  ``gather`` puts a leaf back together from the
 ranks that hold its parts; ``gather_on_use`` does so inside the
 differentiated region, and its backward sums the gradient over the batch
-axes (the ranks that saw other rows) and keeps this rank's slice.  On the
-``model`` axis the port gathers the weights and repeats the compute on
-every rank of the axis — it does not split the matmuls (no
-tensor-parallel compute), so its numerics equal GSPMD's up to the order of
-reductions.  ``RowGroup`` reduces a row maximum across the ranks a
+axes (the ranks that saw other rows) and keeps this rank's slice.  Where
+a leaf is gathered along ``model`` (every leaf in the smap step; the
+layers that ``launch.steps.make_train_step_spmd`` does not split) every
+rank of the axis repeats the compute, so the numerics equal GSPMD's up
+to the order of reductions.  ``RowGroup`` reduces a row maximum across the ranks a
 sharded last axis spreads it over: the 8-bit moments' and the int8
 compression's per-row scales.
 """
