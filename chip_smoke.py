@@ -779,6 +779,16 @@ FLASH_GEOMETRIES = [
     # a 64-row tile)
     ("tp_g2_s4096", 2, 4096, 4096, 2, 1, 128, True, 0),
     ("tp_g3_s4096", 2, 4096, 4096, 3, 1, 128, True, 0),
+    # and on the same axis recurrentgemma-9b's local attention (1 of the
+    # 16 query heads over the one kv head, dh 256, window 2048) and
+    # seamless-m4t-large-v2's (1 of 16 heads over its own kv head, dh 64,
+    # 2048 source frames and 2048 target tokens a row): the encoder's
+    # non-causal self-attention — the decoder's cross-attention has its
+    # shape at this cell, where the two lengths are equal — and the
+    # decoder's causal one
+    ("tp_hybrid_g1_s4096", 2, 4096, 4096, 1, 1, 256, True, 2048),
+    ("tp_encdec_enc_s2048", 2, 2048, 2048, 1, 1, 64, False, 0),
+    ("tp_encdec_dec_s2048", 2, 2048, 2048, 1, 1, 64, True, 0),
 ]
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/"
 # the plain versions hold several (B, Hq, S, S) float32 score tensors at
@@ -1104,6 +1114,10 @@ SSD_GEOMETRIES = [
     ("eager_prefill_s148", 1, 148, 48, 64, 1, 128, 148),
     ("eager_prefill_s230", 1, 230, 48, 64, 1, 128, 230),
     ("eager_prefill_s512", 1, 512, 48, 64, 1, 128, 256),
+    # the spmd train step's local heads on a 16-wide model axis at the
+    # train_4k cell's microbatch (B=2, S=4096): mamba2-780m's 3 of 48
+    # heads over its one group
+    ("tp_h3_s4096", 2, 4096, 3, 64, 1, 128, 256),
 ]
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/"
 # the bf16 (tensor-core) route at the training shape: its float32 operands
@@ -1227,9 +1241,54 @@ def phase_ssd_kernel(torch):
             elif name.startswith("eager_prefill") and dtype == "bfloat16":
                 key = "eager_prefill_max_abs_err"
                 row[key] = max(row.get(key, 0.0), err)
+            elif name.startswith("tp_"):
+                key = "tp_max_abs_err" if dtype == "bfloat16" \
+                    else "tp_f32_max_abs_err"
+                row[key] = max(row.get(key, 0.0), err)
             del xdt, a, Bh, Ch, y, h, want_y, want_h
+    row["tp_bc_loads"] = ssd_rank_local(torch, ops)
     row.update(ssd_timing(torch, ops, ref, *ssd_main_geometry()[1:]))
     return row
+
+
+def ssd_rank_local(torch, ops):
+    """The spmd step's rank-local ``ssd_with_state`` call at the
+    ``tp_h3_s4096`` shape, bf16: B and C come out of a gather (the ranks'
+    channel slices concatenated: new tensors, as ``all_gather`` makes
+    them); the load width ``ops.ssd_bc_loads`` chose for them is printed
+    and must be TMA's (0).  Returns it."""
+    _, Bb, S, H, P, G, N, chunk = next(g for g in SSD_GEOMETRIES
+                                       if g[0] == "tp_h3_s4096")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(Bb, S, H, P, generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    dt = torch.rand(Bb, S, H, generator=gen, device="cuda") * 0.1
+    A = -torch.rand(H, generator=gen, device="cuda")
+    parts = 16       # the model axis's ranks, G*N / 16 channels each
+    bc = [torch.cat([torch.randn(Bb, S, G * N // parts, generator=gen,
+                                 device="cuda").to(torch.bfloat16)
+                     for _ in range(parts)], dim=-1).reshape(Bb, S, G, N)
+          for _ in range(2)]
+    seen, loads = [], ops.ssd_bc_loads
+
+    def spy(n, ptrs):
+        seen.append(loads(n, ptrs))
+        return seen[-1]
+    ops.ssd_bc_loads = spy
+    try:
+        w0 = ops.ssd_scan.wgmma_launches
+        ops.ssd_with_state(x, dt, A, *bc, chunk)
+        torch.cuda.synchronize()
+    finally:
+        ops.ssd_bc_loads = loads
+    route = "TMA" if seen == [0] else f"plain loads of {seen} elements"
+    log(f"[ssd] rank-local ssd_with_state B={Bb} S={S} H={H} (of 48) P={P} "
+        f"G={G} N={N} chunk={chunk}, bf16 B/C gathered from {parts} channel "
+        f"slices: {ops.ssd_scan.wgmma_launches - w0} tensor-core launch, "
+        f"B/C loads {route}")
+    if seen != [0] or ops.ssd_scan.wgmma_launches != w0 + 1:
+        raise AssertionError(f"the rank-local SSD call's B/C took {route}")
+    return seen[0]
 
 
 def ssd_timing(torch, ops, ref, B, S, H, P, G, N, chunk):
@@ -1344,6 +1403,10 @@ LRU_GEOMETRIES = [
     # many-chunk route (S > 64)
     ("eager_prefill_s96", 1, 96, 4096), ("eager_prefill_s148", 1, 148, 4096),
     ("eager_prefill_s400", 1, 400, 4096),
+    # the spmd train step's local channels on a 16-wide model axis at the
+    # train_4k cell's microbatch: recurrentgemma-9b's 256 of 4096, forward
+    # and fused VJP
+    ("tp_w256_s4096", 2, 4096, 256),
 ]
 LRU_SOURCE = "src/repro_torch/kernels/rglru_scan/csrc/lru_scan.cu"
 
@@ -1422,23 +1485,25 @@ def phase_lru_kernel(torch):
                     f"{LRU_TOL} * |plain|)")
                 if name == "main_path":
                     worst = max(worst, err)
-                elif name.startswith("eager_prefill"):
-                    key = "eager_prefill_max_abs_err"
+                elif name.startswith(("eager_prefill", "tp_")):
+                    key = ("tp_max_abs_err" if name.startswith("tp_")
+                           else "eager_prefill_max_abs_err")
                     row[key] = max(row.get(key, 0.0), err)
     row["max_abs_err"] = worst
-    # the fused VJP against its plain version, and the kernel's arithmetic
-    # in plain PyTorch against the kernel, at the training shape
-    _, B, S, W = lru_main_geometry()
-    a, g, h = lru_vjp_inputs(torch, B, S, W, seed=5)
-    da, db = ops._lru_vjp(a, g, h)
-    torch.cuda.synchronize()
-    want_da, want_db = ref.lru_vjp_plain(a, g, h)
-    row["bwd_max_abs_err"] = max_err(torch, [("da", da, want_da),
-                                             ("db", db, want_db)],
-                                     LRU_GRAD_TOL, "lru fused VJP")
-    log(f"[lru] fused VJP B={B} S={S} W={W}: max_abs_err="
-        f"{row['bwd_max_abs_err']:.3e} (tol {LRU_GRAD_TOL} + {LRU_GRAD_TOL}"
-        " * |plain|)")
+    # the fused VJP against its plain version at the spmd step's rank
+    # shape and the training shape, and the kernel's arithmetic in plain
+    # PyTorch against the kernel at the training shape
+    for key, (_, B, S, W) in (("tp_bwd_max_abs_err", next(
+            g for g in LRU_GEOMETRIES if g[0] == "tp_w256_s4096")),
+                              ("bwd_max_abs_err", lru_main_geometry())):
+        a, g, h = lru_vjp_inputs(torch, B, S, W, seed=5)
+        da, db = ops._lru_vjp(a, g, h)
+        torch.cuda.synchronize()
+        want_da, want_db = ref.lru_vjp_plain(a, g, h)
+        row[key] = max_err(torch, [("da", da, want_da), ("db", db, want_db)],
+                           LRU_GRAD_TOL, "lru fused VJP")
+        log(f"[lru] fused VJP B={B} S={S} W={W}: max_abs_err={row[key]:.3e} "
+            f"(tol {LRU_GRAD_TOL} + {LRU_GRAD_TOL} * |plain|)")
     pa, pb = lru_unfused_bwd(torch, ops)(a, g, h)
     if not (torch.equal(db, pb) and torch.equal(da, pa)):
         raise AssertionError("lru: the fused VJP differs from the unfused "
@@ -3934,7 +3999,8 @@ def phase_dist(torch, rows):
 # each from the same weights in turn (two copies of the state do not fit
 # the card beside remat "none"'s activations); bf16 — the two are the same
 # operations on one rank (the vocabulary-parallel log-sum-exp is
-# torch.logsumexp's, a collective over one rank a copy), so they differ
+# torch.logsumexp's, a collective over one rank a copy; the split blocks'
+# gradients add up in the unsplit order), so they differ
 # only where the card's kernels are not deterministic: losses within 1e-4
 # and grad norms within 1e-3 (relative), every parameter within 2.5
 # learning rates (an entry that took another update in one step) and at
@@ -3942,38 +4008,57 @@ def phase_dist(torch, rows):
 SPMD_STEPS = 2
 SPMD_LOSS_RTOL, SPMD_NORM_RTOL = 1e-4, 1e-3
 SPMD_PARAM_LRS, SPMD_PARAM_OFF = 2.5, 1e-3
+# then the families whose layers the spmd step splits beside attention, at
+# full width and the train_4k cell's microbatch (B=2, S=4096; the hybrid
+# B=1, as phase 7), the depth cut (the hybrid to one (rec, rec, attn)
+# group and one tail rec layer): name, arch, config overrides, B, target
+# tokens, source frames (the encoder-decoder's, longer than its target as
+# in speech translation, so that cross-attention has Sq != Skv)
+SPMD_FAMILY_CELLS = [
+    ("ssm", "mamba2-780m", {"n_layers": 12}, 2, 4096, 0),
+    ("hybrid", "recurrentgemma-9b", {"n_layers": 4}, 1, 4096, 0),
+    ("encdec", "seamless-m4t-large-v2", {"enc_layers": 4, "dec_layers": 4},
+     2, 1024, 2048),
+]
 
 
-def phase_spmd_cell(torch, rows, mesh):
-    """Phase 15 (e): ``make_train_step_spmd`` on the (1, 1) mesh of an NCCL
-    process group of one rank, at phase 4's cell (llama3.2-3b at full
-    width and depth, bf16, B=2, S=2048, remat "none"), against
-    ``make_train_step`` for ``SPMD_STEPS`` steps from the same seeded
-    weights.  The flash kernels' counts are set to 0 just before the spmd
-    steps and read just after: each must have launched."""
-    import dataclasses
-    from repro_torch.configs import REGISTRY
-    from repro_torch.kernels.flash_attention import ops
+def spmd_kernel_counts(torch, cfg):
+    """The kernel wrappers the spmd step of ``cfg`` must launch and how
+    often a step (remat "none"): the SSD scan once a layer (its backward
+    recomputes through ``ssd_chunked``), the LRU scan twice a rec layer
+    (the forward and the fused VJP), each flash kernel once an attention
+    block (self-, encoder and cross-attention)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru_scan import ops as lru
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    types = cfg.layer_types() if cfg.family != "encdec" else []
+    blocks = types.count("attn") + cfg.enc_layers + 2 * cfg.dec_layers
+    want = {"ssd_scan": (ssd.ssd_scan, types.count("ssd")),
+            "lru_scan": (lru.lru_scan, 2 * types.count("rec")),
+            "flash_attention_fwd": (fa.flash_attention, blocks),
+            "flash_attention_bwd": (fa.flash_attention_bwd, blocks)}
+    return {k: v for k, v in want.items() if v[1]}
+
+
+def spmd_pair(torch, mesh, cfg, batches):
+    """``make_train_step`` and then ``make_train_step_spmd`` on ``mesh``
+    for the ``batches`` from the same seeded weights (bf16, AdamW with one
+    warm-up step): name -> (the (loss, grad norm) of each step, the
+    parameters on the host, seconds a step, launches of each kernel of
+    ``spmd_kernel_counts``, peak GiB).  The counts are set to 0 just
+    before each run's steps and read just after."""
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.steps import make_train_step, make_train_step_spmd
-    from repro_torch.models.params import init_params, n_params
+    from repro_torch.models.params import init_params
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
-    t0 = time.perf_counter()
-    cfg = dataclasses.replace(REGISTRY[TRAIN_ARCH], remat=TRAIN_REMAT)
     opt_cfg = AdamWConfig(warmup_steps=1)
     gen = torch.Generator(device="cuda").manual_seed(0)
     host = _tree_apply(lambda t: t.cpu(),
                        init_params(cfg, gen, device="cuda"))
-    g = torch.Generator().manual_seed(4)
-    batches = []
-    for _ in range(SPMD_STEPS):
-        blk = torch.randint(2, cfg.vocab, (TRAIN_B, TRAIN_S + 1), generator=g,
-                            dtype=torch.int32)
-        batches.append({"tokens": blk[:, :-1].cuda(),
-                        "targets": blk[:, 1:].cuda(),
-                        "mask": torch.ones(TRAIN_B, TRAIN_S, device="cuda")})
+    free_card(torch)
     pspecs = sh.param_specs(cfg, mesh)
+    kernels = spmd_kernel_counts(torch, cfg)
     runs = {}
     for name in ("make_train_step", "make_train_step_spmd"):
         params = _to_device(host, "cuda")
@@ -3981,10 +4066,11 @@ def phase_spmd_cell(torch, rows, mesh):
         step = make_train_step(cfg, opt_cfg) if name == "make_train_step" \
             else make_train_step_spmd(cfg, opt_cfg, mesh, pspecs,
                                       sh.batch_specs(cfg, None, mesh))
-        fns = (ops.flash_attention, ops.flash_attention_bwd)
         torch.cuda.reset_peak_memory_stats()
-        for fn in fns:
-            fn.launches = fn.wgmma_launches = 0
+        for fn, _ in kernels.values():
+            fn.launches = 0
+            if hasattr(fn, "wgmma_launches"):
+                fn.wgmma_launches = 0
         out, secs = [], []
         for b in batches:
             torch.cuda.synchronize()
@@ -3993,14 +4079,20 @@ def phase_spmd_cell(torch, rows, mesh):
             out.append((float(m["loss"]), float(m["grad_norm"])))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t)
-        launches = [fn.launches for fn in fns]
+        launches = {k: fn.launches for k, (fn, _) in kernels.items()}
         runs[name] = (out, _tree_apply(lambda t: t.cpu(), params), secs,
                       launches, torch.cuda.max_memory_allocated() / 2**30)
         del params, opt, step
         free_card(torch)
-    (ref, pref, ref_secs, _, ref_peak), (got, pgot, secs, launches, peak) = \
-        runs["make_train_step"], runs["make_train_step_spmd"]
-    lr = opt_cfg.peak_lr
+    return runs, opt_cfg.peak_lr
+
+
+def spmd_held(runs, lr):
+    """The spmd run against make_train_step's: (loss rel err, grad norm
+    rel err, params max abs err, entries that differ, entries), and
+    whether they are within the ``SPMD_*`` tolerances."""
+    (ref, pref, *_), (got, pgot, *_) = runs["make_train_step"], \
+        runs["make_train_step_spmd"]
     worst = off = total = 0
     for a, b in zip(_tree_leaves(pref), _tree_leaves(pgot)):
         d = (a.cuda().float() - b.cuda().float()).abs()
@@ -4009,27 +4101,80 @@ def phase_spmd_cell(torch, rows, mesh):
         total += d.numel()
     lerr = max(abs(a[0] - b[0]) / abs(a[0]) for a, b in zip(ref, got))
     nerr = max(abs(a[1] - b[1]) / abs(a[1]) for a, b in zip(ref, got))
-    want = cfg.n_layers * SPMD_STEPS
-    log(f"[spmd] make_train_step_spmd on NCCL world 1, mesh {mesh.shape}, "
-        f"phase 4's cell ({cfg.name}, {n_params(cfg)} params bf16, B="
-        f"{TRAIN_B} S={TRAIN_S} remat={cfg.remat}), {SPMD_STEPS} steps "
-        f"against make_train_step: (loss, grad norm) {got} against {ref}: "
-        f"rel err {lerr:.3e} (tol {SPMD_LOSS_RTOL}) and {nerr:.3e} (tol "
-        f"{SPMD_NORM_RTOL}); params max abs err {worst:.3e} (tol "
-        f"{SPMD_PARAM_LRS * lr:.3e}), {off} of {total} entries differ (tol "
-        f"{SPMD_PARAM_OFF}); flash launches (fwd, bwd) {launches} (want "
-        f"{want} each); seconds a step {secs} against {ref_secs}; peak "
-        f"{peak:.3f} GiB against {ref_peak:.3f}; "
-        f"{time.perf_counter() - t0:.1f} s")
-    if launches != [want, want]:
-        raise AssertionError(f"the spmd step's flash launches {launches}, "
-                             f"expected {want} each")
-    if (lerr > SPMD_LOSS_RTOL or nerr > SPMD_NORM_RTOL
-            or worst > SPMD_PARAM_LRS * lr or off > SPMD_PARAM_OFF * total):
-        raise AssertionError("the spmd step differs from make_train_step on "
-                             "phase 4's cell")
-    rows[1]["spmd_launches"], rows[2]["spmd_launches"] = launches
-    rows[1]["spmd_step_s"] = secs
+    ok = (lerr <= SPMD_LOSS_RTOL and nerr <= SPMD_NORM_RTOL
+          and worst <= SPMD_PARAM_LRS * lr and off <= SPMD_PARAM_OFF * total)
+    return (lerr, nerr, worst, off, total), ok
+
+
+def phase_spmd_cell(torch, rows, mesh):
+    """Phase 15 (e): ``make_train_step_spmd`` on the (1, 1) mesh of an NCCL
+    process group of one rank, at phase 4's cell (llama3.2-3b at full
+    width and depth, bf16, B=2, S=2048, remat "none"), against
+    ``make_train_step`` for ``SPMD_STEPS`` steps from the same seeded
+    weights; then the same on ``SPMD_FAMILY_CELLS`` (mamba2-780m,
+    recurrentgemma-9b and seamless-m4t-large-v2 at full width), whose
+    SSD, rec, encoder and decoder layers the step splits too (on one rank
+    each split is the whole).  Each kernel's count is set to 0 just before
+    the spmd steps and read just after: each must have launched as often
+    as its layers call it (``spmd_kernel_counts``)."""
+    import dataclasses
+    from repro_torch.configs import REGISTRY
+    from repro_torch.models.params import n_params
+
+    failed = []
+    cells = [("dense", TRAIN_ARCH, {"remat": TRAIN_REMAT}, TRAIN_B, TRAIN_S,
+              0)] + SPMD_FAMILY_CELLS
+    for tag, arch, over, B, S, src in cells:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(REGISTRY[arch], **dict(
+            {"remat": "none"}, **over))
+        g = torch.Generator().manual_seed(4)
+        batches = []
+        for _ in range(SPMD_STEPS):
+            blk = torch.randint(2, cfg.vocab, (B, S + 1), generator=g,
+                                dtype=torch.int32)
+            b = {"tokens": blk[:, :-1].cuda(), "targets": blk[:, 1:].cuda(),
+                 "mask": torch.ones(B, S, device="cuda")}
+            if src:
+                b["frame_embeds"] = (torch.randn(B, src, cfg.d_model,
+                                                 generator=g) * 0.02).cuda()
+            batches.append(b)
+        runs, lr = spmd_pair(torch, mesh, cfg, batches)
+        (lerr, nerr, worst, off, total), ok = spmd_held(runs, lr)
+        ref, _, ref_secs, _, ref_peak = runs["make_train_step"]
+        got, _, secs, launches, peak = runs["make_train_step_spmd"]
+        want = {k: n * SPMD_STEPS
+                for k, (_, n) in spmd_kernel_counts(torch, cfg).items()}
+        depth = ((cfg.enc_layers, cfg.dec_layers) if src else cfg.n_layers)
+        shape = (f"B={B} S={S}" + (f" source frames {src}" if src else "")
+                 + f" layers {depth}")
+        log(f"[spmd] make_train_step_spmd on NCCL world 1, mesh {mesh.shape}"
+            f", {cfg.name} ({n_params(cfg)} params bf16, {shape}, remat="
+            f"{cfg.remat}), {SPMD_STEPS} steps against make_train_step: "
+            f"(loss, grad norm) {got} against {ref}: rel err {lerr:.3e} (tol "
+            f"{SPMD_LOSS_RTOL}) and {nerr:.3e} (tol {SPMD_NORM_RTOL}); params "
+            f"max abs err {worst:.3e} (tol {SPMD_PARAM_LRS * lr:.3e}), {off} "
+            f"of {total} entries differ (tol {SPMD_PARAM_OFF}); launches "
+            f"{launches} (want {want}); "
+            f"seconds a step {secs} against {ref_secs}; peak {peak:.3f} GiB "
+            f"against {ref_peak:.3f}; {time.perf_counter() - t0:.1f} s")
+        if launches != want:
+            failed.append(f"{cfg.name}: the spmd step's launches {launches}, "
+                          f"expected {want}")
+        if not ok:
+            failed.append(f"{cfg.name}: the spmd step differs from "
+                          "make_train_step")
+        if tag == "dense":
+            rows[1]["spmd_launches"] = launches["flash_attention_fwd"]
+            rows[2]["spmd_launches"] = launches["flash_attention_bwd"]
+            rows[1]["spmd_step_s"] = secs
+        else:
+            for k, n in launches.items():
+                row = {"flash_attention_fwd": 1, "flash_attention_bwd": 2,
+                       "ssd_scan": 3, "lru_scan": 4}[k]
+                rows[row][f"spmd_{tag}_launches"] = n
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 DIST_ARCH = "llama3-8b"

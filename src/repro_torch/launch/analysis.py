@@ -194,7 +194,7 @@ def layer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
         return LayerCost(flops, bts, flops - kf, kf)
 
     split, shape_of = None, None
-    if tp and ltype in tp_layer_types(cfg):
+    if tp and ltype in tp_layer_types(cfg, mesh):
         split, shape_of = tensor_parallel(cfg, mesh), \
             _model_shard_shape(cfg, mesh)
 
@@ -222,8 +222,9 @@ def layer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
 
 
 def _decoder_layer_cost(cfg, shape, mesh, *, fsdp, train,
-                        device="cuda") -> LayerCost:
-    """Enc-dec decoder layer (self + cross + ffn)."""
+                        device="cuda", tp=False) -> LayerCost:
+    """Enc-dec decoder layer (self + cross + ffn); ``tp`` as
+    ``layer_cost``'s."""
     if shape.is_decode:
         return layer_cost(cfg, shape, mesh, fsdp=fsdp, ltype="dec",
                           train=False, device=device)
@@ -233,14 +234,18 @@ def _decoder_layer_cost(cfg, shape, mesh, *, fsdp, train,
     S_t, S_src = seq_split(cfg, shape.seq_len)
     specs, ldef = _leaf_specs_for_layer(cfg, mesh, fsdp, "dec")
     rope_of = [None]
+    split, shape_of = None, None
+    if tp:
+        split, shape_of = tensor_parallel(cfg, mesh), \
+            _model_shard_shape(cfg, mesh)
 
     def body(x, lp, enc_out):
-        return T._dec_layer(x, lp, cfg, rope_of[0], enc_out)[0]
+        return T._dec_layer(x, lp, cfg, rope_of[0], enc_out, split)[0]
 
     def args():
         rope_of[0] = _rope(cfg, B, S_t, dev)
         return (_fake((B, S_t, cfg.d_model), cdt, dev, train),
-                _layer_params(cfg, "dec", dev, train),
+                _layer_params(cfg, "dec", dev, train, shape_of),
                 _fake((B, S_t, cfg.d_model), cdt, dev),
                 _fake((B, S_src, cfg.d_model), cdt, dev, train))
 
@@ -337,11 +342,12 @@ def decomposed_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     for (lt, hybrid), n in counts.items():
         if lt == "dec":
             lc = _decoder_layer_cost(cfg, shape, mesh, fsdp=fsdp, train=train,
-                                     device=device)
+                                     device=device, tp=tp and train)
         elif lt == "enc" and not shape.is_decode:
             _, ss = seq_split(cfg, shape.seq_len)
             lc = layer_cost(cfg, shape, mesh, fsdp=fsdp, ltype="enc",
-                            train=train, seq_len=ss, device=device)
+                            train=train, seq_len=ss, device=device,
+                            tp=tp and train)
         elif lt == "enc" and shape.is_decode:
             continue  # encoder not run at decode
         else:

@@ -337,11 +337,15 @@ def make_train_step_smap(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
     return _with_ef(train_step, ef_transform)
 
 
-def tp_layer_types(cfg: ModelConfig):
-    """The layer types ``make_train_step_spmd`` splits over "model"
-    ("attn": the dense, VLM and MoE families' layers and a hybrid's
-    attention layers); the others gather their leaves on use."""
-    return ("attn",) if cfg.family != "encdec" else ()
+def tp_layer_types(cfg: ModelConfig, mesh):
+    """The layer types ``make_train_step_spmd`` splits over "model" on
+    ``mesh``: every type, each block cutting the axes that ``axis_rules``
+    puts on "model" and computing the others whole — but an SSD layer
+    only where its heads are cut (``d_inner`` and ``ssd_bc`` may divide
+    where the heads do not: its leaves are then gathered on use and the
+    block computes whole, as the smap step's)."""
+    heads = sh.axis_rules(cfg, mesh, fsdp=False)["ssd_heads"] == "model"
+    return ("attn", "rec", "enc", "dec") + (("ssd",) if heads else ())
 
 
 def tensor_parallel(cfg: ModelConfig, mesh):
@@ -355,13 +359,13 @@ def tensor_parallel(cfg: ModelConfig, mesh):
                           [a for a in sh.BATCH_AXES if a in mesh.axis_names])
 
 
-def _by_split(cfg: ModelConfig, pspecs, fn):
+def _by_split(cfg: ModelConfig, mesh, pspecs, fn):
     """A tree like ``pspecs``: ``fn(specs, split)`` of each layer's specs
     (a stacked subtree's without the layer axis) and of each other
     top-level entry, ``split`` whether ``make_train_step_spmd`` computes
     it on the rank's model shards — the embedding, the head and the
     layers of ``tp_layer_types``."""
-    split = tp_layer_types(cfg)
+    split = tp_layer_types(cfg, mesh)
 
     def unstack(tree):
         return tree_map(lambda s: sh.P(*s[1:]), tree)
@@ -375,8 +379,8 @@ def _by_split(cfg: ModelConfig, pspecs, fn):
             out[key] = {n: fn(unstack(v) if key == "groups" else v,
                               types[n] in split)
                         for n, v in sub.items()}
-        elif key in STACKED:
-            out[key] = fn(unstack(sub), False)
+        elif key in STACKED:              # the encoder's and decoder's
+            out[key] = fn(unstack(sub), key[:3] in split)
         else:
             out[key] = fn(sub, key in ("embed", "head"))
     return out
@@ -391,23 +395,24 @@ def spmd_gathers(cfg: ModelConfig, mesh, pspecs):
         return tree_map(lambda s: functools.partial(
             sh.gather_on_use, sharding=sh.NamedSharding(
                 mesh, sh.batch_only(s) if split else s)), specs)
-    return _by_split(cfg, pspecs, gathers)
+    return _by_split(cfg, mesh, pspecs, gathers)
 
 
 def _partial_over_model(cfg: ModelConfig, mesh, pspecs):
     """A tree of bools like ``pspecs``: the leaves whose gradient a rank of
     the spmd step holds only its part of, to be summed over "model" — a
-    replicated ``wk`` / ``wv`` of a split attention layer, of which the
-    rank reads its query heads' kv heads."""
+    replicated ``wk`` / ``wv`` of a split attention layer's self- or
+    cross-attention, of which the rank reads its query heads' kv heads."""
     rules = sh.axis_rules(cfg, mesh, fsdp=False)
     partial = rules["heads"] == "model" and rules["kv_heads"] is None
 
     def mark(specs, split):
         out = tree_map(lambda s: False, specs)
-        if split and partial and "attn" in specs:
-            out["attn"].update(wk=True, wv=True)
+        for key in ("attn", "cross"):
+            if split and partial and key in specs:
+                out[key].update(wk=True, wv=True)
         return out
-    return _by_split(cfg, pspecs, mark)
+    return _by_split(cfg, mesh, pspecs, mark)
 
 
 def make_train_step_spmd(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
@@ -432,17 +437,19 @@ def make_train_step_spmd(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
       summed over the batch axes once a step, not averaged.
     * Tensor-parallel compute on "model" (``TensorParallel``): the
       embedding, the vocabulary-parallel head and loss, and the layers of
-      ``tp_layer_types`` compute on the rank's model shards (attention
-      heads, ``ff`` slices of the MLP and the experts; a leaf the specs
-      leave whole is computed with on every rank).  The leaves of the
-      other layer types (``ssd``, ``rec``, the encoder-decoder's stacks)
-      are gathered on use over "model" as in the smap step.
+      ``tp_layer_types`` — every type — compute on the rank's model
+      shards: attention heads (the encoder's, the decoder's self- and
+      cross-attention), ``ff`` slices of the MLP and the experts, the
+      SSD's heads (its B and C gathered), the RG-LRU's channels; a leaf
+      the specs leave whole is computed with on every rank.  Only an SSD
+      layer whose heads the axis does not divide gathers its leaves on
+      use over "model", as the smap step does.
     * FSDP: a leaf sharded over "data" is gathered on use over "data"
       (``spmd_gathers``; the stacked layers' inside the recomputed
       region), its gradient summed over "data" and sliced by the gather's
       backward, then summed over "pod".  Every other gradient is summed
       over the batch axes, a replicated ``wk`` / ``wv`` of a split
-      attention layer also over "model" (``_partial_over_model``); a
+      attention also over "model" (``_partial_over_model``); a
       model-sharded leaf's stays the rank's slice.
     * The rest is ``_sharded_update``'s (``ef_transform``, the global
       gradient norm, ZeRO-1 moments and the 8-bit row scales).

@@ -9,7 +9,12 @@ Recurrence (per channel):
 
 * ``rglru_block_apply``: the full-sequence block (training forward).  Its
   scan always goes through ``ops.lru`` — the CUDA kernel on the card, its
-  plain version on the CPU; ``cfg.use_pallas`` is not read.
+  plain version on the CPU; ``cfg.use_pallas`` is not read.  With ``tp``
+  (the spmd train step), where the specs cut ``lru`` over the model axis,
+  a rank computes its channels: ``w_gate`` / ``w_in`` column-parallel,
+  the conv on its channels, the gates from the whole conv output
+  (gathered: ``w_a`` / ``w_x`` are column slices that read all of it),
+  the scan on its channels, ``w_out`` row-parallel.
 * ``rglru_init_state``, ``rglru_chunk_step`` and ``rglru_decode_step``:
   the serving steps from a carried state.  The chunk step's scan from the
   carried ``h`` is ``ops.lru_scan`` with ``h0`` — the function the JAX
@@ -96,17 +101,31 @@ def rglru_init_state(cfg, batch, dtype=torch.float32, device="cuda"):
                                 device=device)}
 
 
-def rglru_block_apply(x, params, cfg):
+def rglru_block_apply(x, params, cfg, tp=None):
     """Full recurrent block.  x: (B, S, D) -> (out (B, S, D), decode state
-    {h, conv})."""
+    {h, conv}).  ``tp``: the rank's part of the tensor-parallel block
+    where the specs cut ``lru`` (the module note; the state is then the
+    rank's channels), else ignored."""
     K = cfg.conv_width
-    gate, u_raw = _branches(x, params)
+    if tp is not None and not tp.splits("lru"):
+        tp = None
+    gate, u_raw = _branches(tp.copy(x) if tp is not None else x, params)
     u = causal_conv1d(u_raw, params["conv_w"], params["conv_b"])
-    log_a, i_gate = _gates(u, params)
+    if tp is None:
+        log_a, i_gate = _gates(u, params)
+    else:
+        # the gates read every rank's channels of u, so each rank's
+        # gradient of the gathered u is partial (summed back by the
+        # gather); the rank's channels are read back from it after the
+        # gates, so that its three gradients add up in the unsplit order
+        whole = tp.gather_summed(u, -1)
+        log_a, i_gate = _gates(whole, params)
+        u = whole.narrow(-1, tp.rank * u.shape[-1], u.shape[-1])
     a, b = _decay_input(log_a, i_gate, u)
     h = ops.lru(a, b)
     state = {"h": h[:, -1, :], "conv": u_raw[:, -(K - 1):, :]}
-    return _out(h, gate, params, x.dtype), state
+    out = _out(h, gate, params, x.dtype)
+    return (tp.reduce(out) if tp is not None else out), state
 
 
 def rglru_chunk_step(x, params, cfg, state, n_tokens):

@@ -8,6 +8,12 @@
 * ``ssd_block_apply``: the full-sequence block (training forward).  Its
   scan always goes through ``ops.ssd_with_state`` — the CUDA kernel on
   the card, its plain version on the CPU; ``cfg.use_pallas`` is not read.
+  With ``tp`` (the spmd train step), where the specs cut ``ssd_heads``
+  over the model axis, a rank computes its heads: ``wz`` / ``wx`` /
+  ``wdt`` (and ``wB`` / ``wC`` where ``ssd_bc`` is cut) column-parallel,
+  its convs' channels, the scan on its heads over its groups' whole B and
+  C, the gated norm's mean square summed over the axis, ``out_proj``
+  row-parallel.
 * ``ssd_init_state``, ``ssd_chunk_step`` and ``ssd_decode_step``: the
   serving steps from a carried state (torch ops, as the JAX package's run
   jnp: no kernel has an initial-state entry point).
@@ -105,11 +111,20 @@ def _dt(x, params):
                       + params["dt_bias"].float())
 
 
-def _gate_norm_out(y, z, params, cfg):
-    """y * silu(z), the gated RMS norm and the output projection."""
+def _gate_norm_out(y, z, params, cfg, tp=None):
+    """y * silu(z), the gated RMS norm and the output projection.  ``tp``:
+    ``y`` and ``z`` are the rank's channels of ``d_inner``; the mean
+    square is their sum of squares summed over the axis, and the ranks'
+    partial projections are summed."""
     y = y * F.silu(z.float()).to(y.dtype)
-    y = rms_norm(y, params["norm"], cfg.norm_eps)
-    return y @ params["out_proj"]
+    if tp is None:
+        y = rms_norm(y, params["norm"], cfg.norm_eps)
+        return y @ params["out_proj"]
+    yf = y.float()
+    var = tp.psum(yf.square().sum(dim=-1, keepdim=True)) / cfg.d_inner
+    y = (yf * torch.rsqrt(var + cfg.norm_eps)
+         * params["norm"].float()).to(y.dtype)
+    return tp.reduce(y @ params["out_proj"])
 
 
 def _front_pad(pad, *ts):
@@ -117,23 +132,51 @@ def _front_pad(pad, *ts):
     return [F.pad(t, (0, 0) * (t.dim() - 2) + (pad, 0)) for t in ts]
 
 
-def ssd_block_apply(x, params, cfg):
+def _bc_split(x, xc, params, cfg, tp, name):
+    """B or C (``name``) of the rank's heads under ``tp``: (B, S, groups
+    the rank's heads read, N), and the pre-conv tail of the rank's
+    channels.  Where ``ssd_bc`` is cut, the rank's channels from ``xc``
+    (``x`` through ``tp.copy``) gathered, each rank's gradient of the
+    whole summed back over the axis; else computed whole from ``x`` and
+    passed through ``tp.copy``, which sums the ranks' partial gradients
+    of it, so that the replicated weights' and ``x``'s are whole."""
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    split = tp.splits("ssd_bc")
+    h, tail = _proj_conv(xc if split else x, params["w" + name],
+                         params["conv_" + name], params["b" + name],
+                         cfg.conv_width)
+    h = tp.gather_summed(h, -1) if split else tp.copy(h)
+    return h.reshape(h.shape[0], h.shape[1], G, N)[
+        :, :, tp.groups(cfg.ssm_heads, G)], tail
+
+
+def ssd_block_apply(x, params, cfg, tp=None):
     """Full Mamba2 block (training forward).  x: (B, S, D) -> (out (B, S,
-    D), decode state {ssm, conv_x, conv_B, conv_C})."""
-    G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
-    P, di, K = cfg.ssm_head_dim, cfg.d_inner, cfg.conv_width
+    D), decode state {ssm, conv_x, conv_B, conv_C}).  ``tp``: the rank's
+    part of the tensor-parallel block where the specs cut ``ssd_heads``
+    (the module note; the state is then the rank's heads and channels),
+    else ignored."""
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    P, K = cfg.ssm_head_dim, cfg.conv_width
     Bb, S, _ = x.shape
-    z = x @ params["wz"]
-    xs, tail_x = _proj_conv(x, params["wx"], params["conv_x"], params["bx"],
-                            K)
-    B_, tail_B = _proj_conv(x, params["wB"], params["conv_B"], params["bB"],
-                            K)
-    C_, tail_C = _proj_conv(x, params["wC"], params["conv_C"], params["bC"],
-                            K)
-    dtv = _dt(x, params)
-    xs = xs.reshape(Bb, S, H, P)
-    B_ = B_.reshape(Bb, S, G, N)
-    C_ = C_.reshape(Bb, S, G, N)
+    if tp is not None and not tp.splits("ssd_heads"):
+        tp = None
+    xc = tp.copy(x) if tp is not None else x
+    z = xc @ params["wz"]
+    xs, tail_x = _proj_conv(xc, params["wx"], params["conv_x"],
+                            params["bx"], K)
+    if tp is None:
+        B_, tail_B = _proj_conv(x, params["wB"], params["conv_B"],
+                                params["bB"], K)
+        C_, tail_C = _proj_conv(x, params["wC"], params["conv_C"],
+                                params["bC"], K)
+        B_ = B_.reshape(Bb, S, G, N)
+        C_ = C_.reshape(Bb, S, G, N)
+    else:
+        B_, tail_B = _bc_split(x, xc, params, cfg, tp, "B")
+        C_, tail_C = _bc_split(x, xc, params, cfg, tp, "C")
+    dtv = _dt(xc, params)
+    xs = xs.reshape(Bb, S, dtv.shape[-1], P)
     A = -torch.exp(params["A_log"].float())
     chunk = min(cfg.ssd_chunk, S)
     pad = (-S) % chunk
@@ -145,7 +188,7 @@ def ssd_block_apply(x, params, cfg):
         xs = xs[:, pad:]
     # the skip term in x's dtype, as the JAX block adds it
     y = y + xs * params["D_skip"].to(x.dtype)[None, None, :, None]
-    out = _gate_norm_out(y.reshape(Bb, S, di), z, params, cfg)
+    out = _gate_norm_out(y.reshape(Bb, S, -1), z, params, cfg, tp)
     full_state = {"ssm": state, "conv_x": tail_x, "conv_B": tail_B,
                   "conv_C": tail_C}
     return out, full_state

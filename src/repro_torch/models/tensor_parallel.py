@@ -5,18 +5,33 @@ step (``launch.steps.make_train_step_spmd``) hands the model code as
 
 Megatron's scheme.  The residual stream is whole on every rank of the
 ``model`` axis, and so is its gradient.  A column-parallel product (the
-attention's ``wq`` / ``wk`` / ``wv``, the MLP's and the experts' ``wi``,
-the output head) takes its input through ``copy`` — the identity forward,
-the sum of the ranks' input gradients over the axis backward — and
-computes the rank's slice of the heads, ``ff`` or vocabulary.  A
-row-parallel product (``wo``) sums its partial outputs over the axis in
-``reduce`` — the identity backward, since what follows is computed the
-same on every rank.  A weight the specs leave whole is computed with the
-same on every rank and gets the whole gradient there, with two
-exceptions: a replicated ``wk`` / ``wv`` of which a rank reads only the kv
-heads of its query heads (its gradient is summed over the axis once a
-step, by the step), and an MoE layer's gates, whose gradient is summed
-through ``copy`` (the experts' outputs are the rank's partial sums).
+attention's ``wq`` / ``wk`` / ``wv``, the cross-attention's on the
+encoder's output, the MLP's and the experts' ``wi``, the SSD's ``wz`` /
+``wx`` / ``wdt`` / ``wB`` / ``wC``, the RG-LRU's ``w_gate`` / ``w_in``,
+the output head) takes its input through ``copy`` — the identity
+forward, the sum of the ranks' input gradients over the axis backward —
+and computes the rank's slice of the heads, ``ff``, channels or
+vocabulary.  A row-parallel product (``wo``, ``out_proj``, ``w_out``)
+sums its partial outputs over the axis in ``reduce`` — the identity
+backward, since what follows is computed the same on every rank.  A
+weight the specs leave whole is computed with the same on every rank and
+gets the whole gradient there, with two exceptions: a replicated ``wk``
+/ ``wv`` of which a rank reads only the kv heads of its query heads (its
+gradient is summed over the axis once a step, by the step), and an MoE
+layer's gates, whose gradient is summed through ``copy`` (the experts'
+outputs are the rank's partial sums).
+
+Two blocks read a whole activation from the ranks' slices, each rank for
+its own shards, so each rank's gradient of the whole is partial: the
+RG-LRU's gates read the whole conv output (``w_a`` / ``w_x`` are column
+slices over all of it), and an SSD rank's heads read their group's whole
+B and C where the specs cut ``ssd_bc``.  ``gather_summed`` gathers them;
+its backward sums over the axis, then slices (``gather``'s only slices:
+right where every rank computes the same with the whole, as after the
+untied embedding's lookup).  The SSD's gated RMS norm runs over all of
+``d_inner``: its mean square is the ranks' partial sums of squares
+summed by ``psum``, whose backward sums too, since each rank uses the
+sum on its own channels.
 
 The batch axes.  The step cuts the global batch over ("pod", "data"), as
 GSPMD shards ``P(("pod", "data"), None)``, and GSPMD computes each
@@ -78,6 +93,44 @@ class _Gather(torch.autograd.Function):
             None, None, None
 
 
+class _GatherSummed(torch.autograd.Function):
+    """Forward the ranks' parts concatenated along ``dim``; backward the
+    gradient summed over ``axes``, then this rank's slice of it (a
+    reduce-scatter): each rank holds only its part of the gathered
+    tensor's gradient, from the compute it did with the whole."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axes, dim):
+        ctx.comm, ctx.axes = comm, axes
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.j = comm.index(axes)
+        return comm.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = ctx.comm.all_reduce(g.clone(memory_format=torch.contiguous_format),
+                                ctx.axes)
+        return g.narrow(ctx.dim, ctx.j * ctx.n, ctx.n).contiguous(), \
+            None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    """Forward the sum over ``axes``; backward the gradient summed over
+    them too: each rank uses the sum on its own part, so its gradient of
+    the sum is partial."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        return comm.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                               axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return ctx.comm.all_reduce(g, ctx.axes), None, None
+
+
 class _LogSumExp(torch.autograd.Function):
     """The log-sum-exp over the last axis of logits cut over ``axes``:
     ``torch.logsumexp``'s operations (the max, the sum of exponentials
@@ -104,8 +157,9 @@ class TensorParallel:
     """``TensorParallel(comm, split, batch_axes=(), axis="model")``: the
     ranks of ``comm``'s mesh along ``axis`` split the products of the
     logical axes in ``split`` (``sharding.axis_rules`` names: "heads",
-    "kv_heads", "ff", "vocab"); ``batch_axes`` are the mesh axes the
-    global batch is cut over."""
+    "kv_heads", "ff", "vocab", "lru", "ssd_inner", "ssd_bc",
+    "ssd_heads"); ``batch_axes`` are the mesh axes the global batch is
+    cut over."""
 
     def __init__(self, comm, split: Iterable[str],
                  batch_axes: Sequence[str] = (), axis: str = "model"):
@@ -127,7 +181,21 @@ class TensorParallel:
         return _Reduce.apply(x, self.comm, self.axes)
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' parts of ``x`` along ``dim``, for compute that every
+        rank does the same with the whole (its gradient is whole on every
+        rank: the backward only slices)."""
         return _Gather.apply(x, self.comm, self.axes, dim % x.dim())
+
+    def gather_summed(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' parts of ``x`` along ``dim``, for compute that each
+        rank does with the whole on its own shards (its gradient is
+        partial: the backward sums it over the axis, then slices)."""
+        return _GatherSummed.apply(x, self.comm, self.axes, dim % x.dim())
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' partial ``x`` over the axis, summed both
+        ways (``_Sum``)."""
+        return _Sum.apply(x, self.comm, self.axes)
 
     def logsumexp(self, logits: torch.Tensor) -> torch.Tensor:
         """The log-sum-exp of the whole vocabulary's logits from the
@@ -146,15 +214,19 @@ class TensorParallel:
         return _Reduce.apply(x, self.comm, self.batch_axes) \
             / self.batch_shards
 
-    def kv_heads(self, w: torch.Tensor, n_heads: int,
-                 n_kv_heads: int) -> torch.Tensor:
-        """Of a replicated ``wk`` / ``wv`` (D, Hkv, dh), the kv heads that
-        this rank's query heads read (query head h reads kv head h // G):
-        the rank's heads cover whole groups, or lie in one."""
-        G = n_heads // n_kv_heads
+    def groups(self, n_heads: int, n_groups: int) -> slice:
+        """The groups that this rank's heads read, of ``n_heads`` heads in
+        ``n_groups`` groups (head h reads group h // G): the rank's heads
+        cover whole groups, or lie in one."""
+        G = n_heads // n_groups
         hl = n_heads // self.size
         h0 = self.rank * hl
         if hl % G and G % hl:
-            raise ValueError(f"{hl} query heads a rank straddle groups of "
-                             f"{G}")
-        return w[:, h0 // G:max(h0 + hl, h0 + G) // G]
+            raise ValueError(f"{hl} heads a rank straddle groups of {G}")
+        return slice(h0 // G, max(h0 + hl, h0 + G) // G)
+
+    def kv_heads(self, w: torch.Tensor, n_heads: int,
+                 n_kv_heads: int) -> torch.Tensor:
+        """Of a replicated ``wk`` / ``wv`` (D, Hkv, dh), the kv heads that
+        this rank's query heads read (``groups``)."""
+        return w[:, self.groups(n_heads, n_kv_heads)]

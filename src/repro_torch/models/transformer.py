@@ -167,18 +167,20 @@ def attn_block(x, p, cfg: ModelConfig, rope, *, causal=True, window=0,
     (B, Skv, Hkv, dh), RoPE on the queries only.  Returns (out (B, S, D),
     (k, v)).
 
-    ``tp`` (self-attention): where the specs cut the heads over the model
-    axis, ``p`` holds this rank's ``wq`` / ``wo`` heads, and ``wk`` /
-    ``wv`` its kv heads — or, replicated, the whole of them, of which the
-    rank reads the kv heads of its query heads (``tp.kv_heads``); the
-    rank attends with its heads and the ranks' ``wo`` products are
-    summed.  Heads the axis does not divide are computed whole on every
-    rank."""
-    if tp is not None and kv is None and tp.splits("heads"):
-        if not tp.splits("kv_heads"):
-            p = dict(p, **{k: tp.kv_heads(p[k], cfg.n_heads, cfg.n_kv_heads)
-                           for k in ("wk", "wv")})
-        q, k, v = _attn_proj(tp.copy(x), p, rope, cfg=cfg)
+    ``tp``: where the specs cut the heads over the model axis, ``p`` holds
+    this rank's ``wq`` / ``wo`` heads, and ``wk`` / ``wv`` its kv heads —
+    or, replicated, the whole of them, of which the rank reads the kv
+    heads of its query heads (``_rank_kv``); the rank attends with its
+    heads and the ranks' ``wo`` products are summed.  Cross-attention's
+    ``kv`` are then the rank's kv heads (``_dec_layer``).  Heads the axis
+    does not divide are computed whole on every rank."""
+    if tp is not None and tp.splits("heads"):
+        if kv is None:
+            q, k, v = _attn_proj(tp.copy(x), _rank_kv(p, cfg, tp), rope,
+                                 cfg=cfg)
+        else:
+            q = _cross_proj(tp.copy(x), p["wq"])
+            k, v = kv
         o = ops.flash_attention(q, k, v, causal, window)
         return tp.reduce(_attn_out(o, p, x.dtype)), (k, v)
     if kv is None:
@@ -192,24 +194,35 @@ def attn_block(x, p, cfg: ModelConfig, rope, *, causal=True, window=0,
     return _attn_out(o, p, x.dtype), (k, v)
 
 
+def _rank_kv(p, cfg: ModelConfig, tp):
+    """``p`` with a replicated ``wk`` / ``wv`` cut to the kv heads of the
+    rank's query heads (``tp.kv_heads``); as it is where the specs cut
+    the kv heads too."""
+    if tp.splits("kv_heads"):
+        return p
+    return dict(p, **{k: tp.kv_heads(p[k], cfg.n_heads, cfg.n_kv_heads)
+                      for k in ("wk", "wv")})
+
+
 def apply_layer(x, lp, cfg: ModelConfig, layer_type: str, rope, *,
                 window=0, causal=True, tp=None):
     """One block over the whole sequence.  Returns (x, state_for_decode,
-    aux).  ``tp``: an "attn" layer's attention and feed-forward split over
-    the model axis (``tensor_parallel``); other types ignore it."""
+    aux).  ``tp``: the block split over the model axis where the specs cut
+    its axes (``tensor_parallel``): attention heads, ``ff``, the SSD's
+    heads, the RG-LRU's channels."""
     if layer_type == "ssd":
         s, state = ssd_mod.ssd_block_apply(
-            L.rms_norm(x, lp["ln"], cfg.norm_eps), lp["ssd"], cfg)
+            L.rms_norm(x, lp["ln"], cfg.norm_eps), lp["ssd"], cfg, tp)
         return x + s, state, {}
     if layer_type == "rec":
         r, state = rglru_mod.rglru_block_apply(
-            L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["rec"], cfg)
+            L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["rec"], cfg, tp)
         h = x + r
-        f, aux = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg)
+        f, aux = _ffn(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp, cfg,
+                      tp=tp)
         return h + f, state, aux
     if layer_type not in ("attn", "enc"):
         raise ValueError(layer_type)
-    tp = tp if layer_type == "attn" else None
     a, (k, v) = attn_block(L.rms_norm(x, lp["ln1"], cfg.norm_eps),
                            lp["attn"], cfg, rope, causal=causal,
                            window=window, tp=tp)
@@ -361,8 +374,9 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
     cache never holds the full sequence for every layer at once.
 
     ``tp`` (training only): the rank's part of the tensor-parallel
-    forward (``tensor_parallel``): the embedding and every "attn" layer
-    split over the model axis, the hidden states whole on every rank."""
+    forward (``tensor_parallel``): the embedding and every layer split
+    over the model axis where the specs cut its axes (``apply_layer``),
+    the hidden states whole on every rank."""
     extras = extras or {}
     if cfg.family == "encdec":
         raise ValueError("use encdec_forward")
@@ -389,15 +403,17 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
 # Encoder-decoder
 # ---------------------------------------------------------------------------
 
-def encode(params, cfg: ModelConfig, frame_embeds, gather_specs=None):
+def encode(params, cfg: ModelConfig, frame_embeds, gather_specs=None,
+           tp=None):
     """frame_embeds: (B, S_src, D), precomputed by the stub frontend ->
     the encoder's output (B, S_src, D): non-causal self-attention layers,
-    then ``enc_norm``."""
+    then ``enc_norm``.  ``tp``: each layer split over the model axis
+    (``apply_layer``)."""
     x = frame_embeds.to(cdt(cfg))
     rope = rope_for(cfg, _positions(x))
 
     def layer(x, lp):
-        return apply_layer(x, lp, cfg, "enc", rope, causal=False)[0]
+        return apply_layer(x, lp, cfg, "enc", rope, causal=False, tp=tp)[0]
 
     layer = _gathered(layer, (gather_specs or {}).get("enc_layers"))
     for i in range(cfg.enc_layers):
@@ -405,19 +421,29 @@ def encode(params, cfg: ModelConfig, frame_embeds, gather_specs=None):
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _dec_layer(x, lp, cfg: ModelConfig, rope, enc_out):
+def _splits_heads(tp) -> bool:
+    return tp is not None and tp.splits("heads")
+
+
+def _dec_layer(x, lp, cfg: ModelConfig, rope, enc_out, tp=None):
     """One decoder layer over the whole target sequence: causal
     self-attention, cross-attention over the encoder's output, the MLP.
-    Returns (x, {"k", "v": self-attention, "ck", "cv": cross})."""
+    Returns (x, {"k", "v": self-attention, "ck", "cv": cross}).  ``tp``:
+    the three split over the model axis where the specs cut their axes;
+    the cross-attention's keys and values are then the rank's heads,
+    projected from ``enc_out`` as ``decoder_forward`` passes it (through
+    ``tp.copy``)."""
     a, (k, v) = attn_block(L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                           lp["attn"], cfg, rope, causal=True)
+                           lp["attn"], cfg, rope, causal=True, tp=tp)
     h = x + a
-    ck = _cross_proj(enc_out, lp["cross"]["wk"])
-    cv = _cross_proj(enc_out, lp["cross"]["wv"])
+    cp = _rank_kv(lp["cross"], cfg, tp) if _splits_heads(tp) \
+        else lp["cross"]
+    ck = _cross_proj(enc_out, cp["wk"])
+    cv = _cross_proj(enc_out, cp["wv"])
     c, _ = attn_block(L.rms_norm(h, lp["ln2"], cfg.norm_eps), lp["cross"],
-                      cfg, None, causal=False, kv=(ck, cv))
+                      cfg, None, causal=False, kv=(ck, cv), tp=tp)
     h = h + c
-    f, _ = _ffn(L.rms_norm(h, lp["ln3"], cfg.norm_eps), lp, cfg)
+    f, _ = _ffn(L.rms_norm(h, lp["ln3"], cfg.norm_eps), lp, cfg, tp=tp)
     return h + f, {"k": k, "v": v, "ck": ck, "cv": cv}
 
 
@@ -430,7 +456,10 @@ def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
     run without gradients and without recomputation, and ``states`` holds
     each layer's ``k``, ``v`` (B, S, H, dh) and ``ck``, ``cv`` (B, S_src,
     H, dh), stacked over the layers after ``state_fn`` (if given) maps
-    each layer's dict.  ``tp``: the embedding's (the layers take none)."""
+    each layer's dict.  ``tp`` (training only): the embedding and each
+    layer split over the model axis (``_dec_layer``); ``enc_out`` goes
+    through ``tp.copy`` once, which sums its gradient over the ranks'
+    heads."""
     x = embed_tokens(params, cfg, tokens, tp)
     rope = rope_for(cfg, _positions(x))
     layers = params["dec_layers"]
@@ -445,8 +474,11 @@ def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
             x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, _stack_states(states)
 
+    if _splits_heads(tp):
+        enc_out = tp.copy(enc_out)
+
     def layer(x, lp):
-        return _dec_layer(x, lp, cfg, rope, enc_out)[0]
+        return _dec_layer(x, lp, cfg, rope, enc_out, tp)[0]
 
     layer = _gathered(layer, specs)
     for i in range(cfg.dec_layers):
@@ -457,8 +489,9 @@ def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
 def encdec_forward(params, cfg: ModelConfig, tokens, extras,
                    gather_specs=None, tp=None):
     """``extras["frame_embeds"]`` through the encoder, then the decoder
-    over ``tokens``: (x (B, S, D), aux 0)."""
-    enc_out = encode(params, cfg, extras["frame_embeds"], gather_specs)
+    over ``tokens``: (x (B, S, D), aux 0).  ``tp``: both split over the
+    model axis."""
+    enc_out = encode(params, cfg, extras["frame_embeds"], gather_specs, tp)
     x = decoder_forward(params, cfg, tokens, enc_out,
                         gather_specs=gather_specs, tp=tp)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

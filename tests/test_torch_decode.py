@@ -51,6 +51,11 @@ def test_greedy_run_matches_jax(weights):
     jp, tp = weights
     B, C, max_len, total = 2, 8, 32, 48
     spec_j = JD.cache_view_specs(JCFG, max_len)
+    # the JAX steps jitted once, as its engine runs them (op by op they
+    # dispatch every operation of every step anew)
+    jprefill = jax.jit(lambda p, c, t, ps, n: JD.prefill_chunk_step(
+        p, JCFG, spec_j, c, t, ps, n))
+    jdecode = jax.jit(lambda p, c, t, ps: JD.decode_step(p, JCFG, c, t, ps))
     spec_t = TD.cache_view_specs(TCFG, max_len)
     jc = JD.init_cache(JCFG, B, max_len)
     tc = TD.init_cache(TCFG, B, max_len, device="cpu")
@@ -66,9 +71,8 @@ def test_greedy_run_matches_jax(weights):
             if k > 0:
                 toks[b, :k] = prompts[b][pos[b]:pos[b] + k]
                 n[b] = k
-        jl, jc = JD.prefill_chunk_step(jp, JCFG, spec_j, jc,
-                                       jnp.asarray(toks), jnp.asarray(pos),
-                                       jnp.asarray(n))
+        jl, jc = jprefill(jp, jc, jnp.asarray(toks), jnp.asarray(pos),
+                          jnp.asarray(n))
         tl, tc = TD.prefill_chunk_step(tp, TCFG, spec_t, tc,
                                        torch.from_numpy(toks),
                                        torch.from_numpy(pos),
@@ -86,8 +90,7 @@ def test_greedy_run_matches_jax(weights):
     gen = [[int(last[b])] for b in range(B)]
     while int(pos.min()) < total:
         toks = last[:, None].astype(np.int32)
-        jl, jc = JD.decode_step(jp, JCFG, jc, jnp.asarray(toks),
-                                jnp.asarray(pos))
+        jl, jc = jdecode(jp, jc, jnp.asarray(toks), jnp.asarray(pos))
         tl, tc = TD.decode_step(tp, TCFG, tc, torch.from_numpy(toks),
                                 torch.from_numpy(pos))
         close(jl, tl)

@@ -26,6 +26,7 @@ holds its three-step parameters to the same 1e-4), and with 8-bit
 moments all but one entry in 10^4 — where a quantization tie flipped —
 which stay within two learning rates (``test_torch_quantized.py``'s
 rule); Trainer losses 1e-4, as ``test_torch_trainer.py``."""
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -73,7 +74,10 @@ SPMD_CASES = [
     for name, shape, axes in (("dm", (2, 4), DM), ("pdm", (2, 2, 2), PDM))
 ] + [(f"spmd_{tag}_dm", arch, (2, 4), DM, False, 1, "adamw", {})
      for arch, tag in (("recurrentgemma-9b", "hybrid"),
-                       ("seamless-m4t-large-v2", "encdec"))]
+                       ("seamless-m4t-large-v2", "encdec"),
+                       ("mamba2-780m", "ssm"), ("qwen2-vl-2b", "vlm"),
+                       ("grok-1-314b", "grok"))] + [
+    ("spmd_ssm_pdm", "mamba2-780m", (2, 2, 2), PDM, False, 1, "adamw", {})]
 SPMD_ARCHS = sorted({c[1] for c in SPMD_CASES})
 
 JAX_REFERENCE = """
@@ -217,9 +221,19 @@ def runs(tmp_path_factory):
     # of the same rows, as make_batch cuts them
     src = [(rng.standard_normal((B, S // 2, 64)) * 0.02).astype(np.float32)
            for _ in range(STEPS)]
-    spmd_batches = {a: [dict({k: v[:, :S // 2] for k, v in b.items()},
-                             frame_embeds=f) for b, f in zip(batches, src)]
-                    if T_REGISTRY[a].family == "encdec" else batches
+    # the VLM's: S // 4 patch embeddings ahead of the text, the targets
+    # over the whole sequence, t/h/w position ids that differ
+    sv, q = S // 4, np.arange(S)
+    pos = np.broadcast_to(np.stack([q, q // 2, q % 5])[:, None],
+                          (3, B, S)).astype(np.int32)
+    vis = [(rng.standard_normal((B, sv, 64)) * 0.02).astype(np.float32)
+           for _ in range(STEPS)]
+    family = {
+        "encdec": [dict({k: v[:, :S // 2] for k, v in b.items()},
+                        frame_embeds=f) for b, f in zip(batches, src)],
+        "vlm": [dict(b, tokens=b["tokens"][:, :S - sv], vision_embeds=v,
+                     position_ids=pos.copy()) for b, v in zip(batches, vis)]}
+    spmd_batches = {a: family.get(T_REGISTRY[a].family, batches)
                     for a in SPMD_ARCHS}
     files = write_corpus_shards(str(tmp / "data"),
                                 SyntheticCorpus(cfg.vocab, seed=3),
@@ -303,12 +317,20 @@ def test_spmd_step_matches_jax(runs, case):
     mixtral-8x22b at capacity factor 1.0, which drops claims, on (data 2,
     model 4) and (pod 2, data 2, model 2) (a rank's claims take their
     slots after the lower batch shards', against the global capacity);
-    reduced recurrentgemma-9b (split attention beside gathered rec
-    layers) and seamless-m4t-large-v2 (gathered encoder and decoder
-    layers beside the split embedding and head) on (data 2, model 4).  On
-    the 4-wide model axis each rank holds one query head and reads the one
-    replicated kv head, an ``ff`` slice of 32 and a vocabulary slice of
-    128; the batch is cut over every batch axis."""
+    on (data 2, model 4) reduced recurrentgemma-9b (split attention and
+    rec layers: a rank's 16 of the 64 LRU channels, the conv output
+    gathered for the gates), seamless-m4t-large-v2 (the encoder's and
+    the decoder's self- and cross-attention on a rank's one head of 4,
+    their MLPs on its ``ff`` slice), mamba2-780m (a rank's 2 of 8 SSD
+    heads, 32 of 128 ``d_inner`` channels and 4 of the 16 B/C channels,
+    gathered for its heads' one group; the gated norm's mean square
+    summed over the axis), qwen2-vl-2b (the patch embeddings merged
+    ahead of the text, M-RoPE) and grok-1-314b (its non-GLU gelu
+    experts' ``ff`` cut); and mamba2-780m on (pod 2, data 2, model 2),
+    where the model axis is not the innermost but one.  On the 4-wide
+    model axis each rank of the attention families holds one query head
+    and reads the one replicated kv head, an ``ff`` slice of 32 and a
+    vocabulary slice of 128; the batch is cut over every batch axis."""
     port, ref = runs
     jr = ref[case]
     eight_bit = dict((c[0], c[6]) for c in SPMD_CASES)[case] == "adamw8bit"
@@ -320,19 +342,84 @@ def test_spmd_step_matches_jax(runs, case):
         _params_close(port[r][case]["params"], jr["params"], eight_bit)
 
 
+SPLIT_BLOCKS = [f"{b}_{p}" for b in ("ssd", "ssd_bc_whole", "rec", "xattn",
+                                     "xattn_kv_whole")
+                for p in ("y", "dx", "dw")]
+
+
+def _pairs(v):
+    """The (want, got) pairs of a piece: one, a list or a dict of them."""
+    if isinstance(v, dict):
+        return [p for k in sorted(v) for p in _pairs(v[k])]
+    return [p for x in v for p in _pairs(x)] if isinstance(v, list) else [v]
+
+
 @pytest.mark.parametrize("piece", ["ce", "ce_dx", "ce_dhead", "mlp_y",
-                                   "mlp_dx", "mlp_dwi", "mlp_dwo"])
+                                   "mlp_dx", "mlp_dwi", "mlp_dwo",
+                                   "gather_summed_dx", "psum_y", "psum_dx"]
+                         + SPLIT_BLOCKS)
 def test_tensor_parallel_pieces_match_unsharded(runs, piece):
     """On (data 2, model 4): the vocabulary-parallel ``chunked_ce_loss``
     (two loss chunks a row, pad columns in the last slice) — the ranks'
     shares summed over "data" equal the whole batch's loss, and the input
     and head-slice gradients the unsharded ones; the row-parallel MLP's
-    output and gradients equal the unsharded MLP's (float32, 1e-5)."""
+    output and gradients equal the unsharded MLP's (float32, 1e-5).  The
+    two collectives the split SSD and RG-LRU blocks add: the gather whose
+    backward sums over the axis, then slices, and the sum summed both
+    ways.  The split blocks' outputs, input gradients and each weight
+    shard's gradient against the unsharded block's (float32, 1e-5 of each
+    tensor's largest magnitude): the SSD block with G·N cut (B and C
+    gathered) and whole (B and C computed whole), the RG-LRU block, and
+    the decoder layer (self-attention, cross-attention over the encoder's
+    output, whose gradient is summed over the ranks' heads, the MLP) with
+    the kv heads cut and replicated (``wk`` / ``wv`` gradients partial,
+    summed over "model" as the spmd step does)."""
     port, _ = runs
     for r in range(8):
-        want, got = port[r]["tp_pieces"][piece]
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        for want, got in _pairs(port[r]["tp_pieces"][piece]):
+            atol = 1e-6 if piece in ("ce", "ce_dx", "ce_dhead") or \
+                piece.startswith("mlp") else 1e-5 * np.abs(want).max()
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
     assert port[0]["tp_pieces"]["bytes"]["intra_group"] > 0
+
+
+def test_plain_gather_drops_the_other_ranks_gradients(runs):
+    """The guard for the gather the RG-LRU's gates read: with ``u``
+    gathered by the plain ``gather`` (whose backward only slices, right
+    when every rank holds the whole gradient), the split block's input
+    gradient misses the other ranks' parts — off by far more than the
+    tolerance — where ``gather_summed`` matches (``rec_dx``)."""
+    port, _ = runs
+    for r in range(8):
+        want, got = port[r]["tp_pieces"]["rec_dx_plain_gather"]
+        assert np.abs(got - want).max() > 1e-3 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("case", [c[0] for c in SPMD_CASES])
+def test_spmd_step_gathers_no_model_shard_of_a_layer(case):
+    """In every spmd case, no layer leaf is gathered along "model": every
+    layer type computes on the rank's model shards (``spmd_gathers``
+    gathers over the batch axes only), and the model-sharded leaves the
+    step holds are the rank's slices."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import spmd_gathers
+    from repro_torch.models.params import _leaves
+
+    _, arch, shape, axes, fsdp, _, _, over = \
+        dict((c[0], c) for c in SPMD_CASES)[case]
+    cfg = dataclasses.replace(t_reduced(T_REGISTRY[arch]), **over)
+    mesh = Mesh(np.arange(8).reshape(shape), axes)
+    pspecs = sh.param_specs(cfg, mesh, fsdp=fsdp)
+    gat = spmd_gathers(cfg, mesh, pspecs)
+    held = 0
+    for key in ("layers", "groups", "tail", "enc_layers", "dec_layers"):
+        for (_, f), (_, spec) in zip(_leaves(gat.get(key, {})),
+                                     _leaves(pspecs.get(key, {}))):
+            assert "model" not in {a for e in f.keywords["sharding"].spec
+                                   for a in sh.entry_axes(e)}
+            held += "model" in {a for e in spec for a in sh.entry_axes(e)}
+    assert held > 0
 
 
 def test_trainer_feeds_each_rank_its_rows(runs):

@@ -330,6 +330,11 @@ def test_greedy_run_matches_jax():
     tp = from_reference(jax.tree.map(np.asarray, jp), device="cpu")
     B, C, max_len, total = 2, 8, 48, 30
     spec_j = JD.cache_view_specs(jcfg, max_len)
+    # the JAX steps jitted once, as its engine runs them (op by op they
+    # dispatch every operation of every step anew)
+    jprefill = jax.jit(lambda p, c, t, ps, n: JD.prefill_chunk_step(
+        p, jcfg, spec_j, c, t, ps, n))
+    jdecode = jax.jit(lambda p, c, t, ps: JD.decode_step(p, jcfg, c, t, ps))
     spec_t = TD.cache_view_specs(tcfg, max_len)
     jc = JD.init_cache(jcfg, B, max_len)
     tc = TD.init_cache(tcfg, B, max_len, device="cpu")
@@ -344,9 +349,8 @@ def test_greedy_run_matches_jax():
             k = min(C, len(p) - pos[i])
             toks[i, :k] = p[pos[i]:pos[i] + k]
             n[i] = k
-        jl, jc = JD.prefill_chunk_step(jp, jcfg, spec_j, jc,
-                                       jnp.asarray(toks), jnp.asarray(pos),
-                                       jnp.asarray(n))
+        jl, jc = jprefill(jp, jc, jnp.asarray(toks), jnp.asarray(pos),
+                          jnp.asarray(n))
         tl, tc = TD.prefill_chunk_step(tp, tcfg, spec_t, tc,
                                        torch.from_numpy(toks),
                                        torch.from_numpy(pos),
@@ -358,8 +362,7 @@ def test_greedy_run_matches_jax():
         pos += n
     for _ in range(total - 1):
         tok = last[:, None].astype(np.int32)
-        jl, jc = JD.decode_step(jp, jcfg, jc, jnp.asarray(tok),
-                                jnp.asarray(pos))
+        jl, jc = jdecode(jp, jc, jnp.asarray(tok), jnp.asarray(pos))
         tl, tc = TD.decode_step(tp, tcfg, tc, torch.from_numpy(tok),
                                 torch.from_numpy(pos))
         close(jl, tl, 1e-4, "decode logits")

@@ -66,6 +66,32 @@ def setup(request):
     return jcfg, tcfg, jp, batch
 
 
+@pytest.fixture(scope="module")
+def stepped(setup):
+    """Three steps of ``make_train_step`` in both packages from the port's
+    weights and a fresh optimizer state: each step's metrics, and
+    (params, opt state) after steps 1 and 3 (the port's copied: its step
+    updates in place)."""
+    jcfg, tcfg, _, batch = setup
+    jp = port_drawn(tcfg)
+    jstep = jax.jit(JS.make_train_step(jcfg, JAdamW(**OPT)))
+    tstep = TS.make_train_step(tcfg, TAdamW(**OPT))
+    jparams, jopt = jp, j_init_opt(jp)
+    tp = tparams(jp)
+    topt = t_init_opt(tp)
+    tb = tbatch(batch)
+    out = {"jax_metrics": [], "port_metrics": []}
+    for n in range(1, 4):
+        jparams, jopt, jm = jstep(jparams, jopt, batch)
+        tp, topt, tm = tstep(tp, topt, tb)
+        out["jax_metrics"].append(jm)
+        out["port_metrics"].append(tm)
+        if n in (1, 3):
+            out[n] = (jparams, jopt, jax.tree.map(
+                lambda t: t.clone(), (tp, topt)))
+    return out
+
+
 def tbatch(batch):
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
@@ -102,7 +128,7 @@ def tree_close(jtree, ttree, tol, what):
 
 def test_loss_matches(setup):
     jcfg, tcfg, jp, batch = setup
-    jl, jparts = JT.loss_fn(jp, jcfg, batch)
+    jl, jparts = jax.jit(lambda p: JT.loss_fn(p, jcfg, batch))(jp)
     tl, tparts = TT.loss_fn(tparams(jp), tcfg, tbatch(batch))
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(float(tparts["ce"]), float(jparts["ce"]),
@@ -113,15 +139,15 @@ def test_loss_matches(setup):
 @pytest.mark.parametrize("use_pallas", [True, False],
                          ids=["pallas_interpret", "jnp"])
 def test_every_gradient_leaf(setup, use_pallas):
-    """``steps.value_and_grad`` against ``jax.value_and_grad(loss_fn)``:
-    with ``use_pallas`` the JAX side runs its Pallas kernels' custom VJP
-    (interpret mode), without it ``blocked_attention`` or the jnp
-    ``ssd_chunked``."""
+    """``steps.value_and_grad`` against ``jax.value_and_grad(loss_fn)``
+    (jitted): with ``use_pallas`` the JAX side runs its Pallas kernels'
+    custom VJP (interpret mode), without it ``blocked_attention`` or the
+    jnp ``ssd_chunked``."""
     jcfg, tcfg, _, batch = setup
     jp = port_drawn(tcfg)
     jcfg = dataclasses.replace(jcfg, use_pallas=use_pallas)
-    (jl, _), jg = jax.value_and_grad(
-        lambda p: JT.loss_fn(p, jcfg, batch), has_aux=True)(jp)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: JT.loss_fn(p, jcfg, batch), has_aux=True))(jp)
     tl, _, tg = TS.value_and_grad(tcfg, tparams(jp), tbatch(batch))
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, atol=1e-5)
     tree_close(jg, tg, 1e-4, "grad")
@@ -134,31 +160,24 @@ def test_chunked_loss_over_several_chunks(setup, monkeypatch):
     jp = port_drawn(tcfg)
     monkeypatch.setattr(JT, "LOSS_CHUNK", 16)
     monkeypatch.setattr(TT, "LOSS_CHUNK", 16)
-    (jl, _), jg = jax.value_and_grad(
-        lambda p: JT.loss_fn(p, jcfg, batch), has_aux=True)(jp)
+    (jl, _), jg = jax.jit(jax.value_and_grad(
+        lambda p: JT.loss_fn(p, jcfg, batch), has_aux=True))(jp)
     tl, _, tg = TS.value_and_grad(tcfg, tparams(jp), tbatch(batch))
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5, atol=1e-5)
     tree_close(jg, tg, 1e-4, "grad")
 
 
 @pytest.mark.parametrize("n_steps", [1, 3])
-def test_train_steps_match(setup, n_steps):
+def test_train_steps_match(stepped, n_steps):
     """``make_train_step`` run n times from the same weights and a fresh
-    optimizer state: params, m, v, count and the metrics."""
-    jcfg, tcfg, _, batch = setup
-    jp = port_drawn(tcfg)
-    jstep = jax.jit(JS.make_train_step(jcfg, JAdamW(**OPT)))
-    tstep = TS.make_train_step(tcfg, TAdamW(**OPT))
-    jparams, jopt = jp, j_init_opt(jp)
-    tp = tparams(jp)
-    topt = t_init_opt(tp)
-    tb = tbatch(batch)
-    for _ in range(n_steps):
-        jparams, jopt, jm = jstep(jparams, jopt, batch)
-        tp, topt, tm = tstep(tp, topt, tb)
+    optimizer state (``stepped``): params, m, v, count and the metrics of
+    each step."""
+    for jm, tm in zip(stepped["jax_metrics"][:n_steps],
+                      stepped["port_metrics"][:n_steps]):
         for k in ("loss", "ce", "aux", "grad_norm", "lr"):
             np.testing.assert_allclose(float(tm[k]), float(jm[k]),
                                        rtol=1e-4, atol=1e-5, err_msg=k)
+    jparams, jopt, (tp, topt) = stepped[n_steps]
     tree_close(jparams, tp, 1e-4, "params")
     tree_close(jopt["m"], topt["m"], 1e-4, "m")
     tree_close(jopt["v"], topt["v"], 1e-4, "v")
@@ -188,19 +207,19 @@ def test_microbatches(setup):
                                rtol=1e-4)
 
 
-def test_eval_step_and_opt_state_bridge(setup):
+def test_eval_step_and_opt_state_bridge(setup, stepped):
     """``make_eval_step`` gives the loss without building a graph; a JAX
-    optimizer state crosses by ``opt_state_from_reference``."""
+    optimizer state after one step (``stepped``) crosses by
+    ``opt_state_from_reference``."""
     jcfg, tcfg, jp, batch = setup
     tp = tparams(jp)
     out = TS.make_eval_step(tcfg)(tp, tbatch(batch))
-    want = JS.make_eval_step(jcfg)(jp, batch)
+    want = jax.jit(JS.make_eval_step(jcfg))(jp, batch)
     for k in ("loss", "ce", "aux"):
         np.testing.assert_allclose(float(out[k]), float(want[k]), rtol=1e-5,
                                    atol=1e-5)
     assert not out["loss"].requires_grad
-    jstep = jax.jit(JS.make_train_step(jcfg, JAdamW(**OPT)))
-    _, jopt, _ = jstep(jp, j_init_opt(jp), batch)
+    _, jopt, _ = stepped[1]
     topt = opt_state_from_reference(jax.tree.map(np.asarray, jopt), "cpu")
     tree_close(jopt["m"], topt["m"], 0.0, "m")
     assert int(topt["count"]) == 1 and topt["count"].dtype == torch.int32

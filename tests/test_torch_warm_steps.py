@@ -11,10 +11,20 @@ walks one call makes through the layer stack, where the JAX package
 counts the layer scan's trips in the compiled HLO: one model step for
 decode, chunk and verify alike on the parallel path, one a fed token on
 the scan path."""
+import functools
+
 import numpy as np
 import pytest
 
 from torch_engine_twins import PartialDrafter, Twins, serve
+
+
+@functools.lru_cache(maxsize=None)
+def twins(arch, **kw):
+    """One ``Twins`` a configuration for this file's tests, so that its
+    JAX engine compiles its steps once; a test that serves on ``jax``
+    builds its port engines fresh."""
+    return Twins(arch, **kw)
 
 
 @pytest.mark.parametrize("arch,spec,max_batch", [
@@ -24,7 +34,7 @@ def test_warm_steps_count_and_tokens(arch, spec, max_batch):
     """The port's ``warm_steps`` makes as many step calls as the JAX
     engine's on the same config, leaves the null rows' writes unread, and
     serving after it gives a cold engine's tokens (and the JAX engine's)."""
-    tw = Twins(arch, spec=spec, max_batch=max_batch)
+    tw = twins(arch, spec=spec, max_batch=max_batch)
     warm = tw.port()
     assert warm.warm_steps() == tw.jax.warm_steps() > 0
     rng = np.random.default_rng(12)
@@ -71,7 +81,7 @@ def test_served_shapes_are_the_captured_ones(arch):
 
 def test_warm_steps_custom_chunks_match_reference():
     """Chunk widths past the engine's chunk clamp to it, as in JAX."""
-    tw = Twins("llama3-8b", spec="ngram", max_batch=2)
+    tw = twins("llama3-8b", spec="ngram", max_batch=2)
     assert tw.port().warm_steps(chunks=(2, 16, 64)) == \
         tw.jax.warm_steps(chunks=(2, 16, 64))
 
@@ -82,7 +92,7 @@ def test_measured_model_steps(arch):
     """One layer-stack walk a call for decode, chunk (any width) and
     verify; the verify step needs speculation on; an unknown kind
     raises."""
-    tw = Twins(arch, spec="ngram", spec_k=3)
+    tw = twins(arch, spec="ngram", spec_k=3)
     eng = tw.port()
     assert eng.measured_model_steps("decode") == 1.0
     assert eng.measured_model_steps("chunk") == 1.0
@@ -97,7 +107,7 @@ def test_measured_model_steps(arch):
 
 def test_measured_model_steps_match_reference_parallel():
     """The JAX package's HLO count on the same engine config agrees."""
-    tw = Twins("llama3-8b", spec="ngram", spec_k=3)
+    tw = twins("llama3-8b", spec="ngram", spec_k=3)
     eng = tw.port()
     for kind in ("decode", "chunk", "spec"):
         assert eng.measured_model_steps(kind) == \

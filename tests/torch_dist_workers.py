@@ -203,7 +203,167 @@ def tp_pieces(rank, *, arch, seed):
                       wl["wi"].grad.numpy())
     out["mlp_dwo"] = (wf["wo"].grad[j * f:(j + 1) * f].numpy(),
                       wl["wo"].grad.numpy())
+    out.update(_split_blocks(mesh, seed + 2))
     out["bytes"] = dict(comm.bytes)
+    return out
+
+
+def _split_pair(mesh, tp, run, inputs, lp, specs, g, partial=()):
+    """``run(inputs, p, tp)`` whole (``tp`` None, the whole weights) and
+    on the rank's shards of ``lp`` under ``specs`` (``tp``), the same
+    cotangent into both: (output, input gradients, weight gradients),
+    each as (whole, rank's) numpy pairs, the whole weights' gradients cut
+    to the rank's shards.  The leaves named in ``partial`` (paths) hold
+    the rank's part of their gradient: summed over "model" first."""
+    import torch
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models.params import _leaves, tree_map
+
+    with torch.no_grad():
+        ct = torch.randn(run(inputs, lp, None).shape, generator=g)
+
+    def go(p, t):
+        xs = [x.clone().requires_grad_(True) for x in inputs]
+        y = run(xs, p, t)
+        (y * ct).sum().backward()
+        return y.detach(), [x.grad for x in xs]
+
+    wf = tree_map(lambda v: v.clone().requires_grad_(True), lp)
+    yf, dxf = go(wf, None)
+    wl = tree_map(lambda v, s: sh.shard(v, sh.NamedSharding(mesh, s))
+                  .requires_grad_(True), lp, specs)
+    yl, dxl = go(wl, tp)
+    comm = mesh.comm()
+    dw = {}
+    for (path, a), (_, b), (_, s) in zip(_leaves(wf), _leaves(wl),
+                                         _leaves(specs)):
+        got = b.grad.clone()
+        if path in partial:
+            got = comm.all_reduce(got, ("model",))
+        dw["/".join(path)] = (
+            sh.shard(a.grad, sh.NamedSharding(mesh, s)).numpy(),
+            got.numpy())
+    return {"y": (yf.numpy(), yl.numpy()),
+            "dx": [(a.numpy(), b.numpy()) for a, b in zip(dxf, dxl)],
+            "dw": dw}
+
+
+def _split_blocks(mesh, seed):
+    """The split SSD, RG-LRU and decoder layers (self-, cross-attention,
+    MLP) against the unsharded ones (``_split_pair``, float32), each also
+    with the axis it reads through a sum cut out of the split (replicated
+    B/C weights; replicated kv weights, whose gradients are partial); the
+    two new collectives on their own; and the guard: the RG-LRU block
+    with ``u`` gathered by the plain ``gather``, whose input gradient
+    drops the other ranks' parts."""
+    import torch
+    from repro_torch.configs import REGISTRY, reduced_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import rglru, ssd
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, layer_def, tree_map
+    from repro_torch.models.tensor_parallel import TensorParallel
+
+    comm = mesh.comm()
+    g = torch.Generator().manual_seed(seed)
+    j, m = comm.index(("model",)), comm.size(("model",))
+    out = {}
+
+    def tp_of(cfg, drop=()):
+        rules = dict(sh.axis_rules(cfg, mesh, fsdp=False))
+        rules.update({k: None for k in drop})
+        split = [k for k, v in rules.items()
+                 if k is not None and v == "model"]
+        return rules, TensorParallel(comm, split, ("data",))
+
+    def layer(cfg, key, sub=None):
+        full = init_params(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+        lp = T.layer_params(full[key], 0) if key != "tail" else full[key]
+        return lp[sub] if sub else lp
+
+    def specs_of(cfg, ltype, rules, sub=None):
+        d = layer_def(cfg, ltype)
+        return tree_map(lambda pd: sh.spec_of(pd.axes, rules),
+                        d[sub] if sub else d)
+
+    # the collectives: a gather whose backward sums, then slices; a sum
+    # summed both ways (the gated norm's mean square)
+    _, tp = tp_of(reduced_config(REGISTRY["mamba2-780m"]))
+    X = torch.randn(2, 8, 4 * m, generator=g)
+    W = torch.randn(4 * m, 3 * m, generator=g)
+    ct = torch.randn(2, 8, 3 * m, generator=g)
+    Xf = X.clone().requires_grad_(True)
+    ((Xf @ W) * ct).sum().backward()
+    xl = X[..., 4 * j:4 * j + 4].clone().requires_grad_(True)
+    cols = slice(3 * j, 3 * j + 3)
+    ((tp.gather_summed(xl, -1) @ W[:, cols]) * ct[..., cols]).sum() \
+        .backward()
+    out["gather_summed_dx"] = (Xf.grad[..., 4 * j:4 * j + 4].numpy(),
+                               xl.grad.numpy())
+    Xf = X.clone().requires_grad_(True)
+    yf = Xf * torch.rsqrt(Xf.square().sum(-1, keepdim=True))
+    ct = torch.randn(yf.shape, generator=g)
+    (yf * ct).sum().backward()
+    xl = X[..., 4 * j:4 * j + 4].clone().requires_grad_(True)
+    yl = xl * torch.rsqrt(tp.psum(xl.square().sum(-1, keepdim=True)))
+    (yl * ct[..., 4 * j:4 * j + 4]).sum().backward()
+    out["psum_y"] = (yf[..., 4 * j:4 * j + 4].detach().numpy(),
+                     yl.detach().numpy())
+    out["psum_dx"] = (Xf.grad[..., 4 * j:4 * j + 4].numpy(),
+                      xl.grad.numpy())
+
+    def record(name, pair):
+        out[name + "_y"] = pair["y"]
+        out[name + "_dx"] = pair["dx"]
+        out[name + "_dw"] = pair["dw"]
+
+    # the SSD block: heads, d_inner and G·N cut (B and C gathered), then
+    # G·N whole (B and C computed whole, their gradients summed)
+    cfg = reduced_config(REGISTRY["mamba2-780m"])
+    x = torch.randn(2, 2 * cfg.ssd_chunk, cfg.d_model, generator=g)
+    lp = layer(cfg, "layers", "ssd")
+    for name, drop in (("ssd", ()), ("ssd_bc_whole", ("ssd_bc",))):
+        rules, tp = tp_of(cfg, drop)
+        record(name, _split_pair(
+            mesh, tp, lambda xs, p, t: ssd.ssd_block_apply(xs[0], p, cfg,
+                                                          t)[0],
+            [x], lp, specs_of(cfg, "ssd", rules, "ssd"), g))
+
+    # the RG-LRU block: its channels cut, u gathered
+    cfg = reduced_config(REGISTRY["recurrentgemma-9b"])
+    x = torch.randn(2, 16, cfg.d_model, generator=g)
+    lp = layer(cfg, "groups", "b0_rec")["rec"]
+    rules, tp = tp_of(cfg)
+    specs = specs_of(cfg, "rec", rules, "rec")
+
+    def rec(xs, p, t):
+        return rglru.rglru_block_apply(xs[0], p, cfg, t)[0]
+    record("rec", _split_pair(mesh, tp, rec, [x], lp, specs, g))
+    # the guard: the plain gather's backward only slices
+    tp.gather_summed = tp.gather
+    out["rec_dx_plain_gather"] = _split_pair(mesh, tp, rec, [x], lp, specs,
+                                             g)["dx"][0]
+
+    # the decoder layer: self-attention, cross-attention over the
+    # encoder's output (through tp.copy, as decoder_forward), the MLP;
+    # then with the kv heads replicated (the rank's query heads read
+    # theirs: wk / wv gradients partial)
+    cfg = reduced_config(REGISTRY["seamless-m4t-large-v2"])
+    x = torch.randn(2, 16, cfg.d_model, generator=g)
+    e = torch.randn(2, 24, cfg.d_model, generator=g)
+    rope = T.rope_for(cfg, torch.arange(16)[None].expand(2, 16))
+    lp = layer(cfg, "dec_layers")
+
+    def dec(xs, p, t):
+        enc = t.copy(xs[1]) if t is not None else xs[1]
+        return T._dec_layer(xs[0], p, cfg, rope, enc, t)[0]
+    for name, drop in (("xattn", ()), ("xattn_kv_whole", ("kv_heads",))):
+        rules, tp = tp_of(cfg, drop)
+        partial = {(a, w) for a in ("attn", "cross") for w in ("wk", "wv")} \
+            if drop else ()
+        record(name, _split_pair(mesh, tp, dec, [x, e], lp,
+                                 specs_of(cfg, "dec", rules), g, partial))
     return out
 
 
