@@ -240,8 +240,16 @@ Phases (any error fails the run with a non-zero exit):
    ``make_train_step_smap`` against ``make_train_step`` on reduced
    float32 llama3-8b with both optimizers (parameters after 3 steps
    within 1e-5), the Trainer on the mesh against the one-card Trainer,
-   the 8-bit state through a sharded save and restore.  The phase prints
-   its seconds.
+   the 8-bit state through a sharded save and restore; (e) the spmd
+   train step against ``make_train_step`` at full width (phase 4's cell
+   and ``SPMD_FAMILY_CELLS``); (f) the spmd serving steps
+   (``make_prefill_spmd``, ``make_serve_step_spmd``) against
+   ``make_prefill`` / ``make_serve_step`` on the same mesh at full width
+   (``SPMD_SERVE_CELLS``: a prefill and 32 greedy steps each): tokens,
+   logits and the final cache equal bit for bit, each kernel's prefill
+   launches as its layers call it; and the split-window attention and
+   cut cache write of a ring over 16 ranks, emulated on the batch axis
+   (``split_window_check``).  The phase prints its seconds.
 16. The dry run against the card (``repro_torch.launch.dryrun``: a
    rank's step traced on fake ``cuda`` tensors, nothing launched).  (a)
    Phase 4's own cell at world 1 (llama3.2-3b, B=2, S=2048, remat
@@ -272,7 +280,9 @@ and 8; ``eager_prefill_launches`` and ``hybrid_eager_prefill_launches``
 phase 12's, over the eager engine's 9 prefills; ``moe_launches`` phase
 13's serving (ring) and training (flash), ``moe_eager_prefill_launches``
 its eager prefills; ``vlm_*`` and ``encdec_*`` phase 14's launches and
-errors; ``hybrid38_launches`` and ``ef_launches`` phase 15's;
+errors; ``hybrid38_launches`` and ``ef_launches`` phase 15's,
+``spmd_*`` its (e) and ``spmd_serve_*`` its (f) launches; ``tp_prefill_*``
+the flash forward at the spmd prefill's rank shape, phase 2b;
 ``starcoder_*`` the errors at starcoder2-15b's G = 12), error and times.
 """
 from __future__ import annotations
@@ -666,7 +676,7 @@ def ring_timing(torch, name):
     """CUDA-event times of 30 back-to-back calls at one serving shape: the
     bf16 kernel (``events_ms``, the host's gaps between calls included),
     its plain version and the yardstick (``library_events_ms``), beside the
-    bound.  ``ring_device_times`` adds the device times last."""
+    bound.  ``ring_device_times`` adds the device times."""
     from repro_torch.kernels.flash_attention import ops
     sets, kernel, plain, sdpa, mask = ring_case(torch, name)
     q = sets[0][0]
@@ -696,9 +706,11 @@ def ring_device_times(torch, row):
     torch.profiler's kernel events — the split kernel and the merge, and
     every kernel of the yardstick's call — at both serving shapes.  A call
     of either is tens of microseconds on the device, less than the host's
-    Python around it, so CUDA events would time the host.  Run after every
-    phase that CUDA events time: a profiler session can slow the launches
-    that follow it."""
+    Python around it, so CUDA events would time the host.  Run after the
+    kernel phases, which CUDA events time (a profiler session can slow the
+    launches that follow it), and before the model phases: after the whole
+    script the profiler recorded almost none of the ring kernels' events
+    (0.0 and 0.00095 ms a call)."""
     for name, prefix in (("main_path", ""), ("hybrid_path", "hybrid_")):
         sets, kernel, _, sdpa, _ = ring_case(torch, name)
         parts = device_ms(torch, kernel, sets, ("ring_wgmma_kernel",
@@ -790,6 +802,21 @@ FLASH_GEOMETRIES = [
     ("tp_encdec_enc_s2048", 2, 2048, 2048, 1, 1, 64, False, 0),
     ("tp_encdec_dec_s2048", 2, 2048, 2048, 1, 1, 64, True, 0),
 ]
+# the spmd prefill's rank shape at prefill_32k on the 16-wide "model"
+# axis: llama3-8b's 2 query heads over the one kv head they read, dh 128,
+# causal, S 32768, one of the rank's 2 prompts (B, S, Hq, Hkv, dh); the
+# plain version runs on query blocks of TP_PREFILL_ROWS rows from each of
+# TP_PREFILL_STARTS (its scores of all 32768 rows would take 8 GiB)
+FLASH_TP_PREFILL = (1, 32768, 2, 1, 128)
+TP_PREFILL_ROWS, TP_PREFILL_STARTS = 128, (0, 16384, 32640)
+# a late block's outputs average thousands of keys (|out| about 0.01), so
+# FLASH_TOL's 2e-2 absolute would hold them at nothing: each block's out is
+# held at TP_PREFILL_OUT_TOL of (the block's RMS + |plain|), and lse, which
+# is float32 (about 11 here, an ulp 1e-6), at TP_PREFILL_LSE_TOL absolute.
+# Dropping one 64-key tile of the kernel (BN) moves a late row's lse by
+# about 64 / its keys (2e-3 at 32768): the script holds the check against
+# the plain version with one tile dropped and fails if that would pass
+TP_PREFILL_OUT_TOL, TP_PREFILL_LSE_TOL, TP_PREFILL_TILE = 2e-2, 2e-4, 64
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/"
 # the plain versions hold several (B, Hq, S, S) float32 score tensors at
 # once: past this many bytes of scores they run one kv head's query group
@@ -942,6 +969,7 @@ def phase_flash_kernels(torch):
         raise AssertionError(f"flash launches by route {routes}, expected "
                              f"{want_routes}: a bf16 call did not take the "
                              "tensor-core kernels")
+    rows["fwd"].update(flash_tp_prefill(torch, ops))
     # the timed shapes have one length for queries and keys
     timing = flash_timing(torch, ops, ref, *FLASH_MAIN[1:3],
                           *FLASH_MAIN[4:])
@@ -951,6 +979,106 @@ def phase_flash_kernels(torch):
         rows[part].update(timing[part])
         rows[part].update({f"hybrid_{k}": v for k, v in hybrid[part].items()})
     return rows
+
+
+def flash_rows_plain(torch, q, k, v, r0, n, drop=None):
+    """The plain forward's (out, lse) of causal query rows r0 .. r0 + n
+    over the keys they see: ``ref.flash_attention_fwd_ref``'s operations
+    with the queries' positions starting at r0.  ``drop``: a (first,
+    end) range of keys left out, as a kernel that skipped them would."""
+    B, _, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    qb = q[:, r0:r0 + n].reshape(B, n, Hkv, Hq // Hkv, dh).float()
+    kb, vb = k[:, :r0 + n], v[:, :r0 + n]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb.float()) * dh ** -0.5
+    keys = torch.arange(r0 + n, device=q.device)
+    mask = keys[None, :] <= torch.arange(r0, r0 + n, device=q.device)[:, None]
+    if drop is not None:
+        mask = mask & ((keys < drop[0]) | (keys >= drop[1]))[None, :]
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(l))[..., 0]
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(vb.dtype).float(), vb.float())
+    o = o / l.permute(0, 3, 1, 2, 4)
+    return o.reshape(B, n, Hq, dh).to(q.dtype), lse.reshape(B, Hq, n)
+
+
+def tp_block_err(torch, out, lse, want_out, want_lse, what):
+    """(out, lse) max abs errors of one ``tp_prefill`` query block against
+    the plain version's; raises past ``TP_PREFILL_OUT_TOL`` of (the
+    block's RMS + |plain|) in out or ``TP_PREFILL_LSE_TOL`` in lse."""
+    got, want = out.float(), want_out.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(lse).all()):
+        raise AssertionError(f"{what}: not finite")
+    err = (got - want).abs()
+    rms = float(want.square().mean().sqrt())
+    lerr = float((lse.float() - want_lse.float()).abs().max())
+    if bool((err > TP_PREFILL_OUT_TOL * (rms + want.abs())).any()):
+        raise AssertionError(f"{what}: out disagrees with the plain version "
+                             f"beyond {TP_PREFILL_OUT_TOL} x (RMS {rms:.3e} "
+                             f"+ |plain|) (max abs err {float(err.max()):.3e})")
+    if lerr > TP_PREFILL_LSE_TOL:
+        raise AssertionError(f"{what}: lse disagrees with the plain version "
+                             f"beyond {TP_PREFILL_LSE_TOL} (max abs err "
+                             f"{lerr:.3e})")
+    return float(err.max()), lerr, rms
+
+
+def flash_tp_prefill(torch, ops):
+    """The ``tp_prefill`` row: the bf16 flash forward at
+    ``FLASH_TP_PREFILL`` (the spmd prefill's rank shape at prefill_32k),
+    held against the plain version on ``TP_PREFILL_STARTS``' query
+    blocks (``tp_block_err``), on the tensor-core route, and timed (CUDA
+    events, two input sets) beside its bound.  On each block past the
+    first tile, the plain version with the tile of keys from r0 / 2 left
+    out must fail that check."""
+    B, S, Hq, Hkv, dh = FLASH_TP_PREFILL
+    sets = [flash_inputs(torch, B, S, Hq, Hkv, dh, "bfloat16",
+                         seed=S + i)[:3] for i in range(2)]
+    q, k, v = sets[0]
+    before = ops.flash_attention.wgmma_launches
+    out, lse = ops.flash_attention_fwd(q, k, v, causal=True, window=0)
+    if ops.flash_attention.wgmma_launches != before + 1:
+        raise AssertionError("tp_prefill: the bf16 flash forward did not "
+                             "take the tensor-core kernel")
+    what = (f"tp_prefill bfloat16 B={B} S={S} Hq={Hq} Hkv={Hkv} dh={dh} "
+            f"causal")
+    err = 0.0
+    for r0 in TP_PREFILL_STARTS:
+        n = TP_PREFILL_ROWS
+        got = out[:, r0:r0 + n], lse[:, :, r0:r0 + n]
+        block = f"{what}, query rows {r0}+{n}"
+        oerr, lerr, rms = tp_block_err(
+            torch, *got, *flash_rows_plain(torch, q, k, v, r0, n), block)
+        err = max(err, oerr, lerr)
+        caught = "no tile before the block's rows"
+        if r0 >= 2 * TP_PREFILL_TILE:
+            t = r0 // 2 // TP_PREFILL_TILE * TP_PREFILL_TILE
+            drop = (t, t + TP_PREFILL_TILE)
+            try:
+                tp_block_err(torch, *got, *flash_rows_plain(
+                    torch, q, k, v, r0, n, drop=drop), block)
+            except AssertionError as e:
+                caught = f"keys {drop[0]}-{drop[1] - 1} dropped fail: {e}"
+            else:
+                raise AssertionError(f"{block}: the check passes the plain "
+                                     f"version with keys {drop} left out")
+        log(f"[flash] {block}: out max_abs_err={oerr:.3e} (block RMS "
+            f"{rms:.3e}), lse max_abs_err={lerr:.3e}; {caught}")
+    ms = time_ms(torch, lambda q, k, v: ops.flash_attention_fwd(
+        q, k, v, causal=True, window=0), sets)
+    n_bytes = 2 * 2 * B * S * Hq * dh + 2 * 2 * B * S * Hkv * dh \
+        + 4 * B * Hq * S
+    flops = 4.0 * dh * B * Hq * S * (S + 1) / 2
+    bound = 1e3 * max(n_bytes / PEAK_BYTES, flops / PEAK_FLOPS)
+    log(f"[flash] {what}: forward max_abs_err={err:.3e} (out "
+        f"{TP_PREFILL_OUT_TOL} x (RMS + |plain|), lse {TP_PREFILL_LSE_TOL}); "
+        f"kernel_ms={ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s of needed "
+        f"work) bound_ms={bound:.6f}")
+    return {"tp_prefill_max_abs_err": err, "tp_prefill_ms": ms,
+            "tp_prefill_bound_ms": bound}
 
 
 def flash_strided_views(torch, ops, ref):
@@ -3866,7 +3994,7 @@ def phase_ef(torch, rows):
 PHASE5 = {}
 
 
-def phase_dist(torch, rows):
+def phase_dist(torch, rows, card):
     """Phase 15 (d): ``torch.distributed`` on the card — an NCCL process
     group of one rank (a ``FileStore``) and a (1, 1) mesh.
     ``make_train_step_smap`` and ``make_train_step_spmd`` on reduced
@@ -3875,7 +4003,8 @@ def phase_dist(torch, rows):
     spmd step) against the one-card Trainer, and the 8-bit state through
     the checkpoint manager (sharded save and restore); then (e) the spmd
     step on phase 4's cell against ``make_train_step``
-    (``phase_spmd_cell``)."""
+    (``phase_spmd_cell``) and (f) the spmd serving steps against
+    ``make_prefill`` / ``make_serve_step`` (``phase_spmd_serve``)."""
     import os
     import shutil
     import tempfile
@@ -3990,6 +4119,8 @@ def phase_dist(torch, rows):
         del state, ranked, s2, runs, back, like
         free_card(torch)
         phase_spmd_cell(torch, rows, mesh)
+        free_card(torch)
+        phase_spmd_serve(torch, rows, mesh, card)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp)
@@ -4177,6 +4308,366 @@ def phase_spmd_cell(torch, rows, mesh):
         raise AssertionError("; ".join(failed))
 
 
+# phase 15 (f): the spmd serving steps against make_prefill /
+# make_serve_step on the same (1, 1) mesh, each from the same weights and
+# prompts (B=2), a prefill and SERVE_STEPS greedy steps: llama3-8b at full
+# width and depth (2048-token prompts, a 4096-slot cache), mixtral-8x22b
+# at phase 13's 8 of 56 layers, qwen2-vl-2b whole (512 patch embeddings
+# ahead of 1536 text tokens, M-RoPE ids distinct over the vision span and
+# carried on through the steps), and mamba2-780m, recurrentgemma-9b and
+# seamless-m4t-large-v2 at the depths of SPMD_FAMILY_CELLS (seamless: 2048
+# source frames, 256-token target prefixes, a 512-slot decoder ring).  On
+# one rank the two run the same operations on operands of the same layout
+# (a collective over one rank a copy; the split SSD's gated norm a sum
+# over the axis divided by d_inner, as the mean is): tokens, every call's
+# logits and the final cache must be equal bit for bit
+SERVE_STEPS = 32
+# token steps of each run, each cell, under torch.profiler (--serve-spmd)
+PROFILE_STEPS = 4
+# name, arch, config overrides, B, prompt positions, cache capacity,
+# source frames
+_FAMILY_DEPTH = {tag: over for tag, _, over, *_ in SPMD_FAMILY_CELLS}
+SPMD_SERVE_CELLS = [
+    ("dense", "llama3-8b", {}, 2, 2048, 4096, 0),
+    ("moe", "mixtral-8x22b", {"n_layers": MOE_LAYERS}, 2, 2048, 4096, 0),
+    ("vlm", "qwen2-vl-2b", {}, 2, 2048, 4096, 0),
+    ("ssm", "mamba2-780m", _FAMILY_DEPTH["ssm"], 2, 2048, 4096, 0),
+    ("hybrid", "recurrentgemma-9b", _FAMILY_DEPTH["hybrid"], 2, 2048, 4096,
+     0),
+    ("encdec", "seamless-m4t-large-v2", _FAMILY_DEPTH["encdec"], 2, 256, 512,
+     2048),
+]
+
+
+def serve_kernel_counts(cfg):
+    """The kernel wrappers a whole-prompt prefill of ``cfg`` launches and
+    how often: the flash forward once an attention block (the encoder's,
+    the decoder's self- and cross-attention), the SSD scan once an SSD
+    layer, the LRU scan once a rec layer.  The token steps launch none:
+    their attention is plain PyTorch, as JAX's ``decode_attention`` is an
+    einsum."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru_scan import ops as lru
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    types = cfg.layer_types() if cfg.family != "encdec" else []
+    want = {"flash_attention_fwd": (fa.flash_attention, types.count("attn")
+                                    + cfg.enc_layers + 2 * cfg.dec_layers),
+            "ssd_scan": (ssd.ssd_scan, types.count("ssd")),
+            "lru_scan": (lru.lru_scan, types.count("rec"))}
+    return {k: v for k, v in want.items() if v[1]}
+
+
+def serve_inputs(torch, cfg, B, S, src):
+    """(prompt batch on the card, each step's extras, the first step's
+    position) of a phase 15 (f) cell, from seed 6."""
+    import numpy as np
+    g = torch.Generator().manual_seed(6)
+    extras, steps = {}, [None] * SERVE_STEPS
+    text = S
+    if cfg.family == "vlm":
+        sv = int(S * cfg.vision_frac)
+        text = S - sv
+        ids = vision_position_ids(B, S, sv)
+        extras = {"vision_embeds": torch.randn(B, sv, cfg.d_model,
+                                               generator=g) * 0.02,
+                  "position_ids": torch.from_numpy(ids)}
+        last = int(ids.max())
+        steps = [{"position_ids": torch.full(
+            (3, B, 1), last + 1 + i, dtype=torch.int32, device="cuda")}
+            for i in range(SERVE_STEPS)]
+    if cfg.family == "encdec":
+        extras = {"frame_embeds": torch.randn(B, src, cfg.d_model,
+                                              generator=g) * 0.02}
+    batch = {"tokens": torch.randint(2, cfg.vocab, (B, text), generator=g,
+                                     dtype=torch.int32), **extras}
+    return ({k: v.cuda() for k, v in batch.items()}, steps,
+            np.int32(S))
+
+
+def serve_run(torch, params, prefill, step, batch, steps, start, kernels):
+    """``prefill`` then ``SERVE_STEPS`` greedy ``step`` calls: (logits of
+    each call on the host, tokens (B, SERVE_STEPS), the final cache,
+    prefill seconds, seconds of each step, each kernel's launches, peak
+    GiB).  The counts are set to 0 just before the prefill and read after
+    the last step."""
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in kernels.values():
+        fn.launches = 0
+        if hasattr(fn, "wgmma_launches"):
+            fn.wgmma_launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    B = batch["tokens"].shape[0]
+    pos = torch.full((B,), int(start), dtype=torch.int32, device="cuda")
+    seen, toks, secs = [logits.cpu()], [], []
+    for extras in steps:
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok[:, 0].cpu())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = step(params, cache, tok, pos, extras)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        seen.append(logits.cpu())
+        pos = pos + 1
+    launches = {k: fn.launches for k, (fn, _) in kernels.items()}
+    return (seen, torch.stack(toks, 1), cache, prefill_s, secs, launches,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+class StackedRanks:
+    """``n`` ranks of a mesh axis emulated on one card, rank-major on the
+    batch axis: ``pmax`` and ``reduce`` fold a (n * B, ...) tensor over
+    them, as ``TensorParallel``'s all-reduces over the axis do."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def _fold(self, x, op):
+        y = op(x.reshape(self.n, -1, *x.shape[1:]))
+        return y.repeat(self.n, *[1] * (x.dim() - 1))
+
+    def pmax(self, x):
+        return self._fold(x, lambda t: t.amax(0))
+
+    def reduce(self, x):
+        return self._fold(x, lambda t: t.sum(0))
+
+
+# llama3-8b's token step on the (16, 16) pod mesh's "model" axis: B 2,
+# 32 heads over 8 kv heads, dh 128, a 4096-slot ring cut into 16 slices;
+# each case (name, each stream's position, window, softcap): a wrapped
+# ring, a stream whose slots past the first slice are all empty, a window
+# over a wrapped ring, grok-1-314b's softcap
+SPLIT_WINDOW = (2, 32, 8, 128, 4096, 16)
+SPLIT_WINDOW_CASES = [("wrapped", (5000, 4200), 0, 0.0),
+                      ("empty slices", (100, 300), 0, 0.0),
+                      ("window 1000", (5000, 9000), 1000, 0.0),
+                      ("softcap 30", (3000, 6000), 0, 30.0)]
+# float32: the combine's rescaled sums against one softmax, held at the
+# float32 share of (the output's RMS + |whole ring's|)
+SPLIT_WINDOW_TOL = TOL["float32"]
+
+
+def split_window_check(torch):
+    """``layers.split_decode_attention`` and the cut ``cache_update`` on
+    the card, over ``SPLIT_WINDOW``'s ring cut into slices of ranks
+    emulated on the batch axis (``StackedRanks``: one card runs the spmd
+    token step only at world 1, where no ring is cut), against
+    ``decode_attention`` and ``cache_update`` on the whole ring, float32:
+    the caches equal, the outputs within ``SPLIT_WINDOW_TOL``."""
+    from repro_torch.models import layers as L
+    B, Hq, Hkv, dh, W, n = SPLIT_WINDOW
+    Wl = W // n
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tp = StackedRanks(n)
+    for name, pos, window, softcap in SPLIT_WINDOW_CASES:
+        q, kn, vn = (torch.randn(B, 1, h, dh, generator=g, device="cuda")
+                     for h in (Hq, Hkv, Hkv))
+        k, v = (torch.randn(B, W, Hkv, dh, generator=g, device="cuda")
+                for _ in range(2))
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        kc, vc = L.cache_update(k, v, kn, vn, p)
+        parts = [L.cache_update(k[:, r * Wl:(r + 1) * Wl],
+                                v[:, r * Wl:(r + 1) * Wl], kn, vn, p,
+                                width=W, first=r * Wl) for r in range(n)]
+        if not (torch.equal(torch.cat([a for a, _ in parts], 1), kc)
+                and torch.equal(torch.cat([b for _, b in parts], 1), vc)):
+            raise AssertionError(f"split window {name}: the cut cache write "
+                                 "differs from the whole ring's")
+        kw = dict(window=window, softcap=softcap)
+        want = L.decode_attention(q, kc, vc, L.cache_positions(p, W), p,
+                                  **kw)
+        got = L.split_decode_attention(
+            q.repeat(n, 1, 1, 1), torch.cat([a for a, _ in parts]),
+            torch.cat([b for _, b in parts]),
+            torch.cat([L.cache_positions(p, W, r * Wl, Wl)
+                       for r in range(n)]), p.repeat(n), tp, **kw)[:B]
+        err = (got - want).abs()
+        rms = float(want.square().mean().sqrt())
+        if not (torch.isfinite(got).all()
+                and bool((err <= SPLIT_WINDOW_TOL * (rms + want.abs())).all())):
+            raise AssertionError(f"split window {name}: max abs err "
+                                 f"{float(err.max()):.3e} against the whole "
+                                 f"ring (RMS {rms:.3e})")
+        log(f"[spmd serve] split window {name} (B={B} Hq={Hq} Hkv={Hkv} "
+            f"dh={dh}, a {W}-slot ring over {n} emulated ranks, positions "
+            f"{pos}, window {window}, softcap {softcap}), float32: cut "
+            f"cache write equal, attention max abs err {float(err.max()):.3e}"
+            f" (RMS {rms:.3e}, tol {SPLIT_WINDOW_TOL} x (RMS + |want|))")
+
+
+def profile_token_steps(torch, what, step, params, cache, B, start, extras):
+    """``PROFILE_STEPS`` token steps from ``cache`` (after two unprofiled
+    ones) under torch.profiler and cProfile: seconds a step, the card's
+    busy seconds and kernels a step, its kernels and the host's operators
+    and functions by time."""
+    import cProfile
+    import pstats
+    tok = torch.zeros(B, 1, dtype=torch.int32, device="cuda")
+    pos = torch.full((B,), int(start) + SERVE_STEPS, dtype=torch.int32,
+                     device="cuda")
+    for _ in range(2):
+        _, cache = step(params, cache, tok, pos, extras)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    host = cProfile.Profile()
+    t = time.perf_counter()
+    with prof:
+        host.enable()
+        for _ in range(PROFILE_STEPS):
+            _, cache = step(params, cache, tok, pos, extras)
+        torch.cuda.synchronize()
+        host.disable()
+    wall = (time.perf_counter() - t) / PROFILE_STEPS
+    rows = device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e6 / PROFILE_STEPS
+    kernels = sum(r[1] for r in rows) / PROFILE_STEPS
+    nccl = [r for r in rows if "nccl" in r[2].lower()]
+    log(f"[serve profile] {what}: {wall:.6f} s a step profiled, device busy "
+        f"{busy:.6f} s and {kernels:.0f} device events a step, of them "
+        f"NCCL {sum(r[0] for r in nccl) / 1e6 / PROFILE_STEPS:.6f} s and "
+        f"{sum(r[1] for r in nccl) / PROFILE_STEPS:.0f}")
+    for dev, count, key in sorted(rows, reverse=True)[:8]:
+        log(f"[serve profile]   device {dev / 1e3 / PROFILE_STEPS:10.3f} ms "
+            f"{count / PROFILE_STEPS:7.0f}x a step  {key[:80]}")
+    ops = sorted(((e.self_cpu_time_total, e.count, e.key)
+                  for e in prof.key_averages()
+                  if not str(getattr(e, "device_type", "")).endswith("CUDA")),
+                 reverse=True)
+    for us, count, key in ops[:12]:
+        log(f"[serve profile]   host op {us / 1e3 / PROFILE_STEPS:10.3f} ms "
+            f"{count / PROFILE_STEPS:7.0f}x a step  {key[:80]}")
+    out = io.StringIO()
+    pstats.Stats(host, stream=out).sort_stats("tottime").print_stats(14)
+    for line in out.getvalue().splitlines():
+        if line.strip():
+            log(f"[serve profile]   {line.rstrip()[:150]}")
+
+
+def phase_spmd_serve(torch, rows, mesh, card, profile=False):
+    """Phase 15 (f): ``split_window_check``, then ``make_prefill_spmd``
+    and ``make_serve_step_spmd`` on the (1, 1) mesh of an NCCL process
+    group of one rank against ``make_prefill`` and ``make_serve_step``,
+    on ``SPMD_SERVE_CELLS`` at full width, bf16, from the same seeded
+    weights (on one rank the rank's shards are the whole tensors: both
+    runs read the same ones): greedy tokens, every call's logits and the
+    final cache equal bit for bit, and each kernel of the spmd prefill
+    launched as its layers call it (``serve_kernel_counts``; its counts
+    set to 0 just before the spmd run and read just after).  Logs each
+    run's prefill seconds, seconds a step and peak GiB beside the card's
+    name and power limit.  ``profile``: each run's token steps then go
+    under the profiler (``profile_token_steps``)."""
+    import dataclasses
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import (make_prefill, make_prefill_spmd,
+                                          make_serve_step,
+                                          make_serve_step_spmd)
+    from repro_torch.models import decode as dec
+    from repro_torch.models.params import init_params, n_params
+
+    split_window_check(torch)
+    failed = []
+    for tag, arch, over, B, S, max_len, src in SPMD_SERVE_CELLS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(REGISTRY[arch], **over)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(cfg, gen, device="cuda")
+        pspecs = sh.param_specs(cfg, mesh)
+        batch, steps, start = serve_inputs(torch, cfg, B, S, src)
+        kernels = serve_kernel_counts(cfg)
+        view = dec.cache_view_specs(cfg, max_len, src)
+        runs = {}
+        for name, prefill, step in (
+                ("make_prefill", make_prefill(cfg, max_len),
+                 make_serve_step(cfg)),
+                ("make_prefill_spmd",
+                 make_prefill_spmd(cfg, mesh, pspecs, max_len),
+                 make_serve_step_spmd(cfg, mesh, pspecs, max_len, src))):
+            seen, toks, cache, pre_s, secs, launches, peak = serve_run(
+                torch, params, prefill, step, batch, steps, start, kernels)
+            runs[name] = (seen, toks, [c.cpu() for c in
+                                       dec.tree_leaves(cache, view)],
+                          pre_s, secs, launches, peak)
+            if profile:
+                profile_token_steps(torch, f"{cfg.name} {name}", step,
+                                    params, cache, B, start, steps[-1])
+            del cache
+            free_card(torch)
+        (ref, rtok, rcache, rpre, rsecs, rl, rpeak), \
+            (got, gtok, gcache, pre_s, secs, launches, peak) = \
+            runs["make_prefill"], runs["make_prefill_spmd"]
+        lerr = max(float((a - b)[:, :cfg.vocab].abs().max())
+                   for a, b in zip(ref, got))
+        cerr = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(rcache, gcache))
+        same = (torch.equal(rtok, gtok)
+                and all(torch.equal(a[:, :cfg.vocab], b[:, :cfg.vocab])
+                        for a, b in zip(ref, got))
+                and all(torch.equal(a, b) for a, b in zip(rcache, gcache)))
+        finite = all(bool(torch.isfinite(x[:, :cfg.vocab]).all())
+                     for x in got)
+        want = {k: n for k, (_, n) in kernels.items()}
+        depth = (cfg.enc_layers, cfg.dec_layers) if src else cfg.n_layers
+        log(f"[spmd serve] make_prefill_spmd + make_serve_step_spmd on NCCL "
+            f"world 1, mesh {mesh.shape}, {cfg.name} ({n_params(cfg)} "
+            f"params bf16, layers {depth}, B={B}, prompt {S} positions"
+            + (f", {src} source frames" if src else "")
+            + f", cache {max_len}), prefill + {SERVE_STEPS} greedy steps "
+            f"against make_prefill + make_serve_step: tokens, logits and "
+            f"final cache bit-identical {same} (logits max abs err "
+            f"{lerr:.3e}, cache {cerr:.3e}), finite {finite}; prefill "
+            f"launches {launches} (want {want}; make_prefill {rl}); prefill "
+            f"{pre_s:.4f} s against {rpre:.4f}, a step {sum(secs) / len(secs):.5f}"
+            f" s (median {sorted(secs)[len(secs) // 2]:.5f}) against "
+            f"{sum(rsecs) / len(rsecs):.5f} (median "
+            f"{sorted(rsecs)[len(rsecs) // 2]:.5f}); peak {peak:.3f} GiB "
+            f"against {rpeak:.3f}; card {card}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not (same and finite):
+            failed.append(f"{cfg.name}: the spmd serving steps differ from "
+                          "make_prefill / make_serve_step")
+        if launches != want:
+            failed.append(f"{cfg.name}: the spmd prefill's launches "
+                          f"{launches}, expected {want}")
+        for k, n in launches.items():
+            row = {"flash_attention_fwd": 1, "ssd_scan": 3, "lru_scan": 4}[k]
+            rows[row][f"spmd_serve_{tag}_launches"] = n
+        rows[1][f"spmd_serve_{tag}_step_s"] = sum(secs) / len(secs)
+        del params, runs, ref, got, rcache, gcache
+        free_card(torch)
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
+def serve_spmd_only(torch, card):
+    """``--serve-spmd``: phase 15 (f) on its own NCCL world-1 group and
+    (1, 1) mesh, each run's token steps profiled."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        phase_spmd_serve(torch, [{} for _ in range(5)],
+                         Mesh(np.array([[0]]), ("data", "model")), card,
+                         profile=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 DIST_ARCH = "llama3-8b"
 
 
@@ -4186,15 +4677,16 @@ def _tree_apply(fn, tree):
     return fn(tree)
 
 
-def phase_training_state(torch, rows):
+def phase_training_state(torch, rows, card):
     """Phase 15: (a), (b) the 8-bit AdamW on recurrentgemma-9b; (c)
     error-feedback compression; (d) the data-parallel step, the Trainer
-    on a mesh and the sharded checkpoint on NCCL.  Prints its seconds."""
+    on a mesh and the sharded checkpoint on NCCL, (e) the spmd train step
+    and (f) the spmd serving steps there.  Prints its seconds."""
     t0 = time.perf_counter()
     phase_hybrid_8bit(torch, rows)
     phase_ef(torch, rows)
     free_card(torch)
-    phase_dist(torch, rows)
+    phase_dist(torch, rows, card)
     log(f"[phase 15] {time.perf_counter() - t0:.1f} s")
 
 
@@ -4390,6 +4882,10 @@ def main() -> int:
                     help="phase 1, phase 4 (llama3.2-3b trained on the "
                          "card), then phase 16 (the dry run held against "
                          "it), and stop")
+    ap.add_argument("--serve-spmd", action="store_true",
+                    help="phase 1, the flash forward's tp_prefill row, then "
+                         "phase 15 (f) with each run's token steps under "
+                         "torch.profiler and cProfile, and stop")
     ap.add_argument("--profile", action="store_true",
                     help="time phases 3's, 6's and 8's two step kinds, "
                          "then replay each on a fresh engine under "
@@ -4421,7 +4917,12 @@ def main() -> int:
         lru_tile_sweep(torch)
         return 0
     if args.training_state:
-        phase_training_state(torch, [{} for _ in range(5)])
+        phase_training_state(torch, [{} for _ in range(5)], card)
+        return 0
+    if args.serve_spmd:
+        from repro_torch.kernels.flash_attention import ops
+        flash_tp_prefill(torch, ops)
+        serve_spmd_only(torch, card)
         return 0
     if args.dry_run:
         launches = phase_train_main(torch, fa_ops, False)
@@ -4432,6 +4933,7 @@ def main() -> int:
     rows += [flash["fwd"], flash["bwd"]]
     rows.append(phase_ssd_kernel(torch))
     rows.append(phase_lru_kernel(torch))
+    ring_device_times(torch, rows[0])
     for row in rows:
         row["launches"] = 0
     if not args.kernels_only:
@@ -4513,12 +5015,11 @@ def main() -> int:
             ("card", "cuda", "blocked", None)] + CARD_VARIANTS["hybrid"])
         phase_moe(torch, rows)              # phase 13
         phase_vlm_encdec(torch, rows)       # phase 14
-        phase_training_state(torch, rows)   # phase 15
+        phase_training_state(torch, rows, card)   # phase 15
         free_card(torch)
         # phase 16; its (b) processes start after phase 15's timed steps,
         # so that none of those ran beside them on the host
         phase_dryrun(torch, flash_launches, card, start_dry_cells())
-    ring_device_times(torch, rows[0])
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

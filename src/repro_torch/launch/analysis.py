@@ -15,9 +15,10 @@ one token against a ``seq_len``-deep cache), forward, or forward and
 backward under the cell's remat for train, and the embedding, final norm
 and head (train: the chunked loss, forward and backward) once — and a
 consistency check on the full count: the dry run records their ratio.
-Each layer runs as the cell's train step runs it on the rank's rows: with
-its weights whole, as the smap step computes after gathering, or — with
-``tp`` (the spmd step, ``--train-impl gspmd``) — on the rank's model
+Each layer runs as the cell's step runs it on the rank's rows: with its
+weights whole, as the smap step computes after gathering, or — with
+``tp`` (the spmd train step, ``--train-impl gspmd``, and the spmd
+serving steps; decode on the rank's cache shard) — on the rank's model
 shards of the layer types ``steps.tp_layer_types`` splits and of the
 embedding and head, with the collectives of a dry mesh's comm;
 ``_local_weight_bytes`` gives the bytes the rank holds of them at rest,
@@ -47,7 +48,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch import sharding as sh
 from repro_torch.launch import trace_analysis as ta
 from repro_torch.launch.inputs import ENCDEC_SRC_LEN, seq_split
-from repro_torch.launch.steps import tensor_parallel, tp_layer_types
+from repro_torch.launch.steps import (cache_cuts, tensor_parallel,
+                                      tp_layer_types)
 from repro_torch.models import decode as dec
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -138,11 +140,20 @@ def _rope(cfg, B, S, device):
     return T.rope_for(cfg, pos, extras)
 
 
-def _layer_cache(cfg, ltype, B, S, src, device):
+def _layer_cache(cfg, ltype, B, S, src, device, mesh=None):
     """One layer's decode cache of ``ltype`` (B streams, a ``S``-deep
-    context), sliced from the model's cache."""
-    cache = tree_map(lambda t: _fake(t.shape, t.dtype, device),
-                     dec.abstract_cache(cfg, B, S, src))
+    context), sliced from the model's cache; with ``mesh``, the rank's
+    shard of it as ``cache_specs`` cuts the model's over "model" (B is
+    the rank's already)."""
+    cache = dec.abstract_cache(cfg, B, S, src)
+    specs = sh.cache_specs(cfg, mesh, cache) if mesh is not None else None
+
+    def fake(t, spec=None):
+        shape = t.shape if spec is None else sh.local_shape(
+            t.shape, sh.P(*(e if "model" in sh.entry_axes(e) else None
+                            for e in spec)), mesh)
+        return _fake(shape, t.dtype, device)
+    cache = tree_map(fake, cache, *(() if specs is None else (specs,)))
     if cfg.family == "encdec":
         return {"k": cache["self"]["k"][0], "v": cache["self"]["v"][0],
                 "ck": cache["cross_k"][0], "cv": cache["cross_v"][0]}
@@ -170,33 +181,39 @@ def layer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
                seq_len: Optional[int] = None,
                device: str = "cuda", tp: bool = False) -> LayerCost:
     """Per-device cost of one block of ``ltype`` at the rank's shape;
-    ``tp``: as the spmd train step computes it (see the module note)."""
+    ``tp``: as the spmd train and serving steps compute it (see the
+    module note; decode: on the rank's cache shard)."""
     dev = ta.trace_device(device)
     cdt = torch_dtype(cfg.compute_dtype)
     B = _rank_batch(mesh, shape.global_batch)
     S = seq_len if seq_len is not None else shape.seq_len
     window = T._window(cfg, ltype) if ltype == "attn" else 0
     specs, ldef = _leaf_specs_for_layer(cfg, mesh, fsdp, ltype)
+    split, shape_of = None, None
+    if tp:
+        split = tensor_parallel(cfg, mesh, means=train)
+        if ltype in tp_layer_types(cfg, mesh):
+            shape_of = _model_shard_shape(cfg, mesh)
 
     if shape.is_decode:
         src = ENCDEC_SRC_LEN if cfg.family == "encdec" else 0
+        cut = cache_cuts(cfg, mesh, S, src) if tp else None
 
         def args():
             pos = _fake((B,), torch.int32, dev)
             return (_fake((B, 1, cfg.d_model), cdt, dev),
-                    _layer_params(cfg, ltype, dev, False),
-                    _layer_cache(cfg, ltype, B, S, src, dev), pos,
+                    _layer_params(cfg, ltype, dev, False, shape_of),
+                    _layer_cache(cfg, ltype, B, S, src, dev,
+                                 mesh if tp else None), pos,
                     dec._step_rope(cfg, pos[:, None], None))
 
         def f(x, lp, lc, pos, rope):
-            dec._decode_layer(x, lp, lc, cfg, ltype, rope, pos)
+            dec._decode_layer(x, lp, lc, cfg, ltype, rope, pos, split, cut)
         flops, bts, kf = _cost_of(f, args, dev)
         return LayerCost(flops, bts, flops - kf, kf)
 
-    split, shape_of = None, None
-    if tp and ltype in tp_layer_types(cfg, mesh):
-        split, shape_of = tensor_parallel(cfg, mesh), \
-            _model_shard_shape(cfg, mesh)
+    if shape_of is None:
+        split = None
 
     def body(x, lp):
         return T.apply_layer(x, lp, cfg, ltype, rope_of[0], window=window,
@@ -227,7 +244,7 @@ def _decoder_layer_cost(cfg, shape, mesh, *, fsdp, train,
     ``layer_cost``'s."""
     if shape.is_decode:
         return layer_cost(cfg, shape, mesh, fsdp=fsdp, ltype="dec",
-                          train=False, device=device)
+                          train=False, device=device, tp=tp)
     dev = ta.trace_device(device)
     cdt = torch_dtype(cfg.compute_dtype)
     B = _rank_batch(mesh, shape.global_batch)
@@ -236,7 +253,7 @@ def _decoder_layer_cost(cfg, shape, mesh, *, fsdp, train,
     rope_of = [None]
     split, shape_of = None, None
     if tp:
-        split, shape_of = tensor_parallel(cfg, mesh), \
+        split, shape_of = tensor_parallel(cfg, mesh, means=train), \
             _model_shard_shape(cfg, mesh)
 
     def body(x, lp, enc_out):
@@ -265,9 +282,9 @@ def outer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
                train: bool, device: str = "cuda",
                tp: bool = False) -> LayerCost:
     """Embedding + final norm + head per device, as the port's steps run
-    them: train the chunked loss forward and backward (``tp``: vocabulary
-    parallel, as the spmd step), prefill the last position's logits,
-    decode the token's."""
+    them: train the chunked loss forward and backward, prefill the last
+    position's logits, decode the token's (``tp``: vocabulary parallel,
+    as the spmd steps; the serving logits gathered)."""
     dev = ta.trace_device(device)
     cdt = torch_dtype(cfg.compute_dtype)
     pdt = torch_dtype(cfg.param_dtype)
@@ -280,8 +297,8 @@ def outer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
     V, D = cfg.vocab_padded, cfg.d_model
     split = None
     shapes = {"embed": (V, D), "head": (D, V)}
-    if tp and train:
-        split = tensor_parallel(cfg, mesh)
+    if tp:
+        split = tensor_parallel(cfg, mesh, means=train)
         ps = sh.param_specs(cfg, mesh, fsdp=False)
         shapes = {k: sh.local_shape(v, ps[k], mesh)
                   for k, v in shapes.items() if k in ps}
@@ -301,7 +318,7 @@ def outer_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *, fsdp: bool,
         xn = L.rms_norm(x + e, p["final_norm"], cfg.norm_eps)
         if train:
             return T.chunked_ce_loss(p, cfg, xn, tgt, m, split)
-        return T.head_logits(p, cfg, xn[:, -1])
+        return dec._logits(p, cfg, xn[:, -1], split)
 
     if train:
         def fn(*a):
@@ -325,8 +342,8 @@ def decomposed_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                     fsdp: bool, device: str = "cuda",
                     tp: bool = False) -> Dict[str, float]:
     """Total per-device (flops, bytes) = sum over block types + outer,
-    with each type's detail; ``tp``: as the spmd train step computes
-    them (a dry ``mesh``'s comm carries its collectives)."""
+    with each type's detail; ``tp``: as the spmd train or serving step
+    computes them (a dry ``mesh``'s comm carries its collectives)."""
     train = shape.kind == "train"
     counts: Dict[Tuple[str, bool], int] = {}
     if cfg.family == "encdec":
@@ -342,18 +359,18 @@ def decomposed_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     for (lt, hybrid), n in counts.items():
         if lt == "dec":
             lc = _decoder_layer_cost(cfg, shape, mesh, fsdp=fsdp, train=train,
-                                     device=device, tp=tp and train)
+                                     device=device, tp=tp)
         elif lt == "enc" and not shape.is_decode:
             _, ss = seq_split(cfg, shape.seq_len)
             lc = layer_cost(cfg, shape, mesh, fsdp=fsdp, ltype="enc",
                             train=train, seq_len=ss, device=device,
-                            tp=tp and train)
+                            tp=tp)
         elif lt == "enc" and shape.is_decode:
             continue  # encoder not run at decode
         else:
             lc = layer_cost(cfg, shape, mesh, fsdp=fsdp, ltype=lt,
                             train=train, hybrid=hybrid, device=device,
-                            tp=tp and train)
+                            tp=tp)
         flops += n * lc.flops
         bts += n * lc.bytes
         detail[lt] = {"n": n, "flops": lc.flops, "bytes": lc.bytes,

@@ -27,14 +27,16 @@ count their operand bytes by link class without moving data
   and on a mesh with a pod axis the whole global batch on every rank: the
   JAX smap step's ``manualize`` caveat, mirrored; its cells compress the
   pod hop to int8, as JAX's).
-* prefill / decode: ``steps.make_prefill`` / ``make_serve_step`` on the
-  rank's share of the batch (the input's ``PartitionSpec``, batch
-  replicated when it does not divide), weights sharded at rest by
-  ``param_specs`` and gathered on use (the layer stacks' leaves as each
-  layer runs, the others before the step).  The port's serving steps
-  compute every head on every rank (no tensor-parallel compute), so a
-  rank keeps its streams' whole decode cache: the cache's spec keeps its
-  batch axes only.
+* prefill / decode: ``steps.make_prefill_spmd`` / ``make_serve_step_spmd``,
+  the port's counterparts of the GSPMD serving programs JAX compiles, on
+  the rank's share of the batch (the input's ``PartitionSpec``, batch
+  replicated when it does not divide), its parameter shards
+  (``param_specs``) and, for decode, its shard of the decode cache as
+  ``cache_specs`` cuts it (the prefill returns its shard in that
+  layout): tensor-parallel compute on "model" — every layer on the
+  rank's heads, ``ff`` slice, SSD heads or LRU channels, attention over
+  the rank's slots of a ring whose window axis "model" cuts — and a leaf
+  that FSDP puts on "data" gathered along "data" as its layer runs.
 
 The run's device is ``cuda`` (``--device``): fake tensors on the card's
 routes; where PyTorch was built without CUDA, ``meta``
@@ -48,7 +50,8 @@ JAX record's keys, renamed where the port measures something else:
 ``memory.fits_hbm_80gb`` (the peak against ``trace_analysis.CARD_BYTES``,
 79.18 GiB); ``full_step_cost_analysis.note`` says what the trace counts.
 ``launches`` (kernel -> launches a step), ``trace_device`` and ``rank``
-are added.  A cell ``shape_applicable`` rejects is ``"skipped"`` with its
+are added, and for a serving cell ``cache_bytes``, the rank's share of
+the decode cache (``cache_share_bytes``).  A cell ``shape_applicable`` rejects is ``"skipped"`` with its
 reason.  Multi-pod cells skip the analysis (decomposition and roofline),
 as JAX's do.
 """
@@ -57,6 +60,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import signal
 import sys
@@ -72,13 +76,14 @@ from repro_torch.core.costmodel import model_flops
 from repro_torch.launch import analysis as an
 from repro_torch.launch import sharding as sh
 from repro_torch.launch import trace_analysis as ta
-from repro_torch.launch.inputs import input_specs
+from repro_torch.launch.inputs import ENCDEC_SRC_LEN, input_specs, seq_split
 from repro_torch.launch.mesh import Mesh, make_production_mesh
-from repro_torch.launch.steps import (make_prefill, make_serve_step,
+from repro_torch.launch.steps import (make_prefill_spmd, make_serve_step_spmd,
                                       make_train_step_smap,
-                                      make_train_step_spmd, stacked_gathers)
-from repro_torch.models.params import (STACKED, model_def, torch_dtype,
-                                       tree_map)
+                                      make_train_step_spmd)
+from repro_torch.models import decode as dec
+from repro_torch.models.params import _leaves as _param_leaves
+from repro_torch.models.params import model_def, torch_dtype, tree_map
 from repro_torch.optim.adamw import AdamWConfig
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
@@ -161,36 +166,21 @@ def _build_step(cfg, shape, mesh, *, fsdp, microbatches, opt_impl,
             return (params, opt, glob)
         return step, args
 
-    gspecs = stacked_gathers(mesh, pspecs)
-    top = {k: sh.named(mesh, v) for k, v in pspecs.items()
-           if k not in STACKED}
-
     def local(stand):
-        return _fake(sh.local_shape(stand.shape, sh.batch_only(stand.spec),
-                                    mesh), stand.dtype, device)
+        return _fake(sh.local_shape(stand.shape, stand.spec, mesh),
+                     stand.dtype, device)
 
     if shape.kind == "prefill":
-        inner = make_prefill(cfg, max_len=shape.seq_len,
-                             gather_specs=gspecs)
-
-        def step(params, b):
-            with torch.no_grad():
-                params = dict(params, **{k: sh.gather_tree(params[k], s)
-                                         for k, s in top.items()})
-                return inner(params, b)
+        step = make_prefill_spmd(cfg, mesh, pspecs, shape.seq_len)
 
         def args():
             return (_local_params(cfg, mesh, pspecs, device),
                     {k: local(v) for k, v in batch.items()})
         return step, args
 
-    inner = make_serve_step(cfg, gather_specs=gspecs)
-
-    def step(params, cache, tokens, pos, extras=None):
-        with torch.no_grad():
-            params = dict(params, **{k: sh.gather_tree(params[k], s)
-                                     for k, s in top.items()})
-            return inner(params, cache, tokens, pos, extras)
+    step = make_serve_step_spmd(
+        cfg, mesh, pspecs, shape.seq_len,
+        ENCDEC_SRC_LEN if cfg.family == "encdec" else 0)
 
     def args():
         out = (_local_params(cfg, mesh, pspecs, device),
@@ -200,6 +190,22 @@ def _build_step(cfg, shape, mesh, *, fsdp, microbatches, opt_impl,
             out += ({k: local(v) for k, v in batch["extras"].items()},)
         return out
     return step, args
+
+
+def cache_share_bytes(cfg, shape, mesh: Mesh) -> int:
+    """The bytes of a rank's shard of a serving cell's decode cache, as
+    ``cache_specs`` cuts it: the prefill's output, the token step's input
+    and output (a ``seq_len``-deep context; an encoder-decoder model's
+    source frames as the cell's inputs hold them)."""
+    src = 0
+    if cfg.family == "encdec":
+        src = ENCDEC_SRC_LEN if shape.is_decode else \
+            seq_split(cfg, shape.seq_len)[1]
+    full = dec.abstract_cache(cfg, shape.global_batch, shape.seq_len, src)
+    specs = sh.cache_specs(cfg, mesh, full)
+    return sum(math.prod(sh.local_shape(t.shape, s, mesh)) * t.element_size()
+               for (_, t), (_, s) in zip(_param_leaves(full),
+                                         _param_leaves(specs)))
 
 
 def trace_step(cfg, shape, mesh: Mesh, *, fsdp: bool, microbatches: int = 8,
@@ -279,11 +285,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         },
         "launches": dict(tr.launches),
     }
+    if shape.kind != "train":
+        rec["cache_bytes"] = cache_share_bytes(cfg, shape, mesh)
 
     if not skip_analysis:
         t1 = time.time()
         dc = an.decomposed_cost(cfg, shape, mesh, fsdp=fsdp, device=device,
-                                tp=train_impl == "gspmd")
+                                tp=train_impl == "gspmd"
+                                or shape.kind != "train")
         mf = model_flops(cfg, shape)
         hbm_lb = an.analytic_hbm_bytes(
             cfg, shape, mesh, fsdp=fsdp,

@@ -20,8 +20,9 @@ ranks that hold its parts; ``gather_on_use`` does so inside the
 differentiated region, and its backward sums the gradient over the batch
 axes (the ranks that saw other rows) and keeps this rank's slice.  Where
 a leaf is gathered along ``model`` (every leaf in the smap step; in
-``launch.steps.make_train_step_spmd``, which splits every layer type,
-only an SSD layer's whose heads the axis does not divide) every rank of
+``launch.steps.make_train_step_spmd`` and the spmd serving steps, which
+split every layer type, only an SSD layer's whose heads the axis does
+not divide) every rank of
 the axis repeats the compute, so the numerics equal GSPMD's up to the
 order of reductions.  ``RowGroup`` reduces a row maximum across the ranks a
 sharded last axis spreads it over: the 8-bit moments' and the int8

@@ -9,6 +9,7 @@ steps update the pool in place, and each returns what it updated.
 from __future__ import annotations
 
 import functools
+import types
 
 import torch
 
@@ -158,8 +159,8 @@ def _with_ef(train_step, ef_transform):
 
 
 def stacked_gathers(mesh, pspecs):
-    """``gather_specs`` for ``loss_fn`` and the serving steps: a gather on
-    use (``sharding.gather_on_use``) for each leaf of the stacked subtrees
+    """``gather_specs`` for ``loss_fn`` in the smap step: a gather on use
+    (``sharding.gather_on_use``) for each leaf of the stacked subtrees
     (``layers``, ``groups``, ``enc_layers``, ``dec_layers``), under its
     spec without the layer axis."""
     return {key: tree_map(
@@ -348,15 +349,17 @@ def tp_layer_types(cfg: ModelConfig, mesh):
     return ("attn", "rec", "enc", "dec") + (("ssd",) if heads else ())
 
 
-def tensor_parallel(cfg: ModelConfig, mesh):
+def tensor_parallel(cfg: ModelConfig, mesh, means: bool = True):
     """The ``TensorParallel`` of ``make_train_step_spmd`` on ``mesh``'s
     comm: the logical axes ``axis_rules`` cuts over "model", the batch
-    over the mesh's batch axes."""
+    over the mesh's batch axes; ``means=False`` for the serving steps (no
+    batch means)."""
     from repro_torch.models.tensor_parallel import TensorParallel
     rules = sh.axis_rules(cfg, mesh, fsdp=False)
     return TensorParallel(mesh.comm(), [k for k, v in rules.items()
                                         if k is not None and v == "model"],
-                          [a for a in sh.BATCH_AXES if a in mesh.axis_names])
+                          [a for a in sh.BATCH_AXES if a in mesh.axis_names],
+                          means=means)
 
 
 def _by_split(cfg: ModelConfig, mesh, pspecs, fn):
@@ -505,6 +508,131 @@ def make_train_step_spmd(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
         return params, opt_state, metrics
 
     return _with_ef(train_step, ef_transform)
+
+
+_LAYER_LEAF = {"cross_k": "ck", "cross_v": "cv"}
+
+
+def cache_cuts(cfg: ModelConfig, mesh, max_len: int, src_len: int = 0):
+    """The dims of the decode cache that ``sharding.cache_specs`` cuts over
+    "model" on ``mesh``, for a context of ``max_len`` (and, for an
+    encoder-decoder model, ``src_len`` source frames): {a layer's cache
+    leaf name (``cross_k`` / ``cross_v`` as its ``ck`` / ``cv``): the dim,
+    counted from the end} — the rings' window axis, the cross keys' and
+    values' source axis, the states' heads or channels, each only where
+    "model" divides it; none where "model" holds one rank."""
+    if mesh.shape["model"] == 1:
+        return {}
+    spec = dec.cache_view_specs(cfg, max_len, src_len)
+    specs = sh.cache_specs(cfg, mesh, dec.tree_from_leaves(
+        spec, [types.SimpleNamespace(shape=shp) for shp in spec.shapes]))
+    out = {}
+    for path, shp, ps in zip(spec.paths, spec.shapes,
+                             dec.tree_leaves(specs, spec)):
+        for i, e in enumerate(ps):
+            if "model" in sh.entry_axes(e):
+                out[_LAYER_LEAF.get(path[-1], path[-1])] = i - len(shp)
+    return out
+
+
+def _serving_params(cfg: ModelConfig, mesh, pspecs):
+    """(top, gather_specs) of the spmd serving steps: ``top(params)``
+    gathers the top-level leaves on use and the stacked layers' are
+    gathered as each layer runs — over their batch axes only ("data"
+    under FSDP) where the rank computes on its model shards, over every
+    axis elsewhere (``spmd_gathers``, the spmd train step's)."""
+    gat = spmd_gathers(cfg, mesh, pspecs)
+
+    def top(params):
+        return {k: v if k in STACKED else tree_map(lambda w, f: f(w), v,
+                                                    gat[k])
+                for k, v in params.items()}
+    return top, {k: v for k, v in gat.items() if k in STACKED}
+
+
+def make_prefill_spmd(cfg: ModelConfig, mesh, pspecs, max_len: int):
+    """The port's counterpart of the JAX package's ``make_prefill`` jitted
+    with the ``param_specs`` and ``batch_specs`` shardings (GSPMD), the
+    decode cache laid out by ``cache_specs``: every rank of ``mesh`` runs
+    its part of it, on ``torch.distributed`` (``mesh.comm()``).
+
+    (params, batch) -> (logits (B, V), cache): this rank's parameter
+    shards (``pspecs``), its rows of the batch as ``batch_specs`` cuts it
+    over the mesh's batch axes — the prompts ``tokens`` and the family's
+    extras, as ``make_prefill`` takes them (an MoE block routes the
+    global batch's rows jointly, as the spmd train step's) — the logits
+    of its rows over the whole
+    vocabulary on every rank of "model", and its shard of the decode cache
+    of capacity ``max_len`` (``cache_cuts``): the attention rings' window
+    axis cut over "model", every kv head in each slice; the cross keys
+    and values' source axis; the states' heads or channels.
+
+    The forward is the spmd train step's (``tensor_parallel``, with no
+    batch means): the vocabulary-parallel embedding, every layer on the
+    rank's heads, ``ff`` slice, SSD heads or LRU channels, through the
+    flash, SSD and LRU kernels on the card; a leaf the specs put on
+    "data" (FSDP) gathered along "data" as its layer runs, and a layer
+    leaf gathered along "model" only for an SSD layer whose heads the
+    axis does not divide (``tp_layer_types``).  Each attention layer's
+    keys and values, computed for the rank's kv heads, are ring-arranged,
+    gathered over "model" and cut to the rank's window slice as the layer
+    finishes (``decode._kv_part``), so no (L, B, S, ...) is held."""
+    tp = tensor_parallel(cfg, mesh, means=False)
+    top, gtree = _serving_params(cfg, mesh, pspecs)
+    cuts = {}
+
+    @torch.no_grad()
+    def serve_prefill(params, batch):
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
+        src = extras["frame_embeds"].shape[1] if "frame_embeds" in extras \
+            else 0
+        if src not in cuts:
+            cuts[src] = cache_cuts(cfg, mesh, max_len, src)
+        return dec.prefill(top(params), cfg, batch["tokens"], extras,
+                           max_len=max_len, gather_specs=gtree, tp=tp,
+                           cut=cuts[src])
+
+    return serve_prefill
+
+
+def make_serve_step_spmd(cfg: ModelConfig, mesh, pspecs, max_len: int,
+                         src_len: int = 0):
+    """The port's counterpart of the JAX package's ``make_serve_step``
+    jitted with the ``param_specs``, ``batch_specs`` and ``cache_specs``
+    shardings: (params, cache, tokens, pos[, extras]) -> (logits (B, V),
+    cache'), every rank of ``mesh`` on its parameter shards, its rows of
+    ``tokens`` (B, 1), ``pos`` (B,) and a VLM's ``position_ids`` (3, B,
+    1), and its shard of the decode cache of capacity ``max_len`` (and
+    ``src_len`` source frames) as ``cache_specs`` cuts it, written in
+    place; the logits of its rows over the whole vocabulary on every rank
+    of "model".
+
+    Every layer computes on the rank's model shards, as the spmd prefill's
+    (``make_prefill_spmd``; the MoE experts dropless on the rank's ``ff``
+    slice).  Attention (``decode._decode_attn_tp``): the token's q of the
+    rank's heads and its k and v of every kv head (gathered where the
+    specs cut ``wk`` / ``wv``, computed whole where they are replicated),
+    written by the rank that holds slot ``pos % W``; q gathered over
+    "model", each rank scores its own slots at their absolute positions
+    and the ranks' softmax parts are combined over "model"
+    (``layers.split_decode_attention``: an all-reduce of the maxima, then
+    of the rescaled sums and outputs); each rank's heads then go through
+    its ``wo`` rows, summed over "model".  The cross-attention does the
+    same over its cut source frames.  Where "model" does not divide a
+    cache leaf's axis, the rank holds it whole and nothing is combined.
+    The SSD and RG-LRU layers update the rank's heads' and channels'
+    state; an SSD layer computed whole gathers its cut state leaves and
+    keeps its slices of the new ones."""
+    tp = tensor_parallel(cfg, mesh, means=False)
+    top, gtree = _serving_params(cfg, mesh, pspecs)
+    cut = cache_cuts(cfg, mesh, max_len, src_len)
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos, extras=None):
+        return dec.decode_step(top(params), cfg, cache, tokens, pos, extras,
+                               gather_specs=gtree, tp=tp, cut=cut)
+
+    return serve_step
 
 
 def _microbatch(batch, j: int, m: int):

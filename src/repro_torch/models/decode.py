@@ -25,6 +25,11 @@ layer's experts run dropless in every serving step (capacity = the step's
 tokens, as the JAX steps call them); whole-prompt ``prefill`` goes through
 ``forward`` and so keeps the configured capacity, as in the JAX package.
 
+The single-token step and whole-prompt prefill also run as a rank's part
+of the spmd serving steps (``tp``, ``cut``: ``launch.steps``
+``make_serve_step_spmd`` / ``make_prefill_spmd``), on the rank's
+parameter shards and its shard of the cache.
+
 Where the JAX package updates arrays functionally (``.at[].set``) under
 buffer donation, the port writes in place and says so: the pool storage
 ops mutate the pool, and the steps update the cache they are given and
@@ -581,10 +586,11 @@ def chunk_decode_step(params, cfg: ModelConfig, spec: CacheViewSpec, cache,
     return logits, cache
 
 
-def _ffn_out(h, lp, cfg: ModelConfig, ln="ln2"):
-    """The residual feed-forward of a serving step: MoE layers dropless."""
+def _ffn_out(h, lp, cfg: ModelConfig, ln="ln2", tp=None):
+    """The residual feed-forward of a serving step: MoE layers dropless.
+    ``tp``: split over the model axis where the specs cut ``ff``."""
     f, _ = _ffn(L.rms_norm(h, lp[ln], cfg.norm_eps), lp, cfg,
-                dropless=True)
+                dropless=True, tp=tp)
     return h + f
 
 
@@ -601,35 +607,113 @@ def _step_rope(cfg: ModelConfig, q_pos, extras):
     return rope_for(cfg, q_pos)
 
 
-def _cross_attention(h, lp, lc, cfg: ModelConfig, decode: bool):
+def _cross_attention(h, lp, lc, cfg: ModelConfig, decode: bool, tp=None,
+                     cut=None):
     """A decoder layer's residual cross-attention over its static encoder
     keys and values ``lc["ck"]``, ``lc["cv"]`` (B, S_src, H, dh): a
     single-token step's by ``decode_attention`` with every source frame
     visible (``q_pos`` 2**30), as in the JAX package; a chunk's by the
-    flash kernel, non-causal, Sq = C."""
+    flash kernel, non-causal, Sq = C.  ``tp``, ``cut``: the spmd token
+    step's (``_attend``), the source frames in place of the ring."""
     xin = L.rms_norm(h, lp["ln2"], cfg.norm_eps)
     if not decode:
         c, _ = attn_block(xin, lp["cross"], cfg, None, causal=False,
                           kv=(lc["ck"], lc["cv"]))
         return h + c
     B, S_src = h.shape[0], lc["ck"].shape[1]
-    cq = _cross_proj(xin, lp["cross"]["wq"])
     src_pos = torch.arange(S_src, device=h.device)[None].expand(B, S_src)
-    co = L.decode_attention(cq, lc["ck"], lc["cv"], src_pos,
-                            torch.full((B,), 2 ** 30, device=h.device))
-    return h + _attn_out(co, lp["cross"], h.dtype)
+    q_pos = torch.full((B,), 2 ** 30, device=h.device)
+    if tp is None:
+        cq = _cross_proj(xin, lp["cross"]["wq"])
+        co = L.decode_attention(cq, lc["ck"], lc["cv"], src_pos, q_pos)
+        return h + _attn_out(co, lp["cross"], h.dtype)
+    heads = tp.splits("heads")
+    cq = _cross_proj(tp.copy(xin) if heads else xin, lp["cross"]["wq"])
+    return h + _attend(cq, lc["ck"], lc["cv"], src_pos, q_pos, lp["cross"],
+                       cfg, tp, "ck" in cut, h.dtype)
 
 
-def _decode_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos):
-    """One layer of the single-token step."""
+def _attend(q, kc, vc, kv_pos, q_pos, p, cfg: ModelConfig, tp, split: bool,
+            dtype, window=0):
+    """The spmd token step's attention output: ``q`` the rank's heads
+    (gathered here) or every head, over the rank's slots of a ring cut
+    over the model axis (``split``: ``layers.split_decode_attention``)
+    or over the whole ring; then the rank's heads into the row-parallel
+    ``wo``, summed over the axis."""
+    heads = tp.splits("heads")
+    if heads:
+        q = tp.gather(q, 2)
+    if split:
+        o = L.split_decode_attention(q, kc, vc, kv_pos, q_pos, tp,
+                                     window=window)
+    else:
+        o = L.decode_attention(q, kc, vc, kv_pos, q_pos, window=window)
+    if not heads:
+        return _attn_out(o, p, dtype)
+    return tp.reduce(_attn_out(o[:, :, tp.heads(cfg.n_heads)], p, dtype))
+
+
+def _decode_attn_tp(x, lp, lc, cfg: ModelConfig, t: str, rope, pos, tp,
+                    cut):
+    """The spmd token step's self-attention (residual added) and its new
+    ring: the token's q for the rank's heads, its k and v for every kv
+    head — gathered where the specs cut ``wk`` / ``wv``, computed whole
+    where they are replicated — written by the rank that holds slot
+    ``pos % W`` (``cut["k"]``: the ring's window cut over the axis; else
+    every rank holds the whole ring)."""
+    xin = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    p = lp["attn"]
+    heads = tp.splits("heads")
+    q, k, v = _attn_proj(tp.copy(xin) if heads else xin, p, rope, cfg=cfg)
+    if heads and tp.splits("kv_heads"):
+        k, v = tp.gather(k, 2), tp.gather(v, 2)
+    split = "k" in cut
+    Wl = lc["k"].shape[1]
+    W, first = (Wl * tp.size, tp.rank * Wl) if split else (Wl, 0)
+    kc, vc = L.cache_update(lc["k"], lc["v"], k, v, pos, width=W,
+                            first=first)
+    kv_pos = L.cache_positions(pos, W, first, Wl)
+    o = _attend(q, kc, vc, kv_pos, pos, p, cfg, tp, split, x.dtype,
+                window=_window(cfg, t))
+    return x + o, {"k": kc, "v": vc}
+
+
+def _decode_whole(step, lc, tp, cut):
+    """``step(layer cache)`` of a layer that the spmd token step computes
+    whole on every rank (an SSD layer whose heads the model axis does not
+    divide): the rank's state leaves that ``cut`` cuts over the axis are
+    gathered first and its slices of the new state kept."""
+    whole = {k: tp.gather(v, cut[k]) if k in cut else v
+             for k, v in lc.items()}
+    y, st = step(whole)
+    return y, {k: v.narrow(cut[k], tp.rank * lc[k].shape[cut[k]],
+                           lc[k].shape[cut[k]]) if k in cut else v
+               for k, v in st.items()}
+
+
+def _decode_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos, tp=None,
+                  cut=None):
+    """One layer of the single-token step.  ``tp``: the spmd token step's
+    (``decode_step``); ``cut``: its cache leaves' dims cut over the model
+    axis."""
     if t == "ssd":
-        s, st = ssd_mod.ssd_decode_step(
-            L.rms_norm(x, lp["ln"], cfg.norm_eps), lp["ssd"], cfg, lc)
+        xn = L.rms_norm(x, lp["ln"], cfg.norm_eps)
+        if tp is not None and not tp.splits("ssd_heads"):
+            s, st = _decode_whole(lambda c: ssd_mod.ssd_decode_step(
+                xn, lp["ssd"], cfg, c), lc, tp, cut)
+        else:
+            s, st = ssd_mod.ssd_decode_step(xn, lp["ssd"], cfg, lc, tp)
         return x + s, st
     if t == "rec":
         r, st = rglru_mod.rglru_decode_step(
-            L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["rec"], cfg, lc)
-        return _ffn_out(x + r, lp, cfg), st
+            L.rms_norm(x, lp["ln1"], cfg.norm_eps), lp["rec"], cfg, lc, tp)
+        return _ffn_out(x + r, lp, cfg, tp=tp), st
+    if tp is not None:
+        h, st = _decode_attn_tp(x, lp, lc, cfg, t, rope, pos, tp, cut)
+        if t == "dec":
+            h = _cross_attention(h, lp, lc, cfg, True, tp, cut)
+            return _ffn_out(h, lp, cfg, "ln3", tp), st
+        return _ffn_out(h, lp, cfg, tp=tp), st
     xin = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = _attn_proj(xin, lp["attn"], rope, cfg=cfg)
     kc, vc = L.cache_update(lc["k"], lc["v"], k, v, pos)
@@ -643,20 +727,36 @@ def _decode_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos):
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, pos, extras=None,
-                gather_specs=None):
+                gather_specs=None, tp=None, cut=None):
     """One token for every stream.  tokens: (B, 1); pos: (B,) absolute;
     ``extras``: a VLM's ``position_ids`` (3, B, 1), else M-RoPE takes
     ``pos``; ``gather_specs``: see ``_layer_stack``.  Writes each layer's
     ring or state in ``cache`` in place and returns (logits (B, V) f32,
-    cache)."""
-    x = embed_tokens(params, cfg, tokens)
+    cache).
+
+    ``tp`` (``launch.steps.make_serve_step_spmd``): a rank's part of the
+    tensor-parallel step, on its parameter shards and its cache shard,
+    whose leaves ``cut`` (per-layer leaf name -> dim, counted from the
+    end) cuts over the model axis: the embedding and head
+    vocabulary-parallel (the logits gathered), every layer on the rank's
+    heads, ``ff`` slice, SSD heads or LRU channels, attention over the
+    rank's slots (``_decode_attn_tp``)."""
+    x = embed_tokens(params, cfg, tokens, tp)
     rope = _step_rope(cfg, pos[:, None], extras)
     x = _layer_stack(params, cfg, cache, x,
                      lambda x, lp, lc, t: _decode_layer(x, lp, lc, cfg, t,
-                                                        rope, pos),
+                                                        rope, pos, tp, cut),
                      gather_specs)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return head_logits(params, cfg, x[:, 0]), cache
+    return _logits(params, cfg, x[:, 0], tp), cache
+
+
+def _logits(params, cfg: ModelConfig, x, tp=None):
+    """``head_logits`` of ``x`` (B, D) over the whole vocabulary: with
+    ``tp`` the rank's vocabulary slice, gathered over the model axis."""
+    if tp is None:
+        return head_logits(params, cfg, x)
+    return tp.gather(head_logits(params, cfg, tp.copy(x), tp), -1)
 
 
 def _chunk_layer(x, lp, lc, cfg: ModelConfig, t: str, rope, pos, n_tokens,
@@ -737,15 +837,47 @@ def _ring_arrange(kv, W: int):
     return torch.roll(kv[:, -W:], shifts=(S - W) % W, dims=1).contiguous()
 
 
-def _state_to_cache(cfg: ModelConfig, st, lt: str, max_len: int):
+def _kv_part(kv, cfg: ModelConfig, tp, dim, W=0):
+    """The spmd prefill's keys or values (B, S, ·, dh) of the rank's kv
+    heads (where the specs cut the heads) in the rank's part of the cache
+    layout: ring-arranged to ``W`` (0: the source frames, as they are),
+    every kv head gathered, then the rank's slice of ``dim`` (None: the
+    whole) — one layer at a time."""
+    if W:
+        kv = _ring_arrange(kv, W)
+    if tp.splits("heads"):
+        kv = tp.all_kv_heads(kv, cfg.n_heads, cfg.n_kv_heads)
+    if dim is not None:
+        n = kv.shape[dim] // tp.size
+        kv = kv.narrow(dim, tp.rank * n, n)
+    # a copy: a slice of the gathered heads (or a window slice of one
+    # stream, which is contiguous) would keep all of them alive
+    return kv.clone(memory_format=torch.contiguous_format)
+
+
+_SPLITS = {"ssd": "ssd_heads", "rec": "lru"}
+
+
+def _state_to_cache(cfg: ModelConfig, st, lt: str, max_len: int, tp=None,
+                    cut=None):
     """One layer's prefill state in its decode-cache form: attention keys
     and values ring-arranged to the layer's cache width (a hybrid's local
     window folded in by ``_attn_cache_width``); recurrent and SSD states
     as they are, but a conv tail of a prompt shorter than the conv's K-1
-    inputs front-padded with the zeros a fresh state holds."""
+    inputs front-padded with the zeros a fresh state holds.  ``tp``,
+    ``cut``: the spmd prefill's — the rank's part of each leaf as ``cut``
+    cuts it (``_kv_part``; a recurrent or SSD layer computed on the
+    rank's shards holds it already, one computed whole is sliced)."""
     if lt == "attn":
         W = _attn_cache_width(cfg, max_len)
+        if tp is not None:
+            return {n: _kv_part(st[n], cfg, tp, cut.get(n), W)
+                    for n in ("k", "v")}
         return {"k": _ring_arrange(st["k"], W), "v": _ring_arrange(st["v"], W)}
+    if tp is not None and not tp.splits(_SPLITS[lt]):
+        st = {k: v.narrow(cut[k], tp.rank * (v.shape[cut[k]] // tp.size),
+                          v.shape[cut[k]] // tp.size).clone()
+              if k in cut else v for k, v in st.items()}
     K = cfg.conv_width
     return {k: (torch.nn.functional.pad(v, (0, 0, K - 1 - v.shape[1], 0))
                 if k.startswith("conv") and v.shape[1] < K - 1
@@ -754,7 +886,7 @@ def _state_to_cache(cfg: ModelConfig, st, lt: str, max_len: int):
 
 
 def prefill(params, cfg: ModelConfig, tokens, extras=None, *, max_len: int,
-            gather_specs=None):
+            gather_specs=None, tp=None, cut=None):
     """Process whole prompts: (logits (B, V) after the last token, the
     decode cache shaped like ``init_cache(cfg, B, max_len)``).  tokens:
     (B, S); ``extras`` the forward's (a VLM's ``vision_embeds`` and
@@ -764,38 +896,48 @@ def prefill(params, cfg: ModelConfig, tokens, extras=None, *, max_len: int,
     their kernels on the card — and ring-arranges each layer's keys and
     values as the layer finishes, so a windowed cache never holds (L, B,
     S, ...).  ``gather_specs`` goes to the forward (the per-layer gather
-    points, ``transformer._wsc_tree``)."""
+    points, ``transformer._wsc_tree``).  ``tp``, ``cut``
+    (``launch.steps.make_prefill_spmd``): the rank's part of the
+    tensor-parallel forward, whose cache comes out as the rank's shard:
+    each leaf's dims that ``cut`` names cut over the model axis, laid out
+    layer by layer (``_state_to_cache``)."""
     extras = extras or {}
     if cfg.family == "encdec":
         return encdec_prefill(params, cfg, extras["frame_embeds"], tokens,
-                              max_len=max_len, gather_specs=gather_specs)
+                              max_len=max_len, gather_specs=gather_specs,
+                              tp=tp, cut=cut)
     x, states, _ = forward(params, cfg, tokens, extras, return_states=True,
                            state_fn=lambda st, t: _state_to_cache(
-                               cfg, st, t, max_len),
-                           gather_specs=gather_specs)
+                               cfg, st, t, max_len, tp, cut),
+                           gather_specs=gather_specs, tp=tp)
     with torch.no_grad():
-        logits = head_logits(params, cfg, x[:, -1])
+        logits = _logits(params, cfg, x[:, -1], tp)
     return logits, states
 
 
 def encdec_prefill(params, cfg: ModelConfig, frame_embeds, tokens, *,
-                   max_len: int, gather_specs=None):
+                   max_len: int, gather_specs=None, tp=None, cut=None):
     """Encode the source ``frame_embeds`` (B, S_src, D), run the decoder
     over the target prefix ``tokens`` (B, S), and build the decode cache
     (``init_cache(cfg, B, max_len, S_src)``'s layout): each layer's
     cross-attention keys and values, and its self-attention keys and
     values ring-arranged to ``max_len`` as the layer finishes.  Returns
-    (logits (B, V) after the last token, cache)."""
+    (logits (B, V) after the last token, cache).  ``tp``, ``cut``: as
+    ``prefill``'s (the cross keys and values cut on their source axis)."""
     def state_fn(st):
+        if tp is not None:
+            return {n: _kv_part(st[n], cfg, tp, cut.get(n),
+                                max_len if n in ("k", "v") else 0)
+                    for n in ("k", "v", "ck", "cv")}
         return {"k": _ring_arrange(st["k"], max_len),
                 "v": _ring_arrange(st["v"], max_len),
                 "ck": st["ck"], "cv": st["cv"]}
 
     with torch.no_grad():
-        enc_out = encode(params, cfg, frame_embeds, gather_specs)
+        enc_out = encode(params, cfg, frame_embeds, gather_specs, tp)
         x, states = decoder_forward(params, cfg, tokens, enc_out,
                                     return_states=True, state_fn=state_fn,
-                                    gather_specs=gather_specs)
-        logits = head_logits(params, cfg, x[:, -1])
+                                    gather_specs=gather_specs, tp=tp)
+        logits = _logits(params, cfg, x[:, -1], tp)
     return logits, {"cross_k": states["ck"], "cross_v": states["cv"],
                     "self": {"k": states["k"], "v": states["v"]}}

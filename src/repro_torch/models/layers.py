@@ -212,6 +212,22 @@ def mlp_apply(x, params, activation: str, tp=None):
 # Attention
 # ---------------------------------------------------------------------------
 
+def _decode_scores(q, k_cache, kv_positions, q_pos, window, softcap):
+    """(scores (B, Hkv, G, W) float32, NEG_INF where a slot is not
+    visible; the visible slots (B, 1, 1, W)) of a single-token query."""
+    B, _, Hq, dh = q.shape
+    Hkv = k_cache.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, dh).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * dh ** -0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    valid = (kv_positions >= 0) & (kv_positions <= q_pos[:, None])
+    if window:
+        valid &= kv_positions > (q_pos[:, None] - window)
+    valid = valid[:, None, None, :]
+    return torch.where(valid, s, NEG_INF), valid
+
+
 def decode_attention(q, k_cache, v_cache, kv_positions, q_pos, *,
                      window=0, softcap=0.0):
     """Single-token attention over a (ring-buffer) cache.
@@ -220,18 +236,42 @@ def decode_attention(q, k_cache, v_cache, kv_positions, q_pos, *,
     absolute positions stored in each slot (negative = empty); q_pos: (B,).
     """
     B, _, Hq, dh = q.shape
-    _, W, Hkv, _ = k_cache.shape
-    G = Hq // Hkv
-    qg = q.reshape(B, Hkv, G, dh).float()
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * dh ** -0.5
-    if softcap:
-        s = softcap * torch.tanh(s / softcap)
-    valid = (kv_positions >= 0) & (kv_positions <= q_pos[:, None])
-    if window:
-        valid &= kv_positions > (q_pos[:, None] - window)
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    s, _ = _decode_scores(q, k_cache, kv_positions, q_pos, window, softcap)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, Hq, dh).to(q.dtype)
+
+
+def decode_attention_parts(q, k_cache, v_cache, kv_positions, q_pos, *,
+                           window=0, softcap=0.0):
+    """``decode_attention`` over a part of the ring (its slots, with their
+    absolute positions), before the normalisation: (running max (B, Hkv,
+    G), sum (B, Hkv, G), unnormalised output (B, Hkv, G, dh)), float32.  A
+    part with no visible slot gives max NEG_INF, sum 0 and output 0, so it
+    adds no weight when the parts are combined."""
+    s, valid = _decode_scores(q, k_cache, kv_positions, q_pos, window,
+                              softcap)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return m, p.sum(dim=-1), o
+
+
+def split_decode_attention(q, k_cache, v_cache, kv_positions, q_pos, tp, *,
+                           window=0, softcap=0.0):
+    """``decode_attention`` over a ring whose slots are cut over ``tp``'s
+    axis: each rank scores its slots (``decode_attention_parts``), the
+    ranks' maxima are reduced, then their sums and outputs rescaled to
+    that maximum and summed: two all-reduces over the axis.  ``q`` holds
+    every head; a query with no visible slot on any rank gives 0."""
+    B, _, Hq, dh = q.shape
+    m, l, o = decode_attention_parts(q, k_cache, v_cache, kv_positions,
+                                     q_pos, window=window, softcap=softcap)
+    scale = torch.exp(m - tp.pmax(m))
+    both = tp.reduce(torch.cat([(l * scale)[..., None],
+                                o * scale[..., None]], dim=-1))
+    l, o = both[..., :1], both[..., 1:]
+    out = torch.where(l > 0, o / l.clamp_min(torch.finfo(l.dtype).tiny), 0.0)
     return out.reshape(B, 1, Hq, dh).to(q.dtype)
 
 
@@ -266,17 +306,31 @@ def chunk_attention(q, k_new, v_new, k_cache, v_cache, pos, n_tokens, *,
 # Ring-buffer KV cache helpers
 # ---------------------------------------------------------------------------
 
-def cache_update(k_cache, v_cache, k_new, v_new, pos):
+def cache_update(k_cache, v_cache, k_new, v_new, pos, *, width=None,
+                 first=0):
     """Write one token at ring slot pos % W, per batch element.
 
     caches: (B, W, Hkv, dh); k_new/v_new: (B, 1, Hkv, dh); pos: (B,).
+    ``width``: the caches hold the part of a ring of ``width`` slots that
+    starts at slot ``first`` (a rank's part of a ring cut over a mesh
+    axis); a stream whose slot lies outside it writes nothing.  The whole
+    ring's write (no ``width``) skips that test: it would add a gather
+    and a select of each cache a layer to the unsharded token step, whose
+    time is the host's launches.
     """
     B, W = k_cache.shape[:2]
     rows = torch.arange(B, device=k_cache.device)
-    slot = pos.long() % W
     k_out, v_out = k_cache.clone(), v_cache.clone()
-    k_out[rows, slot] = k_new[:, 0]
-    v_out[rows, slot] = v_new[:, 0]
+    if width is None:
+        slot = pos.long() % W
+        k_out[rows, slot] = k_new[:, 0]
+        v_out[rows, slot] = v_new[:, 0]
+        return k_out, v_out
+    local = pos.long() % width - first
+    mine = ((local >= 0) & (local < W))[:, None, None]
+    slot = local.clamp(0, W - 1)
+    k_out[rows, slot] = torch.where(mine, k_new[:, 0], k_cache[rows, slot])
+    v_out[rows, slot] = torch.where(mine, v_new[:, 0], v_cache[rows, slot])
     return k_out, v_out
 
 
@@ -304,13 +358,15 @@ def cache_update_chunk(k_cache, v_cache, k_new, v_new, pos, n_tokens):
     return k_out, v_out
 
 
-def cache_positions(pos, W):
+def cache_positions(pos, W, first=0, n=None):
     """Absolute position stored at each ring slot after writing ``pos``.
 
     pos: (B,) current (just-written) position.  Slot s holds the largest
     p <= pos with p % W == s; slots never written hold negative values.
+    ``first``, ``n``: only the ``n`` slots from ``first`` on (B, n).
     """
-    slots = torch.arange(W, device=pos.device)
+    slots = torch.arange(first, first + (W if n is None else n),
+                         device=pos.device)
     p = pos.long()[:, None]
     return p - ((p - slots[None, :]) % W)
 

@@ -57,7 +57,10 @@ claim's slot counts the claims on its expert of the lower batch shards'
 rows too (their per-expert counts, gathered over the batch axes), so a
 rank keeps exactly the claims that the global routing keeps.  Its slot
 buffer holds only its own kept claims: at most ``min(C, T)`` an expert
-for its T tokens, since a token claims an expert once.
+for its T tokens, since a token claims an expert once.  The serving
+steps' ``tp`` (``means=False``) leaves the balance terms the rank's own,
+and a dropless block keeps every claim without the other shards' counts:
+they add no collective whose result they discard.
 
 Top-K takes the lower expert index first among equal logits, as
 ``lax.top_k`` does (``torch.topk`` does not promise an order among
@@ -96,9 +99,10 @@ def moe_block_apply(xblk, params, *, n_experts: int, top_k: int,
                     dropless: bool = False, tp=None, joint: bool = False):
     """One token block, each row routed alone.  xblk: (B, T, D) -> (B, T,
     D), {"lb_loss", "dropped"}.  ``dropless`` sets the capacity to T, so
-    no claim is dropped (the serving steps).  ``tp``: see the module
-    note; ``joint`` (B = 1): the T tokens are this rank's share of a
-    block that the global batch's rows route jointly."""
+    no claim is dropped (the serving steps; a rank's claims then need no
+    count of the other batch shards').  ``tp``: see the module note;
+    ``joint`` (B = 1): the T tokens are this rank's share of a block that
+    the global batch's rows route jointly."""
     B, T, D = xblk.shape
     split = tp is not None and tp.splits("ff")
     shards = tp.batch_shards if tp is not None and joint else 1
@@ -119,7 +123,7 @@ def moe_block_apply(xblk, params, *, n_experts: int, top_k: int,
         .long()                                              # (B, TK, E)
     pos = (onehot.cumsum(1) - onehot).gather(-1, expert[..., None])[..., 0]
     glob = pos
-    if shards > 1:              # after the lower batch shards' claims
+    if shards > 1 and not dropless:   # after the lower shards' claims
         every = tp.comm.all_gather(onehot.sum(1), tp.batch_axes, 0)  # (n, E)
         before = every[:tp.comm.index(tp.batch_axes)].sum(0)
         glob = pos + before.gather(0, expert.reshape(-1)).reshape(B, T * K)

@@ -19,7 +19,8 @@ Recurrence (per channel):
   the serving steps from a carried state.  The chunk step's scan from the
   carried ``h`` is ``ops.lru_scan`` with ``h0`` — the function the JAX
   step's ``lax.associative_scan`` over [(1, h), (a_t, b_t)...] computes —
-  so on the card it launches the same kernel.
+  so on the card it launches the same kernel.  ``rglru_decode_step``
+  takes ``tp`` (the spmd token step) as the block does.
 
 The gates are float32 matmuls on ``u`` (the JAX code casts both operands
 to float32); the in-projections and the gate branch give float32 output
@@ -156,13 +157,26 @@ def rglru_chunk_step(x, params, cfg, state, n_tokens):
     return _out(h, gate, params, x.dtype), {"h": h_last, "conv": new_conv}
 
 
-def rglru_decode_step(x_t, params, cfg, state):
-    """x_t: (B, 1, D); state: {"h": (B, W) f32, "conv": (B, K-1, W)}."""
-    gate, u = _branches(x_t[:, 0], params)
+def rglru_decode_step(x_t, params, cfg, state, tp=None):
+    """x_t: (B, 1, D); state: {"h": (B, W) f32, "conv": (B, K-1, W)}.
+    ``tp`` (the spmd token step), where the specs cut ``lru``: the rank's
+    channels, as ``rglru_block_apply`` splits them, from its channels of
+    the state; the gates read the conv output gathered over the axis.
+    The gates' GEMMs read ``u`` row-major on both routes (the conv's
+    einsum leaves it column-major; the gather's output is row-major): on
+    the card the operands' layout picks the GEMM kernel, and so its
+    rounding."""
+    if tp is not None and not tp.splits("lru"):
+        tp = None
+    xt = tp.copy(x_t[:, 0]) if tp is not None else x_t[:, 0]
+    gate, u = _branches(xt, params)
     u, conv_state = conv1d_step(u, state["conv"], params["conv_w"],
                                 params["conv_b"])
-    log_a, i_gate = _gates(u, params)
+    log_a, i_gate = _gates(tp.gather(u, -1) if tp is not None
+                           else u.contiguous(), params)
     a, b = _decay_input(log_a, i_gate, u)
     h = a * state["h"] + b
     y = _out(h, gate, params, x_t.dtype)
+    if tp is not None:
+        y = tp.reduce(y)
     return y[:, None, :], {"h": h, "conv": conv_state}

@@ -16,7 +16,8 @@
   row-parallel.
 * ``ssd_init_state``, ``ssd_chunk_step`` and ``ssd_decode_step``: the
   serving steps from a carried state (torch ops, as the JAX package's run
-  jnp: no kernel has an initial-state entry point).
+  jnp: no kernel has an initial-state entry point); ``ssd_decode_step``
+  takes ``tp`` (the spmd token step) as the block does.
 
 params (per layer):
   wz, wx: (D, di)     wB, wC: (D, G*N)     wdt: (D, H)
@@ -263,35 +264,59 @@ def ssd_chunk_step(x, params, cfg, state, n_tokens):
     return out, {"ssm": h, "conv_x": cx, "conv_B": cb, "conv_C": cc}
 
 
-def ssd_decode_step(x_t, params, cfg, state):
-    """One decode step.  x_t: (B, 1, D); state from ``ssd_init_state``."""
+def ssd_decode_step(x_t, params, cfg, state, tp=None):
+    """One decode step.  x_t: (B, 1, D); state from ``ssd_init_state``.
+    ``tp`` (the spmd token step), where the specs cut ``ssd_heads``: the
+    rank's heads, as ``ssd_block_apply`` splits them, from the rank's
+    state (its heads' ``ssm``, its channels of ``conv_x`` and, where
+    ``ssd_bc`` is cut, of ``conv_B`` / ``conv_C``); the conv is
+    depthwise, so each channel's tail stays the rank's, and B and C are
+    gathered after it for the groups its heads read."""
     G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
-    P, di = cfg.ssm_head_dim, cfg.d_inner
+    P = cfg.ssm_head_dim
     Bb = x_t.shape[0]
+    if tp is not None and not tp.splits("ssd_heads"):
+        tp = None
     xt = x_t[:, 0]
-    z = xt @ params["wz"]
+    xc = tp.copy(xt) if tp is not None else xt
+    z = xc @ params["wz"]
 
-    def piece(w, conv_w, conv_b, st):
-        h, new_st = conv1d_step(xt @ w, st, conv_w, conv_b)
+    def piece(x, w, conv_w, conv_b, st):
+        h, new_st = conv1d_step(x @ w, st, conv_w, conv_b)
         return F.silu(h.float()).to(xt.dtype), new_st
 
-    xs, cx = piece(params["wx"], params["conv_x"], params["bx"],
+    def bc(name):
+        split = tp is not None and tp.splits("ssd_bc")
+        h, st = piece(xc if split else xt, params["w" + name],
+                      params["conv_" + name], params["b" + name],
+                      state["conv_" + name])
+        if split:
+            h = tp.gather(h, -1)
+        return h.reshape(Bb, G, N), st
+
+    xs, cx = piece(xc, params["wx"], params["conv_x"], params["bx"],
                    state["conv_x"])
-    B_, cb = piece(params["wB"], params["conv_B"], params["bB"],
-                   state["conv_B"])
-    C_, cc = piece(params["wC"], params["conv_C"], params["bC"],
-                   state["conv_C"])
-    dtv = _dt(xt, params)                                       # (B, H)
+    B_, cb = bc("B")
+    C_, cc = bc("C")
+    dtv = _dt(xc, params)                                       # (B, H)
     A = -torch.exp(params["A_log"].float())
-    xs = xs.reshape(Bb, H, P)
-    B_ = B_.reshape(Bb, G, N).repeat_interleave(H // G, dim=1).float()
-    C_ = C_.reshape(Bb, G, N).repeat_interleave(H // G, dim=1).float()
+    Hl = dtv.shape[-1]
+    xs = xs.reshape(Bb, Hl, P)
+    if tp is None:
+        B_ = B_.repeat_interleave(H // G, dim=1).float()
+        C_ = C_.repeat_interleave(H // G, dim=1).float()
+    else:           # the group each of the rank's heads reads
+        idx = torch.arange(Hl, device=xt.device) + tp.rank * Hl
+        idx = idx // (H // G)
+        B_ = B_.index_select(1, idx).float()
+        C_ = C_.index_select(1, idx).float()
     decay = torch.exp(dtv * A[None, :])                         # (B, H)
     ssm = state["ssm"] * decay[..., None, None] + torch.einsum(
         "bhn,bhp,bh->bhpn", B_, xs.float(), dtv)
     y = torch.einsum("bhn,bhpn->bhp", C_, ssm)
     # the skip term in float32, as the JAX decode step adds it
     y = y + xs.float() * params["D_skip"].float()[None, :, None]
-    out = _gate_norm_out(y.reshape(Bb, di).to(x_t.dtype), z, params, cfg)
+    out = _gate_norm_out(y.reshape(Bb, Hl * P).to(x_t.dtype), z, params,
+                         cfg, tp)
     return out[:, None, :], {"ssm": ssm, "conv_x": cx, "conv_B": cb,
                              "conv_C": cc}

@@ -39,6 +39,13 @@ mean over the global batch: the loss's token count and an MoE block's
 load-balance means are summed over ``batch_axes`` here (``batch_sum``,
 ``batch_mean``), so that the ranks' losses add up to the global one.
 
+The serving steps (``steps.make_prefill_spmd``, ``make_serve_step_spmd``)
+hand the same object, built with ``means=False``, to the forward and the
+token step, which run without gradients: the MoE balance terms they
+discard are then the rank's own, with no collective.  There each rank
+also needs every kv head of a layer where it computed its own
+(``all_kv_heads``) and the max of a quantity over the axis (``pmax``).
+
 Only the collectives of the comm (``launch.mesh.MeshComm``, duck-typed:
 ``size``, ``index``, ``all_reduce``, ``all_gather``) are used, so a dry
 comm traces the same program on tensors without data.
@@ -154,16 +161,19 @@ class _LogSumExp(torch.autograd.Function):
 
 
 class TensorParallel:
-    """``TensorParallel(comm, split, batch_axes=(), axis="model")``: the
-    ranks of ``comm``'s mesh along ``axis`` split the products of the
-    logical axes in ``split`` (``sharding.axis_rules`` names: "heads",
-    "kv_heads", "ff", "vocab", "lru", "ssd_inner", "ssd_bc",
-    "ssd_heads"); ``batch_axes`` are the mesh axes the global batch is
-    cut over."""
+    """``TensorParallel(comm, split, batch_axes=(), axis="model",
+    means=True)``: the ranks of ``comm``'s mesh along ``axis`` split the
+    products of the logical axes in ``split`` (``sharding.axis_rules``
+    names: "heads", "kv_heads", "ff", "vocab", "lru", "ssd_inner",
+    "ssd_bc", "ssd_heads"); ``batch_axes`` are the mesh axes the global
+    batch is cut over; ``means=False``: ``batch_mean`` is the rank's own
+    (the serving steps, which discard it)."""
 
     def __init__(self, comm, split: Iterable[str],
-                 batch_axes: Sequence[str] = (), axis: str = "model"):
+                 batch_axes: Sequence[str] = (), axis: str = "model",
+                 means: bool = True):
         self.comm = comm
+        self.means = means
         self.axes = (axis,)
         self.size = comm.size(self.axes)
         self.rank = comm.index(self.axes)
@@ -210,9 +220,23 @@ class TensorParallel:
 
     def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
         """The mean over the batch axes of a per-rank mean over equal
-        shares; its gradient reaches each rank's share."""
+        shares; its gradient reaches each rank's share.  ``x`` itself
+        without ``means``."""
+        if not self.means:
+            return x
         return _Reduce.apply(x, self.comm, self.batch_axes) \
             / self.batch_shards
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """The maximum over the axis (no gradient)."""
+        return self.comm.all_reduce(
+            x.detach().clone(memory_format=torch.contiguous_format),
+            self.axes, "max")
+
+    def heads(self, n_heads: int) -> slice:
+        """This rank's slice of ``n_heads`` heads cut over the axis."""
+        hl = n_heads // self.size
+        return slice(self.rank * hl, (self.rank + 1) * hl)
 
     def groups(self, n_heads: int, n_groups: int) -> slice:
         """The groups that this rank's heads read, of ``n_heads`` heads in
@@ -230,3 +254,17 @@ class TensorParallel:
         """Of a replicated ``wk`` / ``wv`` (D, Hkv, dh), the kv heads that
         this rank's query heads read (``groups``)."""
         return w[:, self.groups(n_heads, n_kv_heads)]
+
+    def all_kv_heads(self, k: torch.Tensor, n_heads: int,
+                     n_kv_heads: int) -> torch.Tensor:
+        """Every kv head of keys or values (B, S, ·, dh) of which this rank
+        computed its own: its slice where the specs cut the kv heads, else
+        the kv heads of its query heads (``groups``), which ranks of one
+        group share.  Gathered over the axis (no gradient) and, where
+        ranks share a kv head, each head taken from the first rank that
+        holds it."""
+        every = self.comm.all_gather(k.contiguous(), self.axes, 2)
+        G, hl = n_heads // n_kv_heads, n_heads // self.size
+        if self.splits("kv_heads") or hl >= G:   # every rank its own
+            return every
+        return every[:, :, ::G // hl]     # G // hl ranks read one kv head

@@ -46,7 +46,8 @@ What differs from the JAX forward:
   stack without gradients and without recomputation and returns each
   layer's decode state, stacked as the JAX layer scan stacks it;
   ``decoder_forward(..., return_states=True)`` does the same for the
-  decoder, with the cross-attention keys and values.
+  decoder, with the cross-attention keys and values.  Both take ``tp``
+  there too (the spmd prefill: each state the rank's heads or channels).
 """
 from __future__ import annotations
 
@@ -373,10 +374,13 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
     before it is stacked — prefill ring-arranges there, so a windowed
     cache never holds the full sequence for every layer at once.
 
-    ``tp`` (training only): the rank's part of the tensor-parallel
-    forward (``tensor_parallel``): the embedding and every layer split
-    over the model axis where the specs cut its axes (``apply_layer``),
-    the hidden states whole on every rank."""
+    ``tp``: the rank's part of the tensor-parallel forward
+    (``tensor_parallel``; the spmd train step's, or with
+    ``return_states`` the spmd prefill's): the embedding and every layer
+    split over the model axis where the specs cut its axes
+    (``apply_layer``), the hidden states whole on every rank, and each
+    layer's decode state the rank's heads or channels, which
+    ``state_fn`` sees."""
     extras = extras or {}
     if cfg.family == "encdec":
         raise ValueError("use encdec_forward")
@@ -390,7 +394,7 @@ def forward(params, cfg: ModelConfig, tokens, extras=None, *,
             x, states, aux = _walk(params, cfg, x, rope,
                                    lambda fn, x_, p: fn(x_, p),
                                    state_fn or (lambda s, t: s),
-                                   gather_specs)
+                                   gather_specs, tp)
             x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, states, aux
     x, _, aux = _walk(params, cfg, x, rope, functools.partial(_run, cfg=cfg),
@@ -456,10 +460,10 @@ def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
     run without gradients and without recomputation, and ``states`` holds
     each layer's ``k``, ``v`` (B, S, H, dh) and ``ck``, ``cv`` (B, S_src,
     H, dh), stacked over the layers after ``state_fn`` (if given) maps
-    each layer's dict.  ``tp`` (training only): the embedding and each
-    layer split over the model axis (``_dec_layer``); ``enc_out`` goes
-    through ``tp.copy`` once, which sums its gradient over the ranks'
-    heads."""
+    each layer's dict.  ``tp``: the embedding and each layer split over
+    the model axis (``_dec_layer``; with ``return_states`` the states are
+    the rank's heads); ``enc_out`` goes through ``tp.copy`` once, which
+    sums its gradient over the ranks' heads."""
     x = embed_tokens(params, cfg, tokens, tp)
     rope = rope_for(cfg, _positions(x))
     layers = params["dec_layers"]
@@ -469,7 +473,8 @@ def decoder_forward(params, cfg: ModelConfig, tokens, enc_out, *,
         with torch.no_grad():
             for i in range(cfg.dec_layers):
                 x, st = _dec_layer(x, _wsc_tree(layer_params(layers, i),
-                                                specs), cfg, rope, enc_out)
+                                                specs), cfg, rope, enc_out,
+                                   tp)
                 states.append(state_fn(st) if state_fn else st)
             x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, _stack_states(states)

@@ -319,3 +319,59 @@ def test_moe_fsdp_layer_growth_is_less_than_its_gathered_experts(
         * 2 / split
     growth = peaks[1] - peaks[0]
     assert 0 < growth < gathered, (growth, gathered)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_serving_cell_holds_its_cache_share(no_build, kind):
+    """A serving cell of reduced llama3-8b (bf16) on a (data 2, model 4)
+    dry mesh, traced as ``run_cell`` traces it (``make_prefill_spmd`` /
+    ``make_serve_step_spmd``): the rank's decode cache — the prefill's
+    output, the token step's input and output — holds exactly its
+    ``cache_specs`` share, an eighth of the whole (the streams cut over
+    "data", the window over "model"), and no tensor gathered over "model"
+    has the local shape of a layer leaf (the layers compute on the rank's
+    shards: only activations cross the axis).  The record's
+    ``cache_bytes`` (``dryrun.cache_share_bytes``) is that share."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import trace_analysis as ta
+    from repro_torch.models import decode as dec
+
+    cfg = dataclasses.replace(t_reduced(T_REGISTRY["llama3-8b"]),
+                              param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    shape = ShapeConfig("s", kind, 64, 8)
+    mesh = Mesh(np.arange(8).reshape(2, 4), ("data", "model"))
+    comm = mesh.dry(0)
+    gathered, all_gather = [], comm.all_gather
+
+    def spy(t, axes, dim):
+        gathered.append((tuple(axes), tuple(t.shape)))
+        return all_gather(t, axes, dim)
+    comm.all_gather = spy
+    step, make_args = dryrun._build_step(
+        cfg, shape, mesh, fsdp=False, microbatches=1, opt_impl="adamw",
+        compress_pod=False, device=ta.trace_device("cuda"))
+    view = dec.cache_view_specs(cfg, shape.seq_len)
+    with FakeTensorMode(), ta.Trace() as tr:
+        args = make_args()
+        tr.begin()
+        out = step(*args)
+        tr.end(out)
+        caches = [out[1]] + ([args[1]] if kind == "decode" else [])
+        held = [sum(leaf.numel() * leaf.element_size()
+                    for leaf in dec.tree_leaves(c, view)) for c in caches]
+    full = dec.abstract_cache(cfg, shape.global_batch, shape.seq_len)
+    specs = TSH.cache_specs(cfg, mesh, full)
+    share = sum(math.prod(TSH.local_shape(f.shape, s, mesh))
+                * f.element_size() for f, s in zip(
+                    dec.tree_leaves(full, view), dec.tree_leaves(specs, view)))
+    whole = sum(f.numel() * f.element_size()
+                for f in dec.tree_leaves(full, view))
+    assert held == [share] * len(held) and share * 8 == whole
+    assert dryrun.cache_share_bytes(cfg, shape, mesh) == share
+    pspecs = TSH.param_specs(cfg, mesh)
+    weights = {TSH.local_shape(d.shape, s, mesh)[1:] for (_, d), (_, s) in
+               zip(_leaves(model_def(cfg)["layers"]),
+                   _leaves(pspecs["layers"]))}
+    over_model = [shp for axes, shp in gathered if "model" in axes]
+    assert over_model and not set(over_model) & weights

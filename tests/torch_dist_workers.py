@@ -501,3 +501,157 @@ def dist_scenarios(rank, *, arch, params, batches, cases, opt, trainer,
     out["pod_trainer"] = trainer_rows(rank, arch=arch, params=params,
                                       **pod_trainer)
     return out
+
+
+def _layer_shard_shapes(cfg, mesh, pspecs):
+    """The local shapes of the layer leaves (stacked leaves without their
+    layer axis) under ``pspecs`` that "model" cuts — what a gather of a
+    layer weight's shard over "model" would take: (those of the layers
+    the spmd steps compute on their shards, those of the layers they
+    compute whole: an SSD layer whose heads "model" does not divide)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.steps import _by_split
+    from repro_torch.models.params import STACKED, model_def, tree_map
+    defs = model_def(cfg)
+    split = _by_split(cfg, mesh, pspecs,
+                      lambda specs, on: tree_map(lambda s: on, specs))
+    out = (set(), set())
+    for key in ("layers", "groups", "tail", "enc_layers", "dec_layers"):
+        if key not in defs:
+            continue
+        for d, s, on in zip(_leaves(defs[key], stop=_is_def),
+                            _leaves(pspecs[key]), _leaves(split[key])):
+            if "model" in {a for e in s for a in sh.entry_axes(e)}:
+                shp = sh.local_shape(d.shape, s, mesh)
+                out[0 if on else 1].add(shp[1:] if key in STACKED else shp)
+    return out
+
+
+def serve_spmd_case(rank, *, arch, params, shape, axes, fsdp, over, prompt,
+                    extras, steps_extras, max_len, steps, start):
+    """``make_prefill_spmd`` and ``steps`` greedy ``make_serve_step_spmd``
+    steps (the first at position ``start``: the prompt's length, a VLM's
+    patches included; ``steps_extras`` each step's extras) on this rank of
+    a ``shape`` mesh, from the whole weights ``params`` and the global
+    prompt batch (numpy), every rank on its rows: its rows' logits of each call, its rows' greedy tokens, its
+    cache shard after the prefill and after the last step, whether each
+    cache leaf has ``cache_specs``' local shape, and the shapes of the
+    tensors it gathered over "model" beside the local shapes of the layer
+    leaves."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import REGISTRY, reduced_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_prefill_spmd, make_serve_step_spmd
+    from repro_torch.models import decode as dec
+    from repro_torch.models.params import from_reference
+
+    cfg = dataclasses.replace(reduced_config(REGISTRY[arch]), **(over or {}))
+    mesh = Mesh(np.arange(int(np.prod(shape))).reshape(shape), axes)
+    comm = mesh.comm()
+    gathered = []
+    all_gather = comm.all_gather
+
+    def spy(t, ax, dim):
+        if "model" in ax:
+            gathered.append(tuple(t.shape))
+        return all_gather(t, ax, dim)
+    comm.all_gather = spy
+    pspecs = sh.param_specs(cfg, mesh, fsdp=fsdp)
+    local = sh.shard_tree(from_reference(params, "cpu"), sh.named(mesh, pspecs))
+    bspecs = sh.named(mesh, sh.batch_specs(cfg, None, mesh))
+
+    def rows(name, a):
+        return sh.shard(torch.from_numpy(np.ascontiguousarray(a)),
+                        bspecs[name])
+
+    batch = {"tokens": rows("tokens", prompt),
+             **{k: rows(k, v) for k, v in extras.items()}}
+    B = prompt.shape[0]
+    src = extras["frame_embeds"].shape[1] if "frame_embeds" in extras else 0
+    logits, cache = make_prefill_spmd(cfg, mesh, pspecs, max_len)(local,
+                                                                  batch)
+    view = dec.cache_view_specs(cfg, max_len, src)
+    full = dec.abstract_cache(cfg, B, max_len, src)
+    cspecs = sh.cache_specs(cfg, mesh, full)
+    shapes_ok = all(
+        tuple(a.shape) == sh.local_shape(f.shape, s, mesh)
+        for a, f, s in zip(dec.tree_leaves(cache, view),
+                           dec.tree_leaves(full, view),
+                           dec.tree_leaves(cspecs, view)))
+    out = {"logits": [logits.numpy()],
+           "prefill_cache": [a.numpy().copy()
+                             for a in dec.tree_leaves(cache, view)]}
+    step = make_serve_step_spmd(cfg, mesh, pspecs, max_len, src)
+    rspec = sh.NamedSharding(mesh, sh.batch_specs(cfg, None, mesh)["tokens"])
+    pos = sh.shard(torch.full((B, 1), start, dtype=torch.int32),
+                   rspec)[:, 0]
+    toks = []
+    for i in range(steps):
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        toks.append(tok[:, 0].numpy())
+        ex = {k: sh.shard(torch.from_numpy(v[i]), sh.NamedSharding(
+            mesh, sh.P(None, sh.batch_specs(cfg, None, mesh)["tokens"][0],
+                       None))) for k, v in steps_extras.items()} or None
+        logits, cache = step(local, cache, tok, pos, ex)
+        out["logits"].append(logits.numpy())
+        pos = pos + 1
+    out["tokens"] = np.stack(toks, 1)
+    out["cache"] = [a.numpy() for a in dec.tree_leaves(cache, view)]
+    out["shapes_ok"] = shapes_ok
+    out["gathered"] = sorted(set(gathered))
+    split, whole = _layer_shard_shapes(cfg, mesh, pspecs)
+    out["layer_shards"], out["whole_layer_shards"] = sorted(split), \
+        sorted(whole)
+    return out
+
+
+def split_window_pieces(rank, *, seed):
+    """``layers.split_decode_attention`` on the (data 2, model 4) mesh's
+    model axis, each rank on its quarter of a ring's slots, against
+    ``decode_attention`` on the whole ring (float32): a ring half written,
+    so that some rank's slots are all empty; a wrapped ring under a
+    window; and a ring read through a softcap.  Returns (whole, split)
+    pairs."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import tensor_parallel
+    from repro_torch.configs import REGISTRY, reduced_config
+    from repro_torch.models import layers as L
+
+    mesh = Mesh(np.arange(8).reshape(2, 4), ("data", "model"))
+    tp = tensor_parallel(reduced_config(REGISTRY["llama3-8b"]), mesh,
+                         means=False)
+    g = torch.Generator().manual_seed(seed)
+    B, W, Hq, Hkv, dh = 3, 16, 4, 2, 8
+    out = {}
+    for name, pos, kw in (("empty_slice", [5, 7, 2], {}),
+                          ("window", [21, 40, 16], {"window": 6}),
+                          ("softcap", [30, 9, 15], {"softcap": 2.0})):
+        q = torch.randn(B, 1, Hq, dh, generator=g)
+        k = torch.randn(B, W, Hkv, dh, generator=g) * 3
+        v = torch.randn(B, W, Hkv, dh, generator=g)
+        pos = torch.tensor(pos)
+        kv_pos = L.cache_positions(pos, W)
+        want = L.decode_attention(q, k, v, kv_pos, pos, **kw)
+        n = W // tp.size
+        part = slice(tp.rank * n, (tp.rank + 1) * n)
+        got = L.split_decode_attention(q, k[:, part], v[:, part],
+                                       kv_pos[:, part], pos, tp, **kw)
+        out[name] = (want.numpy(), got.numpy(),
+                     bool(((kv_pos[:, part] < 0).all(-1)).any()))
+    return out
+
+
+def serve_spmd_scenarios(rank, *, cases, params):
+    """Every scenario of ``test_torch_serve_spmd.py`` in one spawn: each
+    case of ``cases`` (keyed by its name, as ``params`` is), then the
+    split-window pieces."""
+    out = {}
+    for c in cases:
+        kw = dict(c)
+        name = kw.pop("name")
+        out[name] = serve_spmd_case(rank, params=params[name], **kw)
+    out["split_window"] = split_window_pieces(rank, seed=3)
+    return out
