@@ -8,6 +8,7 @@
     python3 chip_smoke.py --lru-tiles  # the RG-LRU scan kernel by tile
     python3 chip_smoke.py --training-state  # phase 15 alone
     python3 chip_smoke.py --dry-run    # phases 1, 4 and 16
+    python3 chip_smoke.py --entry-points  # phases 1 and 17
 
 Phases (any error fails the run with a non-zero exit):
 
@@ -262,6 +263,23 @@ Phases (any error fails the run with a non-zero exit):
    ``prefill_32k``, ``decode_32k`` on the (16, 16) mesh), each in a
    process of its own, started together: each must end "ok"; their
    ``[dryrun]`` lines print.  The phase prints its seconds.
+17. The user entry points, last: the port's twins of the four examples
+   (``examples/{quickstart,elastic_restart,train_e2e,serve_adaptive}
+   _torch.py``), each ``main()`` on the card at its JAX example's own
+   size, ``train_e2e_torch.py`` at its 300 steps of ``model_100m()``
+   (125.8M parameters, float32) at B 8, S 256.  All four models are
+   float32: every attention launch must take the FMA route, with the
+   flash kernels' launches a forward and a backward a layer and step
+   (and a forward a layer in quickstart's prefill) and the ring's one a
+   layer and chunk tick; every geometry a twin gave a kernel must be a
+   row of ``RING_GEOMETRIES`` / ``FLASH_GEOMETRIES`` (their ``entry_*``
+   rows), which phases 2 and 2b hold.  Fails if train_e2e's mean loss of
+   the last 10 steps is not below the first 10's, if elastic_restart does
+   not resume at step 10, or if serve_adaptive leaves a request
+   unfinished or fails the pool's audit.  Prints each twin's seconds and
+   peak, train_e2e's seconds a step (steps 2-300), tokens/s, peak GiB and
+   loss, serve_adaptive's decisions and relayouts, and the phase's
+   seconds.
 The reduced float32 reference runs of phases 3, 6 and 8 include card runs
 with speculative decoding (a partial drafter), warmed steps and (phase
 12 (f)) the eager engine, the slot monolith and the scan chunk path, and
@@ -283,7 +301,9 @@ its eager prefills; ``vlm_*`` and ``encdec_*`` phase 14's launches and
 errors; ``hybrid38_launches`` and ``ef_launches`` phase 15's,
 ``spmd_*`` its (e) and ``spmd_serve_*`` its (f) launches; ``tp_prefill_*``
 the flash forward at the spmd prefill's rank shape, phase 2b;
-``starcoder_*`` the errors at starcoder2-15b's G = 12), error and times.
+``starcoder_*`` the errors at starcoder2-15b's G = 12; ``entry_launches``
+phase 17's by twin, ``entry_*max_abs_err`` the errors at its rows), error
+and times.
 """
 from __future__ import annotations
 
@@ -291,6 +311,7 @@ import argparse
 import gc
 import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -426,6 +447,14 @@ RING_GEOMETRIES = [
      (16, 16, 16, 16, 1, 16, 9, 0), 0, 0.0, "bfloat16"),
     ("starcoder_chunk_f32", 2, 16, 1024, 48, 4, 128, (700, 2100), (16, 11),
      0, 0.0, "float32"),
+    # phase 17's serve_adaptive: reduced mixtral-8x22b (float32, 4 query
+    # heads over one kv head, dh 16) chunk ticks of 16 over its 64-slot
+    # ring (window 64, max_len 96) at one and two streams a group; a
+    # prompt's first chunk, a wrapped ring and a partial chunk
+    ("entry_serve_b1", 1, 16, 64, 4, 1, 16, (32,), (16,), 64, 0.0,
+     "float32"),
+    ("entry_serve_b2", 2, 16, 64, 4, 1, 16, (48, 80), (16, 11), 64, 0.0,
+     "float32"),
 ]
 
 
@@ -573,7 +602,8 @@ def phase_ring_kernel(torch):
             elif name.startswith(("moe_", "verify_moe")) and dt == "bfloat16":
                 row["moe_max_abs_err"] = max(row.get("moe_max_abs_err", 0.0),
                                              max_err)
-            elif name.startswith(("vlm_", "encdec_", "starcoder_")):
+            elif name.startswith(("vlm_", "encdec_", "starcoder_",
+                                  "entry_")):
                 key = name.split("_")[0] + ("_max_abs_err" if dt == "bfloat16"
                                             else "_f32_max_abs_err")
                 row[key] = max(row.get(key, 0.0), max_err)
@@ -801,6 +831,14 @@ FLASH_GEOMETRIES = [
     ("tp_hybrid_g1_s4096", 2, 4096, 4096, 1, 1, 256, True, 2048),
     ("tp_encdec_enc_s2048", 2, 2048, 2048, 1, 1, 64, False, 0),
     ("tp_encdec_dec_s2048", 2, 2048, 2048, 1, 1, 64, True, 0),
+    # phase 17's twins of the examples, all float32: reduced llama3-8b (4
+    # query heads over one kv head, dh 16) trained at B 4 (quickstart) and
+    # B 8 (elastic_restart), S 64, quickstart's prefill of a 4-token
+    # prompt, and train_e2e's model_100m (12 over 4, dh 64) at B 8, S 256
+    ("entry_train_b4", 4, 64, 64, 4, 1, 16, True, 0),
+    ("entry_train_b8", 8, 64, 64, 4, 1, 16, True, 0),
+    ("entry_prefill", 1, 4, 4, 4, 1, 16, True, 0),
+    ("entry_train_e2e", 8, 256, 256, 12, 4, 64, True, 0),
 ]
 # the spmd prefill's rank shape at prefill_32k on the 16-wide "model"
 # axis: llama3-8b's 2 query heads over the one kv head they read, dh 128,
@@ -942,9 +980,10 @@ def phase_flash_kernels(torch):
             elif name == "moe_train" and dtype == "bfloat16":
                 rows["fwd"]["moe_max_abs_err"] = fwd_err
                 rows["bwd"]["moe_max_abs_err"] = bwd_err
-            elif name.startswith(("vlm_", "encdec_", "starcoder_", "tp_")):
-                # phase 14's rows, starcoder2-15b's and the spmd step's
-                # local heads, by family and route
+            elif name.startswith(("vlm_", "encdec_", "starcoder_", "tp_",
+                                  "entry_")):
+                # phase 14's rows, starcoder2-15b's, the spmd step's
+                # local heads and phase 17's, by family and route
                 fam = name.split("_")[0]
                 key = (f"{fam}_max_abs_err" if dtype == "bfloat16"
                        else f"{fam}_f32_max_abs_err")
@@ -4858,6 +4897,252 @@ def phase_dryrun(torch, phase4_launches, card, dry_cells):
     log(f"[dryrun] phase 16: {time.perf_counter() - t0:.1f} s; card {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the user entry points
+# ---------------------------------------------------------------------------
+
+# the port's twins of the JAX package's examples (``examples/*_torch.py``),
+# in the order each adds pieces to the one before
+ENTRY_TWINS = ("quickstart", "elastic_restart", "train_e2e",
+               "serve_adaptive")
+
+
+def load_twin(name):
+    """``examples/<name>_torch.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def spy_geometries(ops, seen):
+    """Wrap the attention wrappers of ``ops`` so that each call adds its
+    geometry to ``seen`` (a Counter keyed by (kernel, geometry, dtype));
+    the wrappers still count their own launches.  Returns the undo."""
+    def flash(q, k, v, *rest, causal=True, window=0):
+        return (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                q.shape[3], bool(causal), int(window))
+
+    def ring(q, k_new, v_new, k_cache, v_cache, pos, n_tokens, *, window=0,
+             softcap=0.0):
+        return (q.shape[0], q.shape[1], k_cache.shape[1], q.shape[2],
+                k_cache.shape[2], q.shape[3], int(window), float(softcap))
+
+    names = {"flash_attention_fwd": flash, "flash_attention_bwd": flash,
+             "ring_chunk_attention": ring}
+    kept = {name: getattr(ops, name) for name in names}
+
+    def spy(name):
+        fn, key = kept[name], names[name]
+
+        def call(*args, **kw):
+            seen[name, key(*args, **kw), str(args[0].dtype)[6:]] += 1
+            return fn(*args, **kw)
+        for attr in ("launches", "wgmma_launches"):
+            if hasattr(fn, attr):
+                setattr(call, attr, getattr(fn, attr))
+        return call
+
+    for name in names:
+        setattr(ops, name, spy(name))
+
+    def undo():
+        # a wrapper counts its launches on the name it is called by, which
+        # was the spy's: its counts go back to the wrapper
+        for name, fn in kept.items():
+            for attr in ("launches", "wgmma_launches"):
+                if hasattr(fn, attr):
+                    setattr(fn, attr, getattr(getattr(ops, name), attr))
+            setattr(ops, name, fn)
+    return undo
+
+
+def held_geometries(seen):
+    """Each geometry of ``seen`` against the rows phases 2 and 2b hold
+    against the plain version (every row in bf16, the float32 ones in
+    float32 too; the flash main path in bf16 only): the ones no row
+    holds."""
+    ring = {(g[1:7] + g[9:11]): g[11] for g in RING_GEOMETRIES}
+    flash = {g[1:]: g[0] for g in [FLASH_MAIN, FLASH_HYBRID]
+             + FLASH_GEOMETRIES}
+    missing = []
+    for (name, geo, dtype) in seen:
+        if name == "ring_chunk_attention":
+            ok = geo in ring and dtype in (ring[geo], "bfloat16")
+        else:
+            ok = geo in flash and (dtype == "bfloat16"
+                                   or flash[geo] != "main_path")
+        if not ok:
+            missing.append((name, geo, dtype))
+    return missing
+
+
+def entry_counts(ops):
+    """Each attention kernel's launches since the counts were zeroed, by
+    route: (tensor-core, FMA)."""
+    parts = {"ring_chunk_attention": ops.ring_chunk_attention,
+             "flash_attention_fwd": ops.flash_attention,
+             "flash_attention_bwd": ops.flash_attention_bwd}
+    return {name: (fn.wgmma_launches, fn.launches - fn.wgmma_launches)
+            for name, fn in parts.items()}
+
+
+def run_twin(torch, ops, name, work):
+    """One twin's ``main()`` on the card, as a user runs it (no device
+    given: CUDA), with every attention count zeroed just before and read
+    just after.  Returns (its output, launches by kernel and route, the
+    geometries it gave the kernels, its seconds, its peak GiB)."""
+    import collections
+    import os
+    for fn in (ops.ring_chunk_attention, ops.flash_attention,
+               ops.flash_attention_bwd):
+        fn.launches = 0
+        fn.wgmma_launches = 0
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    seen = collections.Counter()
+    mod = load_twin(name)
+    kw = {} if name == "serve_adaptive" else {
+        "workdir": os.path.join(work, name)}
+    t0 = time.perf_counter()
+    undo = spy_geometries(ops, seen)
+    try:
+        out = mod.main(**kw)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    secs = time.perf_counter() - t0
+    return (out, entry_counts(ops), seen, secs,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def phase_entry_points(torch, rows, card):
+    """Phase 17: the four user entry points of the port, each twin's
+    ``main()`` on the card at its JAX example's own size —
+    ``train_e2e_torch.py`` at its default 300 steps of ``model_100m()``
+    (125.8M parameters, which the example's docstring rounds to "~116M";
+    float32) at B 8, S 256.  Each kernel's launches by
+    route: every twin's model is float32, so every launch must take the
+    FMA route and each kernel it reaches must launch; the training twins'
+    flash launches are a forward and a backward a layer and step (and
+    quickstart's prefill a forward a layer), serve_adaptive's ring
+    launches one a layer and chunk tick.  Every geometry a twin gave a
+    kernel must be a row that phases 2 and 2b hold against the plain
+    version.  Fails if train_e2e's mean loss of the last 10 steps is not
+    below the first 10's (the example's own assert), if elastic_restart
+    does not resume at step 10, or if serve_adaptive leaves a request
+    unfinished or fails the pool's audit.  ``rows``: the kernels line's
+    rows, which get the launches (``entry_launches``)."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels.flash_attention import ops
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    launches = {}
+    try:
+        for name in ENTRY_TWINS:
+            log(f"[entry] {name}_torch.py on the card ({card})")
+            out, counts, seen, secs, peak = run_twin(torch, ops, name, work)
+            launches[name] = counts
+            missing = held_geometries(seen)
+            log(f"[entry] {name}: {secs:.1f} s, peak {peak:.3f} GiB; "
+                f"launches (tensor-core, FMA) {counts}; geometries "
+                f"{sorted(set(seen))}")
+            if missing:
+                raise AssertionError(f"{name}: no row of RING_GEOMETRIES / "
+                                     f"FLASH_GEOMETRIES holds {missing}")
+            if any(wg for wg, _ in counts.values()):
+                raise AssertionError(f"{name}: a float32 call took the "
+                                     f"tensor-core route: {counts}")
+            check_entry(name, out, counts, peak, card)
+            shutil.rmtree(Path(work) / name, ignore_errors=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for i, kernel in enumerate(("ring_chunk_attention", "flash_attention_fwd",
+                                "flash_attention_bwd")):
+        rows[i]["entry_launches"] = {
+            name: sum(launches[name][kernel]) for name in ENTRY_TWINS
+            if sum(launches[name][kernel])}
+    log(f"[entry] phase 17: {time.perf_counter() - t0:.1f} s; card {card}")
+
+
+def unigram_entropy(n_tokens):
+    """The entropy (nats) of the token frequencies of the first
+    ``n_tokens`` train_e2e's loader reads: its corpus's shard 0 (2M
+    tokens, i.i.d. Zipf draws and document ends)."""
+    import numpy as np
+    from repro_torch.data.pipeline import SyntheticCorpus
+    toks = SyntheticCorpus(32768, seed=1234).shard_tokens(0, 2_000_000)
+    counts = np.bincount(toks[:n_tokens], minlength=32768)
+    p = counts[counts > 0] / n_tokens
+    return float(-(p * np.log(p)).sum())
+
+
+def check_entry(name, out, counts, peak, card):
+    """Phase 17's gates and figures for one twin's output ``out``."""
+    from repro_torch.configs import REGISTRY, reduced_config
+    fwd, bwd, ring = (sum(counts[k]) for k in (
+        "flash_attention_fwd", "flash_attention_bwd", "ring_chunk_attention"))
+    if name == "quickstart":
+        layers = reduced_config(REGISTRY["llama3-8b"]).n_layers
+        want = (layers * (out["steps"] + 1), layers * out["steps"], 0)
+        if len(out["generated"]) != 12 or not all(
+                math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"quickstart: {out['generated']}, losses "
+                                 f"{out['losses']}")
+    elif name == "elastic_restart":
+        if out["resumed_at"] != 10 or out["failure"] is None \
+                or out["steps"] != 30 or len(out["losses"]) != 20:
+            raise AssertionError(f"elastic_restart: failure "
+                                 f"{out['failure']!r}, resumed at "
+                                 f"{out['resumed_at']}, {out['steps']} steps")
+        layers = reduced_config(REGISTRY["llama3-8b"]).n_layers
+        # run 1 took 17 steps before its injected failure, run 2 20
+        want = (layers * 37, layers * 37, 0)
+    elif name == "train_e2e":
+        steady = out["step_times"][1:]
+        step_s = sum(steady) / len(steady)
+        B, S = 8, 256
+        log(f"[entry] train_e2e {out['model']} ({out['n_params']} "
+            f"parameters, float32) B={B} S={S}: {out['steps']} steps, "
+            f"{step_s:.6f} s a step (mean of steps 2-{out['steps']}, each "
+            f"to its loss on the host), {B * S / step_s:.1f} tokens/s "
+            f"(the example's own, wall time with data and checkpoints: "
+            f"{out['tok_per_s']:.1f}), first step {out['step_times'][0]:.3f}"
+            f" s, peak {peak:.3f} GiB; loss first 10 "
+            f"{out['loss_first10']:.6f} -> last 10 {out['loss_last10']:.6f}"
+            f"; stragglers {out['stragglers']}; card {card}")
+        log(f"[entry] train_e2e losses every 10 steps: "
+            f"{[round(x, 4) for x in out['losses'][::10]]}; the unigram "
+            f"entropy of the tokens it read, the loss of a model that "
+            f"learned their frequencies alone: "
+            f"{unigram_entropy(out['steps'] * B * (S + 1)):.6f} nats")
+        if out["steps"] != 300 or not out["loss_last10"] < out[
+                "loss_first10"]:
+            raise AssertionError("train_e2e: the loss did not fall")
+        want = (12 * 300, 12 * 300, 0)
+    else:
+        eng = out["engine"]
+        if len(eng.submitted) != 16 or not all(r.done
+                                               for r in eng.submitted):
+            raise AssertionError("serve_adaptive: a request is unfinished")
+        eng.pool.audit([])
+        moves = [tuple(r[k] for k in ("step", "old_groups", "new_groups",
+                                      "moved_slots", "requeued"))
+                 for r in out["relayouts"]]
+        log(f"[entry] serve_adaptive decisions {out['decisions']}; "
+            f"relayouts (step, old groups, new groups, streams re-pointed, "
+            f"requeued) {moves}; chunk ticks "
+            f"{eng.kv_stats()['chunk_ticks']:.0f}; card {card}")
+        layers = eng.cfg.n_layers
+        want = (0, 0, layers * int(eng.kv_stats()["chunk_ticks"]))
+    if (fwd, bwd, ring) != want or not any(want):
+        raise AssertionError(f"{name}: launches (flash forward, backward, "
+                             f"ring) {(fwd, bwd, ring)}, expected {want}")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4886,6 +5171,9 @@ def main() -> int:
                     help="phase 1, the flash forward's tp_prefill row, then "
                          "phase 15 (f) with each run's token steps under "
                          "torch.profiler and cProfile, and stop")
+    ap.add_argument("--entry-points", action="store_true",
+                    help="phase 1, then phase 17 (the port's twins of the "
+                         "four examples on the card), and stop")
     ap.add_argument("--profile", action="store_true",
                     help="time phases 3's, 6's and 8's two step kinds, "
                          "then replay each on a fresh engine under "
@@ -4927,6 +5215,9 @@ def main() -> int:
     if args.dry_run:
         launches = phase_train_main(torch, fa_ops, False)
         phase_dryrun(torch, launches, card, start_dry_cells())
+        return 0
+    if args.entry_points:
+        phase_entry_points(torch, [{} for _ in range(3)], card)
         return 0
     rows = [phase_ring_kernel(torch)]
     flash = phase_flash_kernels(torch)
@@ -5020,6 +5311,8 @@ def main() -> int:
         # phase 16; its (b) processes start after phase 15's timed steps,
         # so that none of those ran beside them on the host
         phase_dryrun(torch, flash_launches, card, start_dry_cells())
+        free_card(torch)
+        phase_entry_points(torch, rows, card)      # phase 17
     log(f"[smoke] {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -23,6 +23,25 @@ from repro_torch.kernels.flash_attention import ops, ref
 NEG_INF = -1e30
 
 
+def records_grad(x, tree) -> bool:
+    """Whether autograd records a function of ``x`` and the tensors of
+    ``tree`` (a nested dict): only then has a recomputation in the
+    backward (``torch.utils.checkpoint``) anything to spare.  A serving
+    step's weights require no gradient, so it calls its blocks directly
+    (a first checkpoint also imports ``torch._dynamo``, seconds of host
+    time)."""
+    if not torch.is_grad_enabled():
+        return False
+    todo = [x, tree]
+    while todo:
+        t = todo.pop()
+        if isinstance(t, dict):
+            todo.extend(t.values())
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            return True
+    return False
+
+
 # ---------------------------------------------------------------------------
 # Projections with float32 output
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ the ``wo`` product are rounded to the compute type, a kept claim's gate
 is rounded to it, and the sum over a token's claims is float32 before
 its rounding.
 
-Recomputation.  Under autograd with ``cfg.remat == "none"`` each token
+Recomputation.  Where autograd records the layer
+(``layers.records_grad``) with ``cfg.remat == "none"``, each token
 block is recomputed in its backward (``torch.utils.checkpoint``), so no
 block's slot buffers are saved.  With remat on, the layer's own
 checkpoint (``transformer._run``) recomputes the whole MoE forward in the
@@ -74,7 +75,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import bmm_f32, ffn_activation, matmul_f32
+from repro_torch.models.layers import (bmm_f32, ffn_activation, matmul_f32,
+                                      records_grad)
 
 
 def top_k_lowest_first(logits, k: int):
@@ -192,10 +194,11 @@ def moe_apply(x, params, cfg: ModelConfig, *, dropless: bool = False,
                        activation=cfg.activation, dropless=dropless, tp=tp)
         return y, aux["lb_loss"], aux["dropped"]
 
+    recompute = cfg.remat == "none" and records_grad(x, params)
     ys, lbs, drops = [], [], []
     for s0 in range(0, S_pad, blk_s):
         xb = x[:, s0:s0 + blk_s]
-        if torch.is_grad_enabled() and cfg.remat == "none":
+        if recompute:
             y, lb, dr = checkpoint(block, xb, params, use_reentrant=False)
         else:
             y, lb, dr = block(xb, params)

@@ -274,8 +274,9 @@ def _gathered(fn, specs):
 
 
 def _run(fn, x, p, cfg: ModelConfig):
-    """``fn(x, p)``, recomputed in the backward pass unless remat is off."""
-    if cfg.remat == "none":
+    """``fn(x, p)``, recomputed in the backward pass unless remat is off
+    or autograd records nothing (``layers.records_grad``)."""
+    if cfg.remat == "none" or not L.records_grad(x, p):
         return fn(x, p)
     return checkpoint(lambda x_: fn(x_, p), x, use_reentrant=False)
 

@@ -217,7 +217,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def run(self, steps: Optional[int] = None) -> Dict[str, Any]:
         steps = steps or self.tcfg.steps
-        losses = []
+        losses, step_times = [], []
         t_train0 = time.monotonic()
         while self.step < steps:
             if self.failure is not None:
@@ -236,6 +236,7 @@ class Trainer:
             loss = float(metrics["loss"])     # waits for the step
             dt = time.monotonic() - t0
             losses.append(loss)
+            step_times.append(dt)
             self.step += 1
 
             moved = {k: v - before.get(k, 0.0)
@@ -264,7 +265,9 @@ class Trainer:
                     blocking=not self.tcfg.async_ckpt,
                     shardings=self._shardings())
         self.ckpt.wait()
+        # step_times: each step's seconds, from its launch to its loss on
+        # the host (the port's own key; the JAX Trainer has none)
         return {"losses": losses, "steps": self.step,
-                "wall": time.monotonic() - t_train0,
+                "wall": time.monotonic() - t_train0, "step_times": step_times,
                 "straggler_events": list(self.straggler.events),
                 "counters": self.counters.snapshot()}

@@ -1822,6 +1822,14 @@ class ServeEngine:
             if self._prefill_mode == "parallel" else 0.0)
         s["chunk_kernel"] = self._chunk_kernel
         tot = self.counters.totals
+        for k in ("mixed_tick_decode_rows_saved", "decode_gather_rows_saved",
+                  "decode_masked_query_rows", "prefill_model_steps",
+                  "chunk_ticks"):
+            s[k] = tot.get(k, 0.0)
+        s["evictions"] = tot.get("kv_evictions", 0.0)
+        s["recompute_tokens"] = tot.get("recompute_tokens", 0.0)
+        s["blocks_per_relayout"] = [r.get("blocks_migrated", 0.0)
+                                    for r in self.relayouts]
         # speculative decoding: acceptance totals, forward participations
         # (the denominators of accepted tokens per model step) and the
         # costmodel-priced bytes optimism wasted
@@ -1830,7 +1838,9 @@ class ServeEngine:
                   "spec_reapply_forwards", "spec_row_forwards",
                   "spec_row_reapplies", "spec_tokens_drafted",
                   "spec_tokens_accepted", "spec_rollbacks",
-                  "spec_full_rejects", "spec_accept_rate"):
+                  "spec_full_rejects", "spec_accept_rate",
+                  "decode_forwards", "decode_row_forwards",
+                  "decode_committed_tokens"):
             s[k] = tot.get(k, 0.0)
         s["spec_rejected_bytes"] = spec_rejected_bytes(
             self.cfg, int(s["spec_tokens_drafted"] - s["spec_tokens_accepted"]))
@@ -1840,15 +1850,6 @@ class ServeEngine:
             self.pool.block_tokens,
             ckpts=int(tot.get("kv_spec_ckpts", 0.0)),
             rollbacks=int(s["spec_rollbacks"]))
-        for k in ("mixed_tick_decode_rows_saved", "decode_gather_rows_saved",
-                  "decode_masked_query_rows", "prefill_model_steps",
-                  "chunk_ticks", "decode_forwards", "decode_row_forwards",
-                  "decode_committed_tokens"):
-            s[k] = tot.get(k, 0.0)
-        s["evictions"] = tot.get("kv_evictions", 0.0)
-        s["recompute_tokens"] = tot.get("recompute_tokens", 0.0)
-        s["blocks_per_relayout"] = [r.get("blocks_migrated", 0.0)
-                                    for r in self.relayouts]
         s["bypass_grants"] = tot.get("kv_bypass_grants", 0.0)
         s["bypass_floor_pages"] = tot.get("kv_bypass_floor_pages", 0.0)
         s["bypass_floor_bytes"] = kv_bypass_floor_bytes(

@@ -1342,6 +1342,12 @@ class KVBlockPool:
             "mid_decode_parks": snap.get("kv_mid_decode_parks", 0.0),
             "prefill_chunks": snap.get("prefill_chunks", 0.0),
             "spills": snap.get("kv_spills", 0.0),
+            "spilled_pages": snap.get("kv_spilled_pages", 0.0),
+            "restores": snap.get("kv_restores", 0.0),
+            "restore_failures": snap.get("kv_restore_failures", 0.0),
+            "spill_repoints": snap.get("kv_spill_repoints", 0.0),
+            "spilled_tables": float(self.spilled_tables),
+            "peak_spilled_bytes": self.peak_spilled_bytes,
             # async transfer engine: issue/poll/fence overlap surface
             "spill_issues": snap.get("kv_spill_issues", 0.0),
             "spill_inflight_pages": float(self.inflight_pages()),
@@ -1349,15 +1355,9 @@ class KVBlockPool:
             "spill_overlap_rounds": snap.get("kv_spill_overlap_rounds",
                                              0.0),
             "fence_waits": snap.get("kv_fence_waits", 0.0),
-            "spilled_pages": snap.get("kv_spilled_pages", 0.0),
-            "restores": snap.get("kv_restores", 0.0),
-            "restore_failures": snap.get("kv_restore_failures", 0.0),
-            "restore_prefetches": snap.get("kv_restore_prefetches", 0.0),
-            "spill_repoints": snap.get("kv_spill_repoints", 0.0),
-            "spilled_tables": float(self.spilled_tables),
-            "peak_spilled_bytes": self.peak_spilled_bytes,
             "d2h_bytes": snap.get("kv_d2h_bytes", 0.0),
             "h2d_bytes": snap.get("kv_h2d_bytes", 0.0),
+            "restore_prefetches": snap.get("kv_restore_prefetches", 0.0),
             "swap_tier": self.swap.stats(),
             "bytes_per_domain": self.domain_bytes(),
             "prefill_chunk_bytes": prefill_chunk_bytes(
@@ -1376,15 +1376,15 @@ class KVBlockPool:
             "shared_pages": float(self.shared_pages()),
             "shared_extra_refs": float(self.shared_extra_refs()),
             "cached_pages": float(self.cached_pages()),
+            # cached-tier retention (access-ordered vs blind)
+            "retention": self.retention,
+            "cached_page_hits": snap.get("kv_cached_page_hits", 0.0),
+            "cached_reclaims": snap.get("kv_cached_reclaims", 0.0),
             # speculative decode rollback traffic (engine-side accept
             # counters live in kv_stats; these are the pool's halves)
             "spec_ckpts": snap.get("kv_spec_ckpts", 0.0),
             "spec_ckpt_pages": snap.get("kv_spec_ckpt_pages", 0.0),
             "spec_rollback_pages": snap.get("kv_spec_rollback_pages", 0.0),
-            # cached-tier retention (access-ordered vs blind)
-            "retention": self.retention,
-            "cached_page_hits": snap.get("kv_cached_page_hits", 0.0),
-            "cached_reclaims": snap.get("kv_cached_reclaims", 0.0),
             "shared_bytes": self.shared_bytes(),
             "resident_kv_bytes": self.used_blocks() * self.bytes_per_block(),
             "logical_kv_bytes": (self.used_blocks()

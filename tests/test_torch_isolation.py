@@ -2,6 +2,7 @@
 neither JAX nor the JAX package, and the port's entry points run on CUDA
 unless the caller asks for the CPU — with no path that quietly falls back
 to the CPU or to the plain attention."""
+import importlib.util
 import inspect
 import os
 import re
@@ -14,6 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = ROOT / "examples"
+TWINS = ("quickstart", "elastic_restart", "train_e2e", "serve_adaptive")
 FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
                        r"|from\s+repro(\.|\s+import\b))", re.M)
 
@@ -32,6 +35,11 @@ import repro_torch.models.moe, repro_torch.serving.kvpool
 import repro_torch.launch.inputs, repro_torch.launch.analysis
 import repro_torch.launch.dryrun, repro_torch.launch.trace_analysis
 import repro_torch.kernels.dry
+import importlib.util, pathlib
+for name in ("quickstart", "elastic_restart", "train_e2e", "serve_adaptive"):
+    path = pathlib.Path(sys.argv[1]) / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(",".join(bad))
@@ -40,7 +48,8 @@ print(",".join(bad))
 
 def test_import_pulls_in_no_jax_and_no_reference_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = subprocess.run([sys.executable, "-c", PROBE], env=env,
+    out = subprocess.run([sys.executable, "-c", PROBE, str(EXAMPLES)],
+                         env=env,
                          capture_output=True, text=True, timeout=300,
                          check=True)
     assert out.stdout.strip() == "", out.stdout
@@ -87,6 +96,34 @@ def test_trainer_without_device_asks_for_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(reduced_config(REGISTRY["llama3.2-3b"]), None,
                 TrainerConfig(ckpt_dir=str(tmp_path)))
+
+
+def load_twin(name):
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", EXAMPLES / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_example_twin_names_no_jax_import(name):
+    """The port's twin of each example imports the port, and neither JAX
+    nor the JAX package."""
+    src = (EXAMPLES / f"{name}_torch.py").read_text()
+    assert not FORBIDDEN.search(src)
+    assert re.search(r"^from repro_torch\.", src, re.M)
+
+
+@pytest.mark.parametrize("name", TWINS)
+def test_example_twin_without_device_asks_for_cuda(name, monkeypatch,
+                                                   tmp_path):
+    """Each twin's ``main()`` without ``device`` wants a card: where none
+    is visible it raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = {} if name == "serve_adaptive" else {"workdir": str(tmp_path)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_twin(name).main(**kw)
 
 
 def test_flash_wrappers_have_no_fallback():

@@ -190,6 +190,34 @@ def test_top_k_ties_take_the_lower_index():
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
+def test_blocks_recompute_only_where_autograd_records(monkeypatch):
+    """A step whose weights require no gradient (a serving step) calls
+    its MoE blocks directly, as JAX's serve steps do; a training forward
+    wraps each block in a checkpoint.  On the card a first checkpoint
+    imports ``torch._dynamo``: 12.6 s before serve_adaptive_torch.py's
+    first token (PR 28, call 2)."""
+    _, tcfg = configs("mixtral-8x22b")
+    params = layer0(init_params(tcfg, torch.Generator().manual_seed(0),
+                                device="cpu"))
+    x = torch.randn(B, S, tcfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    calls = []
+    real = TM.checkpoint
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(TM, "checkpoint", spy)
+    served, _ = TM.moe_apply(x, params, tcfg, dropless=True)
+    assert calls == []
+    trained = {k: v.clone().requires_grad_() for k, v in params.items()}
+    y, _ = TM.moe_apply(x, trained, tcfg, dropless=True)
+    # one checkpoint a block of the sequence
+    assert len(calls) == -(-S // max(1, min(tcfg.moe_block // B, S)))
+    torch.testing.assert_close(y, served, rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # The model: forward, loss, gradients, train steps
 # ---------------------------------------------------------------------------
